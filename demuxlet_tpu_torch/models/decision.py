@@ -1,0 +1,194 @@
+"""Device-side decision pass (port of ``demuxlet_tpu/models/decision.py``).
+
+``decide`` and ``compact_step_body`` run in torch float64 on the block's
+device and keep the packed (B, 2V+A+11) f64 row layout, so
+``unpack_block`` and the shared renderer (``models/outputs.py``
+``write_pass2_compact``) work unchanged. Semantics: first-occurrence
+argmaxes (``torch.argmax`` returns the first maximum), the -1e300-seeded
+second best, -inf masking of excluded doublet channels.
+
+``CompactResult``, ``doublet_weights``, ``doublet_mask``, ``take``,
+``concat``, ``_PACK_KEYS`` and ``unpack_block`` are copies of the JAX
+module's JAX-free helpers (that module imports JAX at the top);
+tests/test_torch_decision.py pins each copy equal to the original.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from demuxlet_tpu_torch.ops.front import fast_front
+from demuxlet_tpu_torch.ops.pair import pair_llks
+
+
+@dataclass
+class CompactResult:
+    """Per-cell decision outputs (numpy, trimmed to real cells)."""
+
+    sing_col: np.ndarray  # (n, V)   llkAB[j,0,0]
+    llk_00: np.ndarray  # (n, A)
+    max_llk: np.ndarray  # (n,)
+    sum_single: np.ndarray  # (n,)
+    sum_double: np.ndarray  # (n,)
+    i_sing1: np.ndarray  # (n,) int
+    i_sing2: np.ndarray  # (n,) int
+    max_sing2: np.ndarray  # (n,)  second-best value (seeded -1e300)
+    best_flat: np.ndarray  # (n,) int flat (j,k,a) argmax over doublet mask
+    pair_llk12: np.ndarray  # (n,)
+    pair_llk10: np.ndarray  # (n,)  llkAB[j_best, 0, a_best] (reference quirk)
+    pair_llk20: np.ndarray  # (n,)  llkAB[k_best, 0, a_best]
+
+
+def doublet_weights(nv: int, grid_alpha: Sequence[float], doublet_prior: float):
+    """(V,V,A) posterior weights of cmd_cram_demuxlet.cpp:724-734."""
+    na = len(grid_alpha)
+    w = np.zeros((nv, nv, na))
+    if nv > 1 and na > 1:
+        for n in range(1, na):
+            w[:, :, n] = (
+                doublet_prior
+                / nv
+                / (nv - 1)
+                / (na - 1)
+                / (2.0 if grid_alpha[n] == 0.5 else 1.0)
+            )
+        for j in range(nv):
+            w[j, j, :] = 0.0
+    return w
+
+
+def doublet_mask(nv: int, na: int) -> np.ndarray:
+    """(V,V,A) bool argmax mask: j != k, alpha index >= 1 (:799-814) —
+    independent of the posterior weights (which can be all-zero)."""
+    m = np.ones((nv, nv, na), dtype=bool)
+    for j in range(nv):
+        m[j, j, :] = False
+    m[:, :, 0] = False
+    return m
+
+
+def take(res: CompactResult, idx: np.ndarray) -> CompactResult:
+    """Reindex every per-cell field (row i of the result <- row idx[i]);
+    used to undo the engine's coverage-sorted block permutation."""
+    return CompactResult(**{
+        f.name: getattr(res, f.name)[idx]
+        for f in dataclasses.fields(CompactResult)
+    })
+
+
+def concat(parts: Sequence[dict]) -> CompactResult:
+    cat = lambda k: np.concatenate([p[k] for p in parts])
+    return CompactResult(
+        sing_col=cat("sing_col").astype(np.float64),
+        llk_00=cat("llk_00").astype(np.float64),
+        max_llk=cat("max_llk").astype(np.float64),
+        sum_single=cat("sum_single").astype(np.float64),
+        sum_double=cat("sum_double").astype(np.float64),
+        i_sing1=cat("i_sing1").astype(np.int64),
+        i_sing2=cat("i_sing2").astype(np.int64),
+        max_sing2=cat("max_sing2").astype(np.float64),
+        best_flat=cat("best_flat").astype(np.int64),
+        pair_llk12=cat("pair_llk12").astype(np.float64),
+        pair_llk10=cat("pair_llk10").astype(np.float64),
+        pair_llk20=cat("pair_llk20").astype(np.float64),
+    )
+
+
+_PACK_KEYS = (
+    "max_llk", "sum_single", "sum_double", "i_sing1", "i_sing2",
+    "max_sing2", "best_flat", "pair_llk12", "pair_llk10", "pair_llk20",
+)
+
+
+def unpack_block(packed: np.ndarray, n_samples: int, n_alpha: int):
+    """Split the packed (m, 2V+A+11) array back into (llks, llk0s, dict)."""
+    V, A = n_samples, n_alpha
+    o = 0
+    out = {}
+    out["sing_col"] = packed[:, o : o + V]; o += V
+    out["llk_00"] = packed[:, o : o + A]; o += A
+    for k in _PACK_KEYS:
+        out[k] = packed[:, o]; o += 1
+    llks = packed[:, o : o + V]; o += V
+    llk0s = packed[:, o]; o += 1
+    return llks, llk0s, out
+
+
+def decide(llk_ab, llk_00, dbl_w, dbl_msk, doublet_prior):
+    """Decision pass on device. llk_ab (B,V,V,A), llk_00 (B,A); dbl_w
+    (V,V,A) and dbl_msk (V,V,A) bool built on the host. Returns a dict of
+    per-cell tensors."""
+    B, V, _, A = llk_ab.shape
+    flat = llk_ab.reshape(B, -1)
+    # -1e300 seed (:476-501); f32 cannot hold it, so its floor is finfo.min
+    seed = -1e300 if flat.dtype == torch.float64 else float(
+        torch.finfo(flat.dtype).min)
+    max_llk = torch.clamp(flat.max(dim=1).values, min=seed)
+    sing_col = llk_ab[:, :, 0, 0]
+    sum_single = (
+        torch.exp(sing_col - max_llk[:, None]).sum(dim=1)
+        * (1.0 - doublet_prior)
+        / V
+    )
+    sum_double = torch.einsum(
+        "cjkn,jkn->c", torch.exp(llk_ab - max_llk[:, None, None, None]), dbl_w
+    )
+    rows = torch.arange(B, device=llk_ab.device)
+    i1 = torch.argmax(sing_col, dim=1)
+    masked = sing_col.clone()
+    masked[rows, i1] = -torch.inf
+    i2 = torch.argmax(masked, dim=1)
+    max2 = torch.clamp(masked[rows, i2], min=seed)
+    flat_masked = torch.where(dbl_msk.reshape(1, -1), flat, -torch.inf)
+    best = torch.argmax(flat_masked, dim=1)
+    jb = best // (V * A)
+    kb = (best // A) % V
+    ab_ = best % A
+    return dict(
+        sing_col=sing_col,
+        llk_00=llk_00,
+        max_llk=max_llk,
+        sum_single=sum_single,
+        sum_double=sum_double,
+        i_sing1=i1,
+        i_sing2=i2,
+        max_sing2=max2,
+        best_flat=best,
+        pair_llk12=llk_ab[rows, jb, kb, ab_],
+        pair_llk10=llk_ab[rows, jb, 0, ab_],
+        pair_llk20=llk_ab[rows, kb, 0, ab_],
+    )
+
+
+def pack_rows(out, llk, llk0):
+    """decide() output + singlet LLKs -> the packed (B, 2V+A+11) f64 rows
+    [sing_col(V), llk_00(A), _PACK_KEYS(10), llks(V), llk0s(1)]; integer
+    fields ride as exact small f64s."""
+    cols = [out["sing_col"], out["llk_00"]]
+    for k in _PACK_KEYS:
+        cols.append(out[k].to(torch.float64)[:, None])
+    cols.append(llk.to(torch.float64))
+    cols.append(llk0.to(torch.float64)[:, None])
+    return torch.cat(cols, dim=1)
+
+
+def compact_step_body(
+    codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext, dbl_w, dbl_msk,
+    n_alpha, n_samples, doublet_prior, a0_sep=False, sym_a=None,
+    expand=None, wire=None, pair_fn=pair_llks,
+):
+    """Fused fast block step + decision pass, packed into ONE (B, 2V+A+11)
+    f64 tensor on the block's device."""
+    llk, llk0, llk_ab, llk_00 = fast_front(
+        codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext,
+        n_alpha, n_samples, a0_sep=a0_sep, sym_a=sym_a, expand=expand,
+        wire=wire, pair_fn=pair_fn,
+    )
+    out = decide(llk_ab.to(torch.float64), llk_00.to(torch.float64),
+                 dbl_w, dbl_msk, doublet_prior)
+    return pack_rows(out, llk, llk0)

@@ -1,0 +1,118 @@
+"""Fused fast-mode block step: shipped block -> (llk, llk0, llk_ab, llk_00)
+(port of ``demuxlet_tpu/ops/pallas_pair.py::demux_block_fast_impl``
+:1028-1180).
+
+Plain PyTorch around the pair kernel, as the JAX package left this part
+to XLA:
+
+* counts: one (R+1, B*S) f32 count table per block, filled by
+  ``scatter_add_`` of 1.0 from the dense UMI lanes and from the v2 wire's
+  deep-lane tail (row R is a trash row for dropped tail entries, so no
+  index leaves the tensor). Adding 1.0s in f32 is exact in any order, so
+  the counts equal the JAX one-hot counts bit for bit;
+* the LUT contraction ``lograw = [w_ext | logf_ext].T @ counts`` with TF32
+  off (``utils/device.py``), channel-leading like the JAX front; the
+  matmul may sum the R rows in another order than XLA (last-bit
+  differences in lograw, well inside the 1e-5 relative front tolerance);
+* ``norm_t``, the pass-1 GL table, the neutral-row gps/gp0 gather, the
+  pair search (``ops/pair.pair_llks``) and the singlet contraction.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from demuxlet_tpu_torch.ops.pair import norm_t, pair_llks
+from demuxlet_tpu_torch.ops.wire import unpack_block_inputs, unpack_wire_v2
+
+
+def _counts(c, R):
+    """(B, S, U) LUT rows in [0, R) -> (R+1, B*S) f32 counts (row R empty
+    until tail scatters use it as trash)."""
+    B, S, U = c.shape
+    BS = B * S
+    pos = torch.arange(BS, device=c.device).view(B, S, 1)
+    flat = (c.to(torch.int64) * BS + pos).reshape(-1)
+    cnt = torch.zeros((R + 1) * BS, dtype=torch.float32, device=c.device)
+    cnt.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+    return cnt
+
+
+def fast_front(codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext,
+               n_alpha, n_samples, a0_sep=False, sym_a=None, expand=None,
+               wire=None, pair_fn=pair_llks):
+    """codes/idx/msk/wire: any shipped block form (``ops/wire.py``).
+    gps_table (NS, V, 3) f32, gp0_table (NS, 3) f32; w_ext (R, C) the
+    deduplicated pair LUT and logf_ext (R, 3) the singlet LUT, each with
+    the zero none row last. pair_fn is the pair search; the engine always
+    uses ``pair_llks``, a check may pass ``pair_llks_plain``.
+
+    Returns (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A))
+    f32."""
+    V, A = n_samples, n_alpha
+    R, C = w_ext.shape
+    none_row = R - 1
+    if wire is not None and wire[0] == "w2":
+        # the dense lanes count directly; deep-lane tail entries add into
+        # the same table instead of being rebuilt into lanes
+        dense, tail, idx, msk = unpack_wire_v2(codes, wire, parts=True)
+        B, S, _ = dense.shape
+        cnt = _counts(dense.clamp(max=none_row), R)
+        if tail is not None:
+            tpos, tcode = tail
+            tslot = tpos // (wire[2] - wire[3])
+            # pad entries carry tcode == none (row R) and tslot >= S
+            keep = (tcode < R) & (tslot < S)
+            b = torch.arange(B, device=tpos.device).view(B, 1)
+            flat = torch.where(
+                keep,
+                tcode.to(torch.int64) * (B * S) + b * S + tslot,
+                R * B * S,
+            ).reshape(-1)
+            cnt.scatter_add_(0, flat, torch.ones_like(flat,
+                                                      dtype=torch.float32))
+    else:
+        codes, idx, msk = unpack_block_inputs(codes, idx, msk, wire)
+        B, S, _ = codes.shape
+        cnt = _counts(codes.to(torch.int64).clamp(max=none_row), R)
+    wl = torch.cat([w_ext, logf_ext], dim=1)  # (R, C + 3)
+    lograw = torch.matmul(wl.T, cnt.view(R + 1, B * S)[:R])
+    lograw = lograw.view(C + 3, B, S)
+    t_x = norm_t(lograw[:C], 0)  # (C, B, S)
+
+    # pass-1 GL table (cmd_cram_demuxlet.cpp:428-452), channel-leading
+    ls = lograw[C:]
+    gl = torch.exp(ls - torch.amax(ls, dim=0, keepdim=True))
+    gl = gl / gl.sum(dim=0, keepdim=True)
+    gl = gl + 1e-6
+    gl = gl / gl.sum(dim=0, keepdim=True)
+    neutral3 = torch.zeros((3, 1, 1), dtype=gl.dtype, device=gl.device)
+    neutral3[0] = 1.0
+    gl = torch.where(msk[None], gl, neutral3)  # masked slots: exact log 0
+
+    # per-slot genotype posteriors + gp0 in one gather; masked slots read
+    # the neutral row appended at index NS
+    NS = gps_table.shape[0]
+    neutral_g = torch.zeros((1, V * 3 + 3), dtype=torch.float32,
+                            device=gps_table.device)
+    neutral_g[0, 0 : V * 3 : 3] = 1.0
+    neutral_g[0, V * 3] = 1.0
+    gps_all = torch.cat(
+        [torch.cat([gps_table.reshape(NS, V * 3), gp0_table], dim=1),
+         neutral_g], dim=0,
+    )
+    idx_n = torch.where(msk, idx, NS)
+    g_all = gps_all[idx_n].permute(2, 0, 1).contiguous()  # (3V+3, B, S)
+    gps_t = g_all[: V * 3]
+    gp0_t = g_all[V * 3 :]
+
+    llk_ab, llk_00 = pair_fn(t_x, gps_t, V, A, a0_sep, sym_a, expand)
+
+    # singlet pass (:415-461): masked slots meet neutral rows, log 1 == 0
+    g = gps_t.view(V, 3, B, S)
+    contrib = torch.log(g[:, 0] * gl[0] + g[:, 1] * gl[1] + g[:, 2] * gl[2])
+    llk = contrib.sum(dim=-1).T
+    contrib0 = torch.log(torch.clamp(
+        gp0_t[0] * gl[0] + gp0_t[1] * gl[1] + gp0_t[2] * gl[2], min=1e-30))
+    llk0 = contrib0.sum(dim=-1)
+    return llk, llk0, llk_ab, llk_00

@@ -1,0 +1,149 @@
+"""Device decode of every block form the engine ships (port of
+``demuxlet_tpu/ops/pallas_pair.py`` ``_unpack_bits_dev`` :872,
+``_unpack_wire_v2`` :890 and ``unpack_block_inputs`` :987).
+
+Bitcasts are little-endian views: u8 via ``view(torch.uint8)``, u16 via
+``view(torch.int16)`` then ``& 0xFFFF`` in int32 (``torch.uint16`` has no
+shift operators). Out-of-bounds scatters, which JAX drops with
+``mode="drop"``, are redirected to a trash column that is cut off after
+the scatter, so no index ever leaves its tensor. Slot ids come back as
+int64 (``torch.cumsum`` of int32 returns int64); their values equal the
+JAX package's int32 ids.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _u8(words: torch.Tensor) -> torch.Tensor:
+    """(B, n) int32 words -> (B, 4n) int32 of their little-endian bytes."""
+    return words.contiguous().view(torch.uint8).to(torch.int32)
+
+
+def _u16(words: torch.Tensor) -> torch.Tensor:
+    """(B, n) int32 words -> (B, 2n) int32 of their little-endian u16s."""
+    return words.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def unpack_bits(by: torch.Tensor, width: int, n: int) -> torch.Tensor:
+    """(B, n*width/8) byte values (int32) -> (B, n) int32; width in
+    {4, 6, 8}. Inverse of ``demuxlet_tpu.host.wire.pack_bits``."""
+    B = by.shape[0]
+    if width == 8:
+        return by[:, :n]
+    if width == 4:
+        return torch.stack([by & 15, by >> 4], dim=-1).reshape(B, -1)[:, :n]
+    b = by.reshape(B, -1, 3)
+    q0 = b[..., 0] & 63
+    q1 = ((b[..., 0] >> 6) | (b[..., 1] << 2)) & 63
+    q2 = ((b[..., 1] >> 4) | (b[..., 2] << 4)) & 63
+    q3 = b[..., 2] >> 2
+    return torch.stack([q0, q1, q2, q3], dim=-1).reshape(B, -1)[:, :n]
+
+
+def _apply_fixes(d, base, fix_pos, fix_val):
+    """idx = base + cumsum(d + escapes). Dummy fixes are (pos 0, val 0) and
+    duplicates accumulate, as JAX's ``.at[].add`` does."""
+    d = d.to(torch.int64).scatter_add(1, fix_pos.to(torch.int64),
+                                      fix_val.to(torch.int64))
+    return base.to(torch.int64)[:, None] + torch.cumsum(d, dim=1)
+
+
+def unpack_wire_v2(wbuf: torch.Tensor, meta, parts: bool = False):
+    """Decode the v2 packed wire (``host.wire.pack_wire_block``).
+
+    parts=False: (codes (B,S,U) int32 in wire-code space [0, n_real+1],
+    idx (B,S) int64, msk (B,S) bool), deep lanes rebuilt from the tail.
+    parts=True: (dense (B,S,U0) int32, (tpos, tcode) or None, idx, msk)
+    without the deep lanes; msk derives from the dense lanes alone (the
+    packer puts the marker in lane 0 of a tail-only slot)."""
+    _, S, U, U0, K2p, Kp, cw, dw, n_real, tw = meta
+    B = wbuf.shape[0]
+    none = n_real + 1
+    ncb = S * U0 * cw // 8 // 4
+    dense = unpack_bits(_u8(wbuf[:, :ncb]), cw, S * U0).reshape(B, S, U0)
+    off = ncb
+    tail_parts = None
+    if K2p:
+        if tw == 16:
+            ntp = K2p * 2 // 4
+            tpos = _u16(wbuf[:, off : off + ntp])
+        elif tw == 24:
+            # (slot u16, lane u8) planes; pad slot == S rebuilds to the
+            # S*(U-U0) out-of-bounds sentinel, as for tw == 32
+            ns = K2p * 2 // 4
+            nl = K2p // 4
+            tslot = _u16(wbuf[:, off : off + ns])
+            tlane = _u8(wbuf[:, off + ns : off + ns + nl])
+            tpos = tslot * (U - U0) + tlane
+            ntp = ns + nl
+        else:
+            ntp = K2p
+            tpos = wbuf[:, off : off + ntp]
+        off += ntp
+        ntc = K2p * cw // 8 // 4
+        tcode = unpack_bits(_u8(wbuf[:, off : off + ntc]), cw, K2p)
+        off += ntc
+        tail_parts = (tpos, tcode)
+    if dw == 16:
+        ndb = S // 2
+        d = _u16(wbuf[:, off : off + ndb])
+    else:
+        ndb = S * dw // 8 // 4
+        d = unpack_bits(_u8(wbuf[:, off : off + ndb]), dw, S)
+    off += ndb
+    base = wbuf[:, off]
+    fix_pos = _u16(wbuf[:, off + 1 : off + 1 + Kp // 2])
+    fix_val = wbuf[:, off + 1 + Kp // 2 : off + 1 + Kp // 2 + Kp]
+    idx = _apply_fixes(d, base, fix_pos, fix_val)
+    msk = (dense != none).any(dim=-1)
+    if parts:
+        return dense, tail_parts, idx, msk
+    if tail_parts is None:
+        return dense, idx, msk
+    tpos, tcode = tail_parts
+    n_deep = S * (U - U0)
+    # pad entries point at or past n_deep: send them to the trash column
+    tpos = torch.where(tpos < n_deep, tpos, n_deep).to(torch.int64)
+    tail = torch.full((B, n_deep + 1), none, dtype=torch.int32,
+                      device=wbuf.device)
+    tail.scatter_(1, tpos, tcode)
+    codes = torch.cat([dense, tail[:, :n_deep].reshape(B, S, U - U0)], dim=2)
+    return codes, idx, msk
+
+
+def unpack_block_inputs(codes, idx, msk, wire):
+    """Every shipped block form -> (codes (B,S,U), idx (B,S) int64,
+    msk (B,S) bool). codes stay uint8 for the v1 forms and int32 wire
+    codes for the v2 wire.
+
+    wire: the v2 meta tuple (``codes`` is then the packed buffer), the v1
+    ``(S, U, K)`` meta of the fused wire (``engine._to_wire``), or None for
+    explicit codes with an idx that is the u8-delta tuple, 16-bit id pairs
+    packed in int32 lanes, or plain ids; msk None derives it from the
+    codes (254 marks a valid slot without codes)."""
+    if wire is not None and wire[0] == "w2":
+        return unpack_wire_v2(codes, wire)
+    if wire is not None:
+        S, U, K = wire
+        B = codes.shape[0]
+        nc, nd = S * U // 4, S // 4
+        bytes_c = codes[:, :nc].contiguous().view(torch.uint8)
+        d8 = codes[:, nc : nc + nd].contiguous().view(torch.uint8)
+        base = codes[:, nc + nd]
+        fix_pos = codes[:, nc + nd + 1 : nc + nd + 1 + K]
+        fix_val = codes[:, nc + nd + 1 + K : nc + nd + 1 + 2 * K]
+        codes = bytes_c.reshape(B, S, U)
+        idx = (d8.reshape(B, S), base, fix_pos, fix_val)
+    B, S, U = codes.shape
+    if msk is None:
+        msk = (codes != 255).any(dim=-1)
+    if isinstance(idx, (tuple, list)):
+        idx = _apply_fixes(*idx)
+    elif idx.shape[1] == S // 2 and S > 1:
+        idx = torch.stack([idx & 0xFFFF, (idx >> 16) & 0xFFFF], dim=-1)
+        idx = idx.reshape(B, S).to(torch.int64)
+    else:
+        idx = idx.to(torch.int64)
+    return codes, idx, msk
