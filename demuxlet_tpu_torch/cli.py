@@ -5,10 +5,11 @@ echo, ingest, output opener and host-oracle parity mode are reused), with
 the device passes on PyTorch. ``--device auto`` means the CUDA card or an
 error, ``cpu`` runs the plain kernel versions (tests), ``tpu`` is an error.
 
-Slice 1 runs ``--mode fast`` through ``DemuxEngine.run_compact``, and
-``--mode parity`` (the host oracle). Everything else fails loudly with a
-DemuxError naming the ROADMAP item that will port it; nothing falls back
-to another mode.
+``--mode exact`` (the default; ``--exact-kernel auto|pallas`` both select
+the port's f64 kernels) and ``--mode fast`` run through
+``DemuxEngine.run_compact``, ``--mode parity`` runs the host oracle.
+Everything else fails loudly with a DemuxError naming the ROADMAP item
+that will port it; nothing falls back to another mode.
 """
 
 from __future__ import annotations
@@ -27,10 +28,13 @@ from demuxlet_tpu.utils.logging_utils import error, notice
 
 
 def _refuse_unported(args) -> None:
-    """DemuxError for every option slice 1 does not cover."""
-    if args.mode == "exact":
-        error("--mode exact is not ported to PyTorch yet (ROADMAP queue 1, "
-              "item 11: exact mode is slice 2); use --mode fast")
+    """DemuxError for every option the port does not cover yet."""
+    if args.mode == "exact" and args.exact_kernel == "xla":
+        error("--exact-kernel xla (the dense f64 run()) is not ported to "
+              "PyTorch yet (ROADMAP queue 1, item 12); use auto")
+    if args.mode == "exact" and args.cap_BQ > 126:
+        error("--cap-BQ > 126 in exact mode needs the dense f64 run(), not "
+              "ported to PyTorch yet (ROADMAP queue 1, item 12)")
     if args.write_pair:
         error("--write-pair needs the full-tensor run(), not ported to "
               "PyTorch yet (ROADMAP queue 1, item 12)")

@@ -6,8 +6,9 @@ library is built from the sources in ``demuxlet_tpu_torch/csrc`` at first
 use and named by a hash of its source, so an edited source never loads a
 stale library. Nothing is built when the package is imported.
 
-Usage: python -m demuxlet_tpu_torch.kernels.build   (builds and prints
-the library path)
+Usage: python -m demuxlet_tpu_torch.kernels.build   (builds every
+csrc/*.cu, one nvcc each, all started together, and prints the library
+paths)
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
@@ -30,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
+_tables: dict = {}
 
 
 def nvcc_path() -> str:
@@ -78,5 +83,36 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def build_all() -> dict:
+    """Build every csrc/<name>.cu with one nvcc each, all started
+    together; returns {name: (library path, seconds)}. The first failed
+    build raises."""
+    import time
+
+    names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+    def one(name):
+        t0 = time.monotonic()
+        return build(name), time.monotonic() - t0
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futs = {name: pool.submit(one, name) for name in names}
+        return {name: fut.result() for name, fut in futs.items()}
+
+
+def int_table(device, values):
+    """A cached int32 tensor of `values` on `device` (a kernel's static
+    channel map or mask), uploaded once per device and value tuple."""
+    key = (device, tuple(int(v) for v in values))
+    with _lock:
+        dev = _tables.get(key)
+    if dev is None:
+        dev = torch.tensor(key[1], dtype=torch.int32, device=device)
+        with _lock:
+            _tables[key] = dev
+    return dev
+
+
 if __name__ == "__main__":
-    print(build("pair_fast"))
+    for _name, (_path, _secs) in build_all().items():
+        print(f"{_name}: {_path} ({_secs:.1f} s)")

@@ -24,8 +24,6 @@ from demuxlet_tpu_torch.kernels import build as kbuild
 
 launches = 0  # kernel launches since import or the last reset_launches()
 
-_expand_cache: dict = {}
-
 
 def reset_launches() -> None:
     global launches
@@ -43,15 +41,6 @@ def _lib():
         lib.dmx_cuda_error_string.argtypes = [I]
         lib.dmx_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _expand_on(device, expand):
-    key = (device, tuple(expand))
-    dev = _expand_cache.get(key)
-    if dev is None:
-        dev = torch.tensor(expand, dtype=torch.int32, device=device)
-        _expand_cache[key] = dev
-    return dev
 
 
 def pair_fast(t, gps_t, V, A, a0_sep, sym_a, expand):
@@ -86,7 +75,7 @@ def pair_fast(t, gps_t, V, A, a0_sep, sym_a, expand):
     out_00 = torch.empty((B, A), dtype=torch.float32, device=t.device)
     if B and S:
         lib = _lib()
-        exp_dev = _expand_on(t.device, expand)
+        exp_dev = kbuild.int_table(t.device, expand)
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = lib.dmx_pair_fast(
             t.data_ptr(), gps_t.data_ptr(), exp_dev.data_ptr(),

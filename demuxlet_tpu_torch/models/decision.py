@@ -1,11 +1,12 @@
 """Device-side decision pass (port of ``demuxlet_tpu/models/decision.py``).
 
-``decide`` and ``compact_step_body`` run in torch float64 on the block's
-device and keep the packed (B, 2V+A+11) f64 row layout, so
-``unpack_block`` and the shared renderer (``models/outputs.py``
-``write_pass2_compact``) work unchanged. Semantics: first-occurrence
-argmaxes (``torch.argmax`` returns the first maximum), the -1e300-seeded
-second best, -inf masking of excluded doublet channels.
+``decide``, ``compact_step_body`` and ``compact_step_body_exact`` run in
+torch float64 on the block's device and keep the packed (B, 2V+A+11) f64
+row layout, so ``unpack_block`` and the shared renderer
+(``models/outputs.py`` ``write_pass2_compact``) work unchanged.
+Semantics: first-occurrence argmaxes (``torch.argmax`` returns the first
+maximum), the -1e300-seeded second best, -inf masking of excluded doublet
+channels.
 
 ``CompactResult``, ``doublet_weights``, ``doublet_mask``, ``take``,
 ``concat``, ``_PACK_KEYS`` and ``unpack_block`` are copies of the JAX
@@ -23,7 +24,9 @@ import numpy as np
 import torch
 
 from demuxlet_tpu_torch.ops.front import fast_front
+from demuxlet_tpu_torch.ops.front_exact import exact_block, front_exact
 from demuxlet_tpu_torch.ops.pair import pair_llks
+from demuxlet_tpu_torch.ops.pair_exact import pair_exact
 
 
 @dataclass
@@ -191,4 +194,22 @@ def compact_step_body(
     )
     out = decide(llk_ab.to(torch.float64), llk_00.to(torch.float64),
                  dbl_w, dbl_msk, doublet_prior)
+    return pack_rows(out, llk, llk0)
+
+
+def compact_step_body_exact(
+    codes, idx, msk, tab, dbl_w, dbl_msk, n_alpha, n_samples,
+    doublet_prior, a0_sep=False, sym_a=None, wire=None,
+    front_fn=front_exact, pair_fn=pair_exact,
+):
+    """Fused exact block step (f64 throughout) + decision pass, packed
+    into ONE (B, 2V+A+11) f64 tensor like ``compact_step_body``. tab: the
+    engine's ``ExactTables``. front_fn/pair_fn: K2' and K3' (the engine),
+    or their plain versions (a check)."""
+    llk, llk0, llk_ab, llk_00 = exact_block(
+        codes, idx, msk, tab.g_table, tab.lut, tab.cmask, tab.gsel,
+        tab.expand, n_alpha, n_samples, a0_sep=a0_sep, sym_a=sym_a,
+        wire=wire, front_fn=front_fn, pair_fn=pair_fn,
+    )
+    out = decide(llk_ab, llk_00, dbl_w, dbl_msk, doublet_prior)
     return pack_rows(out, llk, llk0)

@@ -1,12 +1,13 @@
 """Demux engine on PyTorch (port of ``demuxlet_tpu/models/engine.py``,
-fast mode, single device).
+exact and fast modes, single device).
 
 ``run_compact`` follows the JAX engine's single-device branch: host
 block prep on a prefetch pool (native C packer or the Python packer,
 wire v2 by default), pinned-host H2D with ``non_blocking`` copies, the
-fused block step (``decision.compact_step_body``) enqueued on the
-device, ONE device-side concat and ONE readback at the end, then the
-inverse of the coverage-sorted block permutation.
+fused block step (``decision.compact_step_body_exact`` in exact mode,
+``decision.compact_step_body`` in fast mode) enqueued on the device, ONE
+device-side concat and ONE readback at the end, then the inverse of the
+coverage-sorted block permutation.
 
 The JAX module imports JAX at the top, so its JAX-free helpers are
 copied here (``compute_gp0``, ``_prefetched``, ``_to_wire``, ``_bucket``,
@@ -14,9 +15,9 @@ copied here (``compute_gp0``, ``_prefetched``, ``_to_wire``, ``_bucket``,
 ``_shrink_codes_blk``, ``_blocks``, ``cell_stats``);
 tests/test_torch_engine.py pins each copy to the original.
 
-Refused, never emulated: exact mode (ROADMAP queue 1, item 11), pools
-with V*V*A > 384 (item 13), cap-BQ > 126 (fast-mode codes cannot hold
-it, as in the JAX package).
+Refused, never emulated: pools with V*V*A > 384 (ROADMAP queue 1, item
+13); cap-BQ > 126 (the u8 codes cannot hold it: the JAX package refuses
+it in fast mode and sends exact mode to the dense ``run()``, item 12).
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from demuxlet_tpu.ops import luts
 from demuxlet_tpu.utils.logging_utils import DemuxError
 from demuxlet_tpu_torch.models import decision as D
 from demuxlet_tpu_torch.ops.pair import UNROLL_CAP, dedup_channels, extend_luts
+
+MODES = ("exact", "fast")
 
 
 def compute_gp0(gps: np.ndarray) -> np.ndarray:
@@ -140,6 +143,67 @@ def tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
     return DeviceTables(dev(gps), dev(gp0), dev(w_ext), dev(logf_ext), expand)
 
 
+@dataclass
+class ExactTables:
+    """The port's exact-mode device tables for one wire config."""
+
+    g_table: torch.Tensor  # (3V+3, NS+1) f64: gps (j, l) rows, gp0, neutral
+    lut: torch.Tensor  # (R, C) f64 log LUT of the unique channels, none row
+    expand: tuple  # A*9 logical mixture channels -> columns of lut
+    gsel: tuple  # the 3 singlet (GL) channels -> columns of lut
+    cmask: tuple  # C bools: the columns some mixture channel uses
+
+
+def exact_tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
+    """Exact-mode device tables from the numpy inputs the JAX engine takes
+    (``_exact_tables`` :503 and ``pallas_pair_exact.split_tables`` :1166),
+    in the log domain and f64:
+
+    * the g table: f64 gps as (j, l) rows, the three host gp0 rows, and a
+      neutral column at index NS ((1, 0, 0) for every sample and gp0) for
+      masked slots, channel-leading for the kernels' gather;
+    * the log LUT: the A*9 pair columns and the 3 singlet columns of
+      ``ops/luts.py`` with a 0.0 none row last, rows cut to the run's code
+      dictionary under a wire-v2 config, and the columns whose
+      probabilities are byte-equal merged, exactly as ``split_tables``
+      dedups them (so ``expand``, ``gsel`` and ``cmask`` equal its meta and
+      the mixture-channel mask of ``demux_block_exact_impl`` :1275-1278)."""
+    gps = _pad_gps(gps)
+    gp0 = compute_gp0(gps)
+    w = luts.pair_lut(list(grid_alpha), cap_bq)
+    logf = luts.singlet_lut(cap_bq)
+    nw = w.shape[1]
+    logc = np.zeros((w.shape[0] + 1, nw + 3), dtype=np.float64)
+    logc[:-1, :nw] = w
+    logc[:-1, nw:] = logf
+    allc = np.ones_like(logc)  # split_tables' probability table
+    allc[:-1, :nw] = np.exp(w)
+    allc[:-1, nw:] = np.exp(logf)
+    if wire_cfg is not None:
+        rows = list(wire_cfg.dict_codes) + [w.shape[0]]
+        logc, allc = logc[rows], allc[rows]
+    seen, cols, inv = {}, [], []
+    for j in range(allc.shape[1]):
+        key = allc[:, j].tobytes()
+        if key not in seen:
+            seen[key] = len(cols)
+            cols.append(j)
+        inv.append(seen[key])
+    expand, gsel = tuple(inv[:nw]), tuple(inv[nw:])
+    used = set(expand)
+    cmask = tuple(c in used for c in range(len(cols)))
+    ns, nv = gps.shape[:2]
+    g = np.zeros((ns + 1, 3 * nv + 3), dtype=np.float64)
+    g[:ns, : 3 * nv] = gps.reshape(ns, 3 * nv)
+    g[:ns, 3 * nv :] = gp0
+    g[ns, 0 : 3 * nv + 3 : 3] = 1.0
+    return ExactTables(
+        torch.as_tensor(np.ascontiguousarray(g.T), device=device),
+        torch.as_tensor(np.ascontiguousarray(logc[:, cols]), device=device),
+        expand, gsel, cmask,
+    )
+
+
 def _h2d(x, device):
     """numpy -> device tensor: pinned host copy + non_blocking H2D on CUDA
     (the caching host allocator keeps the pinned buffer alive until the
@@ -168,18 +232,18 @@ class DemuxEngine:
         grid_alpha: Sequence[float],
         cap_bq: int = 40,
         cell_block: int = 256,
-        mode: str = "fast",
+        mode: str = "exact",
         device: Optional[torch.device] = None,
     ):
-        """mode="fast" only: f32 pair search (K1 on CUDA, its plain
-        version on the CPU), f32 singlet term, f64 decision pass.
+        """mode="exact" (the JAX engine's default): f64 front and pair
+        search with the singlet term (K2' and K3' on CUDA, their plain
+        versions on the CPU), f64 decision pass. mode="fast": f32 pair
+        search (K1), f32 singlet term, f64 decision pass.
         device: a torch.device; None resolves "auto" (CUDA or DemuxError,
         ``utils/device.resolve_device``)."""
-        if mode != "fast":
-            raise DemuxError(
-                f"--mode {mode} is not ported to PyTorch yet (ROADMAP "
-                "queue 1, item 11: exact mode is slice 2); use --mode fast"
-            )
+        if mode not in MODES:
+            raise DemuxError(f"--mode {mode} is not a mode of the engine "
+                             f"(one of {', '.join(MODES)})")
         self.gps = _pad_gps(gps)
         self.gp0 = compute_gp0(self.gps)
         self.grid_alpha = list(grid_alpha)
@@ -189,16 +253,17 @@ class DemuxEngine:
         self.nv = gps.shape[1]
         self.n_alpha = len(self.grid_alpha)
         if self.nv * self.nv * self.n_alpha > UNROLL_CAP:
+            tiled = "K6/K7" if mode == "exact" else "K4/K5"
             raise DemuxError(
                 f"V*V*A = {self.nv * self.nv * self.n_alpha} > {UNROLL_CAP} "
-                "needs the tiled pair kernels (K4/K5), not ported to "
+                f"needs the tiled pair kernels ({tiled}), not ported to "
                 "PyTorch yet (ROADMAP queue 1, item 13)"
             )
         if self.cap_bq > 126:
             raise DemuxError(
-                "--cap-BQ > 126 is not representable by the fast-mode "
-                "u8 observation codes; it needs exact mode, not ported to "
-                "PyTorch yet (ROADMAP queue 1, item 11)"
+                "--cap-BQ > 126 is not representable by the u8 observation "
+                "codes; exact mode takes it through the dense f64 run(), "
+                "not ported to PyTorch yet (ROADMAP queue 1, item 12)"
             )
         if device is None:
             from demuxlet_tpu_torch.utils.device import resolve_device
@@ -207,6 +272,8 @@ class DemuxEngine:
         self.device = device
         self._tables = None
         self._tables_v2 = None
+        self._exact = None
+        self._exact_v2 = None
         # wire v2 (host/wire.py): per-run packed H2D format, chosen once
         # per pileup; the (S, U) meta registry keeps same-shape blocks on
         # one layout
@@ -258,6 +325,7 @@ class DemuxEngine:
         if cfg != self._wire_cfg:
             self._wire_cfg = cfg
             self._tables_v2 = None
+            self._exact_v2 = None
             self._wire_reg = {}
         return self._wire_cfg
 
@@ -384,6 +452,18 @@ class DemuxEngine:
                 self.gps, self.grid_alpha, self.cap_bq, None, self.device)
         return self._tables
 
+    def _exact_tables(self, cfg=None) -> ExactTables:
+        """Exact-mode device tables for the run (cached per wire config)."""
+        if cfg is not None:
+            if self._exact_v2 is None:
+                self._exact_v2 = exact_tables_from_numpy(
+                    self.gps, self.grid_alpha, self.cap_bq, cfg, self.device)
+            return self._exact_v2
+        if self._exact is None:
+            self._exact = exact_tables_from_numpy(
+                self.gps, self.grid_alpha, self.cap_bq, None, self.device)
+        return self._exact
+
     def _blocks(self, n: int, scl=None):
         """Cell-id blocks, COVERAGE-SORTED (ascending distinct-SNP count,
         then depth) when it pays: each block pads its slot axis to the
@@ -422,7 +502,9 @@ class DemuxEngine:
         ], None
 
     def run_compact(self, scl, doublet_prior: float):
-        """Fast-mode pipeline with the device-side decision pass: returns
+        """Exact- or fast-mode pipeline with the device-side decision pass
+        (one block step per block: K2' + K3' in exact mode, K1 in fast
+        mode): returns
         (llks, llk0s, decision.CompactResult). Per-run accounting:
         ``h2d_bytes`` (block buffers shipped) and ``phase_s`` (setup = wire
         config, tables and blocking, on the first call for a pileup also
@@ -434,7 +516,8 @@ class DemuxEngine:
         if not hasattr(scl, "cell_ptr"):
             scl = CsrPileup.from_pileup(scl)
         cfg = self._wire_cfg_for(scl)
-        tab = self._fast_tables(cfg)
+        exact = self.mode == "exact"
+        tab = self._exact_tables(cfg) if exact else self._fast_tables(cfg)
         dev = self.device
         dbl_w = torch.as_tensor(
             D.doublet_weights(self.nv, self.grid_alpha, doublet_prior),
@@ -478,12 +561,17 @@ class DemuxEngine:
             if cfg is not None and (wire is None or wire[0] != "w2"):
                 raise RuntimeError("v1-form block in a wire-v2 run")
             self.h2d_bytes += _nbytes(codes, idx, msk)
+            blk = (_h2d(codes, dev),
+                   None if idx is None else _h2d(idx, dev),
+                   None if msk is None else _h2d(msk, dev))
+            if exact:
+                return D.compact_step_body_exact(
+                    *blk, tab, dbl_w, dbl_msk, self.n_alpha, self.nv,
+                    doublet_prior, a0_sep=a0_sep, sym_a=sym_a, wire=wire,
+                )
             return D.compact_step_body(
-                _h2d(codes, dev),
-                None if idx is None else _h2d(idx, dev),
-                None if msk is None else _h2d(msk, dev),
-                tab.gps, tab.gp0, tab.w_ext, tab.logf_ext, dbl_w, dbl_msk,
-                self.n_alpha, self.nv, doublet_prior, a0_sep=a0_sep,
+                *blk, tab.gps, tab.gp0, tab.w_ext, tab.logf_ext, dbl_w,
+                dbl_msk, self.n_alpha, self.nv, doublet_prior, a0_sep=a0_sep,
                 sym_a=sym_a, expand=tab.expand, wire=wire,
             )
 

@@ -123,12 +123,14 @@ def pair_llks_plain(t, gps_t, V, A, a0_sep=False, sym_a=None, expand=None):
     return torch.cat(parts_ab, dim=0), torch.cat(parts_00, dim=0)
 
 
-def _pair_plain_chunk(tx, g, V, A, a0_sep, sym_a):
-    """tx (A, 3, 3, b, S) expanded table, g (V, 3, b, S)."""
+def _pair_plain_chunk(tx, g, V, A, a0_sep, sym_a, g0=None):
+    """tx (A, 3, 3, b, S) expanded table, g (V, 3, b, S); g0 (3, b, S)
+    the background rows, None for the f32 sample mean (K1's)."""
     U = torch.einsum("jlbs,almbs->jambs", g, tx)
     inner = torch.einsum("kmbs,jambs->jkabs", g, U)
     llk_ab = torch.log(inner).sum(dim=-1)  # (j, k, a, b)
-    g0 = _background_rows(g, V)  # (3, b, S)
+    if g0 is None:
+        g0 = _background_rows(g, V)  # (3, b, S)
     U0 = torch.einsum("lbs,almbs->ambs", g0, tx)
     inner0 = torch.einsum("mbs,ambs->abs", g0, U0)
     llk_00 = torch.log(inner0).sum(dim=-1)  # (a, b)

@@ -104,7 +104,7 @@ def test_run_compact_matches_jax(monkeypatch, wire, native):
         pytest.skip("native prep not built")
     csr, gps = _pcr_hot_csr(17)
     grid = [0.0, 0.5]
-    port = TE.DemuxEngine(gps, grid, cell_block=16, device=CPU)
+    port = TE.DemuxEngine(gps, grid, cell_block=16, mode="fast", device=CPU)
     l_t, l0_t, c_t = port.run_compact(csr, doublet_prior=0.5)
     assert (port._wire_cfg is None) == (wire == "v1")
     csr_j, _ = _pcr_hot_csr(17)  # own pileup: the cfg cache rides on it
@@ -188,12 +188,15 @@ def test_engine_refuses_unported(monkeypatch):
     from demuxlet_tpu.utils.logging_utils import DemuxError
 
     gps = np.full((10, 8, 3), 1 / 3)
-    with pytest.raises(DemuxError, match="item 11"):
-        TE.DemuxEngine(gps, [0.0, 0.5], mode="exact", device=CPU)
-    with pytest.raises(DemuxError, match="item 13"):
-        TE.DemuxEngine(np.full((10, 14, 3), 1 / 3), [0.0, 0.5], device=CPU)
-    with pytest.raises(DemuxError, match="cap-BQ"):
-        TE.DemuxEngine(gps, [0.0, 0.5], cap_bq=127, device=CPU)
+    for mode in ("exact", "fast"):
+        with pytest.raises(DemuxError, match="item 13"):
+            TE.DemuxEngine(np.full((10, 14, 3), 1 / 3), [0.0, 0.5],
+                           mode=mode, device=CPU)
+        with pytest.raises(DemuxError, match="cap-BQ.*item 12"):
+            TE.DemuxEngine(gps, [0.0, 0.5], cap_bq=127, mode=mode,
+                           device=CPU)
+    with pytest.raises(DemuxError, match="mode"):
+        TE.DemuxEngine(gps, [0.0, 0.5], mode="parity", device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(DemuxError, match="CUDA"):
             TE.DemuxEngine(gps, [0.0, 0.5])
@@ -235,8 +238,10 @@ def test_run_compact_zero_cells():
         ["S0", "S1"], 10, [], np.zeros(0), np.zeros(0), np.zeros(0),
         np.zeros(0, np.int64), np.zeros(0, np.int64),
         np.zeros(0, np.uint8), np.zeros(0, np.uint8))
-    eng = TE.DemuxEngine(np.full((10, 2, 3), 1 / 3), [0.0, 0.5], device=CPU)
-    llks, llk0s, comp = eng.run_compact(csr, 0.5)
-    assert llks.shape == (0, 2) and llk0s.shape == (0,)
-    assert comp.sing_col.shape == (0, 2) and comp.llk_00.shape == (0, 2)
-    assert comp.best_flat.dtype == np.int64 and len(comp.best_flat) == 0
+    for mode in ("exact", "fast"):
+        eng = TE.DemuxEngine(np.full((10, 2, 3), 1 / 3), [0.0, 0.5],
+                             mode=mode, device=CPU)
+        llks, llk0s, comp = eng.run_compact(csr, 0.5)
+        assert llks.shape == (0, 2) and llk0s.shape == (0,)
+        assert comp.sing_col.shape == (0, 2) and comp.llk_00.shape == (0, 2)
+        assert comp.best_flat.dtype == np.int64 and len(comp.best_flat) == 0

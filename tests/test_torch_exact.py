@@ -1,0 +1,515 @@
+"""Exact mode of the port against the JAX package and the oracle:
+the exact tables, the f64 front (K2' plain version), the f64 pair search
+(K3' plain version), exact run_compact and the CLI's default mode; and, on
+a card, K2' and K3' against their plain versions.
+
+JAX is imported inside the tests that compare with it, so the ``cuda``
+tests also collect where JAX is absent:
+``python -m pytest --noconftest -m cuda tests/test_torch_exact.py``."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from demuxlet_tpu.ops import luts
+from demuxlet_tpu_torch.models import engine as TE
+from demuxlet_tpu_torch.ops import front_exact as TF
+from demuxlet_tpu_torch.ops import likelihood as TL
+from demuxlet_tpu_torch.ops import pair_exact as TP
+
+torch.set_num_threads(2)
+
+CPU = torch.device("cpu")
+GRID5 = np.linspace(0.0, 0.5, 5).tolist()
+
+
+def _workload(seed, B=16, S=128, U=3, V=3, A=3, NS=100, cap=40):
+    """tests/test_pallas_exact.py's block: explicit codes (255 = none),
+    ~10% masked slots, extreme posteriors."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 2 * (cap + 1), size=(B, S, U)).astype(np.uint8)
+    codes[rng.random((B, S, U)) < 0.35] = 255
+    idx = rng.integers(0, NS, size=(B, S)).astype(np.int32)
+    msk = rng.random((B, S)) < 0.9
+    codes[~msk] = 255
+    gps = rng.dirichlet(np.ones(3), size=(NS, V))
+    gps[rng.random((NS, V)) < 0.1] = np.array([1 - 2e-8, 1e-8, 1e-8])
+    return codes, idx, msk, gps, np.linspace(0.0, 0.5, A).tolist()
+
+
+def _dense(codes, msk, nb):
+    """Per-slot counts of the codes below nb (255 and the other codes at
+    or past nb are none)."""
+    B, S, U = codes.shape
+    cnt = np.zeros((B, S, nb), dtype=np.int32)
+    for u in range(U):
+        c = codes[..., u].astype(np.int64)
+        valid = (c < nb) & msk
+        bi, si = np.nonzero(valid)
+        np.add.at(cnt, (bi, si, c[valid]), 1)
+    return cnt
+
+
+def _gathered(idx, msk, gps):
+    """Per-slot gps and gp0 rows, neutral on masked slots."""
+    neutral = np.array([1.0, 0.0, 0.0])
+    return (np.where(msk[..., None, None], gps[idx], neutral),
+            np.where(msk[..., None], TE.compute_gp0(gps)[idx], neutral))
+
+
+def _port_block(codes, idx, msk, gps, grid, cap=40, **kw):
+    tab = TE.exact_tables_from_numpy(gps, grid, cap, None, CPU)
+    return TF.exact_block(
+        torch.from_numpy(codes), torch.from_numpy(idx), torch.from_numpy(msk),
+        tab.g_table, tab.lut, tab.cmask, tab.gsel, tab.expand, len(grid),
+        gps.shape[1], **kw)
+
+
+def _jax_f64(codes, idx, msk, gps, grid, cap=40):
+    """JAX f64 likelihood kernels on the equivalent dense block."""
+    import jax.numpy as jnp
+
+    from demuxlet_tpu.models.likelihood import pair_llks, singlet_llks
+
+    cnt = jnp.asarray(_dense(codes, msk, 2 * (cap + 1)), jnp.float64)
+    args = (cnt, jnp.asarray(msk), *map(jnp.asarray, _gathered(idx, msk, gps)))
+    llk, llk0 = singlet_llks(*args, jnp.asarray(luts.singlet_lut(cap)),
+                             dtype=jnp.float64)
+    ab, z0 = pair_llks(*args, jnp.asarray(luts.pair_lut(grid, cap)),
+                       len(grid), slot_chunk=0, dtype=jnp.float64)
+    return [np.asarray(x) for x in (llk, llk0, ab, z0)]
+
+
+def _likelihood_f64(codes, idx, msk, gps, grid, cap=40, rows=None,
+                    device=CPU):
+    """The port's dense f64 likelihood kernels (ops/likelihood.py) on the
+    equivalent dense block, on the given device; under a wire-v2
+    dictionary ``rows`` the codes index its LUT rows."""
+    w, logf = luts.pair_lut(grid, cap), luts.singlet_lut(cap)
+    if rows is not None:
+        w, logf = w[rows], logf[rows]
+    cnt = _dense(codes, msk, w.shape[0])
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+         for x in (cnt, msk, *_gathered(idx, msk, gps), w, logf)]
+    llk, llk0 = TL.singlet_llks(*t[:4], t[5])
+    ab, z0 = TL.pair_llks(*t[:5], len(grid))
+    return [x.cpu().numpy() for x in (llk, llk0, ab, z0)]
+
+
+# ---------------------------------------------------------------- tables
+
+@pytest.mark.parametrize("grid,cap,narrow", [
+    ([0.0, 0.5], 40, False),
+    (GRID5, 40, True),
+    ([0.1, 0.3], 63, False),
+    ([0.0, 0.25, 0.5], 126, True),
+])
+def test_exact_tables_match_split_tables(grid, cap, narrow):
+    """exp of the log LUT equals split_tables' probabilities (to 1 ulp of
+    f64 against np.exp, and to df32 precision against its single-code
+    planes); expand, gsel and cmask equal its meta and the JAX mixture
+    mask; the g table holds f64 gps, gp0 and the neutral column."""
+    from demuxlet_tpu.host.wire import WireCfg
+    from demuxlet_tpu.ops import pallas_pair_exact as PE
+
+    rng = np.random.default_rng(cap)
+    gps = rng.dirichlet(np.ones(3), size=(30, 4))
+    gp0 = TE.compute_gp0(gps)
+    w, logf = luts.pair_lut(grid, cap), luts.singlet_lut(cap)
+    rows = sorted(rng.choice(2 * (cap + 1), size=9, replace=False).tolist())
+    cfg = WireCfg(tuple(rows), 4, 8) if narrow else None
+    tab = TE.exact_tables_from_numpy(gps, grid, cap, cfg, CPU)
+    _, _, tabs, meta = PE.split_tables(gps, gp0, w, logf,
+                                       rows=rows if narrow else None)
+    C, expand_w, expand_gl = meta
+    assert tab.lut.shape == (len(rows) + 1 if narrow else w.shape[0] + 1, C)
+    assert tab.expand == expand_w and tab.gsel == expand_gl
+    used = sorted(set(expand_w))
+    want_cmask = (None if used == list(range(C))
+                  else tuple(i in used for i in range(C)))
+    assert (tab.cmask if not all(tab.cmask) else None) == want_cmask
+    lut = tab.lut.numpy()
+    assert (lut[-1] == 0.0).all()
+    allc = np.concatenate([np.exp(w), np.exp(logf)], axis=1)
+    if narrow:
+        allc = allc[rows]
+    first = [expand_w.index(c) if c in expand_w
+             else w.shape[1] + expand_gl.index(c) for c in range(C)]
+    np.testing.assert_array_max_ulp(np.exp(lut[:-1]), allc[:, first], 1)
+    n = lut.shape[0]
+    T = np.exp(lut)
+    planes = tabs[3].astype(np.float64)[:, :n]
+    df = (planes[:C] + planes[C : 2 * C]) * np.exp2(planes[2 * C :])
+    np.testing.assert_allclose(T.T, df, rtol=1e-13)
+    g = tab.g_table.numpy()
+    assert g.shape == (3 * 4 + 3, 31) and g.dtype == np.float64
+    np.testing.assert_array_equal(g[:12, :30].T, gps.reshape(30, 12))
+    np.testing.assert_array_equal(g[12:, :30].T, gp0)
+    np.testing.assert_array_equal(g[:, 30], [1, 0, 0] * 5)
+
+
+# ---------------------------------------------------------------- front
+
+@pytest.mark.parametrize("seed,grid,U", [(0, [0.0, 0.5], 3),
+                                         (1, GRID5, 5)])
+def test_front_plain_matches_jax(seed, grid, U):
+    """front_exact_plain against the JAX exact front (pair-code gather,
+    _mixture_table_df, _gl_table_df; XLA, df32): t and gl within 1e-12
+    relative; masked slots get gl == (1, 0, 0) and padded slots t == 1
+    exactly."""
+    import jax.numpy as jnp
+
+    from demuxlet_tpu.ops import pallas_pair_exact as PE
+
+    codes, idx, msk, gps, _ = _workload(seed, U=U)
+    w, logf = luts.pair_lut(grid, 40), luts.singlet_lut(40)
+    _, _, tabs, meta = PE.split_tables(gps, TE.compute_gp0(gps), w, logf)
+    C, _, gsel = meta
+    tab = TE.exact_tables_from_numpy(gps, grid, 40, None, CPU)
+    n_rows = w.shape[0] + 1
+    c = np.minimum(codes.astype(np.int32), n_rows - 1)
+    mh, ml, ef = PE._pair_prod_gather(tuple(map(jnp.asarray, tabs[:3])),
+                                      jnp.asarray(c), n_rows)
+    th, tl = PE._mixture_table_df(
+        mh, ml, ef, axis=0,
+        chan_mask=np.asarray(tab.cmask)[:, None, None])
+    gh, gl_ = PE._gl_table_df(*(jnp.stack([x[i] for i in gsel])
+                                for x in (mh, ml, ef)))
+    want_t = np.asarray(th, np.float64) + np.asarray(tl, np.float64)
+    want_gl = np.asarray(gh, np.float64) + np.asarray(gl_, np.float64)
+    t, gl = TF.front_exact(torch.from_numpy(codes.astype(np.int32)),
+                           tab.lut, torch.from_numpy(msk), tab.cmask,
+                           tab.gsel)
+    assert t.shape == (C, 16, 128) and gl.shape == (3, 16, 128)
+    np.testing.assert_allclose(t.numpy(), want_t, rtol=1e-12)
+    np.testing.assert_allclose(gl.numpy()[:, msk], want_gl[:, msk],
+                               rtol=1e-12)
+    assert (gl.numpy()[:, ~msk] == np.array([[1.0], [0.0], [0.0]])).all()
+    empty = (codes == 255).all(axis=-1)
+    assert empty.any() and (t.numpy()[:, empty] == 1.0).all()
+
+
+# ---------------------------------------------------------------- pair
+
+@pytest.mark.parametrize("V,grid,opt", [
+    (3, [0.0, 0.5], True),
+    (3, [0.0, 0.5], False),
+    (4, GRID5, True),
+    (2, [0.1, 0.3], False),
+])
+def test_block_plain_matches_jax_f64(V, grid, opt):
+    """The exact block step with the plain K2'/K3' against the JAX f64
+    likelihood kernels and their port (ops/likelihood.py) on the same
+    block: within 1e-10 absolute of each; with sym_a the mirrored plane is
+    an exact copy."""
+    codes, idx, msk, gps, _ = _workload(V + len(grid), V=V)
+    a0_sep = opt and grid[0] == 0.0
+    sym_a = grid.index(0.5) if opt and 0.5 in grid else None
+    got = _port_block(codes, idx, msk, gps, grid, a0_sep=a0_sep,
+                      sym_a=sym_a)
+    for want in (_jax_f64(codes, idx, msk, gps, grid),
+                 _likelihood_f64(codes, idx, msk, gps, grid)):
+        for name, g, ref in zip(("llk", "llk0", "llk_ab", "llk_00"), got,
+                                want):
+            assert g.dtype == torch.float64 and g.shape == ref.shape, name
+            assert np.abs(g.numpy() - ref).max() < 1e-10, name
+    if sym_a is not None:
+        plane = got[2][..., sym_a]
+        assert torch.equal(plane, plane.transpose(1, 2))
+
+
+def test_block_plain_matches_jax_df32_kernel():
+    """Against the JAX package's own exact block step, the df32 Pallas
+    kernel K3 in interpret mode (front="pair"), at the engine's options:
+    within 1e-9 absolute. Tiny (V=2, A=2, one 16x128 tile) to keep its
+    interpret compile short."""
+    import jax.numpy as jnp
+
+    from demuxlet_tpu.ops import pallas_pair_exact as PE
+
+    codes, idx, msk, gps, grid = _workload(5, U=2, V=2, A=2, NS=50)
+    gps_pair, gp0_pair, tabs, meta = PE.split_tables(
+        gps, TE.compute_gp0(gps), luts.pair_lut(grid, 40),
+        luts.singlet_lut(40))
+    want = PE.demux_block_exact(
+        jnp.asarray(codes), jnp.asarray(idx), jnp.asarray(msk),
+        tuple(map(jnp.asarray, gps_pair)), tuple(map(jnp.asarray, gp0_pair)),
+        tuple(map(jnp.asarray, tabs)), meta, 2, 2, interpret=True,
+        a0_zero=True, sym_a=1, front="pair")
+    got = _port_block(codes, idx, msk, gps, grid, a0_sep=True, sym_a=1)
+    for name, g, ref in zip(("llk", "llk0", "llk_ab", "llk_00"), got, want):
+        assert np.abs(g.numpy() - PE.combine(ref)).max() < 1e-9, name
+
+
+def test_all_padding_block_is_exactly_zero():
+    """No observation anywhere: every LLK is exactly 0 (t == 1, neutral
+    rows, gl == (1, 0, 0))."""
+    codes = np.full((16, 128, 2), 255, dtype=np.uint8)
+    idx = np.zeros((16, 128), np.int32)
+    msk = np.zeros((16, 128), bool)
+    gps = np.random.default_rng(0).dirichlet(np.ones(3), size=(10, 4))
+    for opt in (False, True):
+        out = _port_block(codes, idx, msk, gps, [0.0, 0.5], a0_sep=opt,
+                          sym_a=1 if opt else None)
+        for x in out:
+            assert bool((x == 0).all())
+
+
+# ---------------------------------------------------------------- engine
+
+def _swap_equal(got, want, V, A, sym_a):
+    """best_flat equal, or the (j,k) <-> (k,j) swap on the alpha == 0.5
+    plane (the port mirrors it, the JAX f64 path computes both)."""
+    j, k, a = want // (V * A), (want // A) % V, want % A
+    return (got == want) | ((a == sym_a) & (got == k * V * A + j * A + a))
+
+
+@pytest.mark.parametrize("wire", ["v1", "v2"])
+def test_run_compact_matches_jax_run(monkeypatch, wire):
+    """Port exact run_compact against the JAX engine's exact run() (XLA
+    f64) + compact_from_result on a PCR-hot pileup (deep UMI lanes): floats
+    within 1e-9 absolute, integer fields equal (best_flat modulo the
+    alpha == 0.5 swap)."""
+    from demuxlet_tpu.models import decision as JD
+    from demuxlet_tpu.models import engine as JE
+    from test_torch_engine import _pcr_hot_csr
+
+    monkeypatch.setenv("DEMUX_TPU_WIRE", wire)
+    grid = [0.0, 0.5]
+    csr, gps = _pcr_hot_csr(17)
+    port = TE.DemuxEngine(gps, grid, cell_block=16, device=CPU)
+    assert port.mode == "exact"
+    l_t, l0_t, c_t = port.run_compact(csr, doublet_prior=0.5)
+    assert (port._wire_cfg is None) == (wire == "v1")
+    csr_j, _ = _pcr_hot_csr(17)
+    res = JE.DemuxEngine(gps, grid, cell_block=16).run(csr_j)
+    c_j = JD.compact_from_result(res.llk_ab, res.llk_00, grid, 0.5)
+    assert np.abs(l_t - res.llks).max() < 1e-9
+    assert np.abs(l0_t - res.llk0s).max() < 1e-9
+    for name in ("sing_col", "llk_00", "max_llk", "max_sing2", "pair_llk12",
+                 "sum_single", "sum_double"):
+        got, want = getattr(c_t, name), getattr(c_j, name)
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert np.abs(got - want).max() < 1e-9, name
+    for name in ("i_sing1", "i_sing2"):
+        np.testing.assert_array_equal(getattr(c_t, name), getattr(c_j, name))
+    same = _swap_equal(c_t.best_flat, c_j.best_flat, 3, 2, 1)
+    assert same.all()
+    swapped = c_t.best_flat != c_j.best_flat
+    # pair_llk10/20 follow the chosen (j, k): equal, or each other's
+    for a, b in (("pair_llk10", "pair_llk20"), ("pair_llk20", "pair_llk10")):
+        got = getattr(c_t, a)
+        want = np.where(swapped, getattr(c_j, b), getattr(c_j, a))
+        assert np.abs(got - want).max() < 1e-9, a
+
+
+def test_llks_match_oracle():
+    """Exact engine blocks (the plain K2'/K3' through exact_block) against
+    the oracle's pass1_singlet and pass2_cell: within 1e-9 absolute, every
+    (j, k, alpha) channel."""
+    from demuxlet_tpu.host.csr import CsrPileup
+    from oracle.numpy_oracle import (
+        PileupData,
+        compute_gp0s,
+        pass1_singlet,
+        pass2_cell,
+    )
+
+    rng = random.Random(4)
+    nv, nsnps, grid = 4, 40, [0.0, 0.1, 0.2, 0.3, 0.5]
+    g = np.random.RandomState(4).dirichlet([2, 2, 2], size=(nsnps, nv))
+    scl = PileupData([f"S{i}" for i in range(nv)], [g[i] for i in range(nsnps)])
+    for c in range(9):
+        scl.add_cell(f"BC{c:03d}")
+        for _ in range(60):
+            scl.cell_totl[c] += 1
+            scl.add_read(rng.randrange(nsnps), c, f"U{rng.randrange(10000)}",
+                         rng.choice([0, 0, 1, 1, 2]), rng.randrange(13, 41))
+    gps = np.stack(scl.snp_gps)
+    eng = TE.DemuxEngine(gps, grid, cell_block=4, device=CPU)
+    llks, llk0s, _ = eng.run_compact(scl, 0.5)
+    gp0s = compute_gp0s(scl)
+    o_llks, o_llk0s = pass1_singlet(scl, gp0s)
+    assert np.abs(llks - o_llks).max() < 1e-9
+    assert np.abs(llk0s - o_llk0s).max() < 1e-9
+    csr = CsrPileup.from_pileup(scl)
+    tab = eng._exact_tables(eng._wire_cfg_for(csr))
+    blocks, pads = eng._blocks(csr.nbcs, csr)
+    n = 0
+    for cells, pad in zip(blocks, pads or [None] * len(blocks)):
+        codes, idx, msk = eng._prep_codes_blk(csr, cells, pad)
+        wire = None
+        if isinstance(idx, tuple) and isinstance(idx[0], str):
+            wire, idx = idx, None
+        _, _, ab, z0 = TF.exact_block(
+            torch.from_numpy(codes), idx, msk, tab.g_table, tab.lut,
+            tab.cmask, tab.gsel, tab.expand, len(grid), nv, a0_sep=True,
+            sym_a=4, wire=wire)
+        for r, c in enumerate(cells):
+            o_ab, _, o_00 = pass2_cell(scl, gp0s, c, grid)
+            assert np.abs(ab[r].numpy() - o_ab).max() < 1e-9
+            assert np.abs(z0[r].numpy() - o_00).max() < 1e-9
+            n += 1
+    assert n == scl.nbcs
+
+
+def test_cli_default_mode_matches_jax_cli_exact(tmp_path):
+    """The port CLI with no --mode (exact, the default) against the JAX
+    CLI --mode exact, both --device cpu on one BAM/VCF: .single and .sing2
+    byte-identical, .best equal after canonicalize_best."""
+    from demuxlet_tpu import cli as jcli
+    from demuxlet_tpu_torch import cli as tcli
+    from fixtures import random_workload, write_bam, write_vcf
+    from parity_utils import canonicalize_best
+
+    contigs, names, variants, reads, _ = random_workload(
+        random.Random(31), n_cells=24, n_snps=50, n_samples=4,
+        reads_per_cell=70)
+    vcf = write_vcf(str(tmp_path / "w.vcf"), names, variants, contigs=contigs)
+    bam = write_bam(str(tmp_path / "w.bam"), contigs, reads)
+    base = ["--sam", bam, "--vcf", vcf, "--field", "GT", "--device", "cpu",
+            "--mesh", "none"]
+    assert tcli.main(base + ["--out", str(tmp_path / "t")]) == 0
+    assert jcli.main(base + ["--mode", "exact",
+                             "--out", str(tmp_path / "j")]) == 0
+
+    def read(out, ext):
+        with open(str(tmp_path / out) + ext) as fh:
+            return fh.read().splitlines()
+
+    for ext in (".single", ".sing2"):
+        assert read("t", ext) == read("j", ext), ext
+    best = read("t", ".best")
+    assert len(best) == 25
+    assert canonicalize_best(best) == canonicalize_best(read("j", ".best"))
+
+
+# ---------------------------------------------------------------- card
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (K2' and K3' have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,U,grid,cap,lut_kb", [
+    (64, 256, 3, GRID5, 40, 11),
+    (40, 384, 2, [0.0, 0.5], 40, 3),
+    (16, 130, 20, GRID5, 126, 35),  # PCR-deep lanes, 255-row LUT
+    (8, 100, 2, np.linspace(0, 0.5, 12).tolist(), 63, 49),  # > 48 KB smem
+    (8, 128, 2, np.linspace(0, 0.5, 24).tolist(), 63, 99),  # through L1
+    (8, 128, 2, np.linspace(0, 0.5, 96).tolist(), 126, 798),
+])
+def test_k2_matches_plain_on_card(cuda_device, B, S, U, grid, cap, lut_kb):
+    """K2' against front_exact_plain on the card, with the LUT staged in
+    shared memory (up to SMEM_MAX, opted in past 48 KB) or read through
+    L1: the same lane-order sums, so t and gl agree to the exp's last bits
+    (1e-13 relative); two launches give identical bits."""
+    from demuxlet_tpu_torch.kernels import front_exact as kernel
+
+    rng = np.random.default_rng(5)
+    gps = rng.dirichlet(np.ones(3), size=(20, 2))
+    tab = TE.exact_tables_from_numpy(gps, grid, cap, None, cuda_device)
+    R, C = tab.lut.shape
+    assert R * C * 8 // 1024 == lut_kb
+    codes = rng.integers(0, R + 2, size=(B, S, U)).astype(np.int32)
+    codes[rng.random((B, S, U)) < 0.4] = 255
+    msk = torch.from_numpy(rng.random((B, S)) < 0.8).to(cuda_device)
+    codes = torch.from_numpy(codes).to(cuda_device)
+    before = kernel.launches
+    t, gl = kernel.front_exact(codes, tab.lut, msk, tab.cmask, tab.gsel)
+    t2, gl2 = kernel.front_exact(codes, tab.lut, msk, tab.cmask, tab.gsel)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    pt, pgl = TF.front_exact_plain(codes, tab.lut, msk, tab.cmask, tab.gsel)
+    for got, want in ((t, pt), (gl, pgl)):
+        err = (got - want).abs() / want.abs().clamp(min=1e-300)
+        assert float(err.max()) < 1e-13
+    assert torch.equal(t, t2) and torch.equal(gl, gl2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,V,grid", [
+    (64, 256, 8, GRID5),
+    (40, 384, 8, [0.0, 0.5]),
+    (33, 200, 13, [0.0, 0.5]),
+    (32, 128, 3, [0.1, 0.3, 0.5]),
+    (16, 130, 2, [0.0]),  # separable plane only; S not a warp multiple
+    (8, 160, 19, [0.5]),  # the V <= 20 instantiation, symmetric plane
+    (8, 128, 1, [0.0, 0.25, 0.5]),
+    (4, 128, 2, np.linspace(0, 0.5, 96).tolist()),  # V*V*A == 384
+])
+def test_k3_matches_plain_on_card(cuda_device, B, S, V, grid):
+    """K3' against pair_exact_plain on the card: LLKs within 1e-9
+    absolute, and two launches give identical bits (no atomics)."""
+    from demuxlet_tpu_torch.kernels import pair_exact as kernel
+
+    rng = np.random.default_rng(3)
+    A = len(grid)
+    tab = TE.exact_tables_from_numpy(np.full((4, V, 3), 1 / 3), grid, 40,
+                                     None, cuda_device)
+    codes = rng.integers(0, 82, size=(B, S, 2)).astype(np.int32)
+    codes[rng.random((B, S, 2)) < 0.3] = 255
+    msk = rng.random((B, S)) < 0.8
+    t, gl = TF.front_exact_plain(torch.from_numpy(codes).to(cuda_device),
+                                 tab.lut, torch.from_numpy(msk).to(cuda_device),
+                                 tab.cmask, tab.gsel)
+    g = rng.dirichlet(np.ones(3), size=(V + 1, B, S))
+    g[:, ~msk] = np.array([1.0, 0.0, 0.0])
+    g = torch.from_numpy(np.ascontiguousarray(
+        g.transpose(0, 3, 1, 2).reshape(3 * V + 3, B, S))).to(cuda_device)
+    a0_sep = grid[0] == 0.0
+    sym_a = grid.index(0.5) if 0.5 in grid else None
+    before = kernel.launches
+    got = TP.pair_exact(t, g, gl, V, A, a0_sep, sym_a, tab.expand)
+    again = TP.pair_exact(t, g, gl, V, A, a0_sep, sym_a, tab.expand)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    want = TP.pair_exact_plain(t, g, gl, V, A, a0_sep, sym_a, tab.expand)
+    for x, y, z in zip(got, want, again):
+        assert float((x - y).abs().max()) < 1e-9
+        assert torch.equal(x, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,U,V,grid,narrow", [
+    (32, 256, 3, 8, GRID5, False),
+    (16, 512, 64, 8, GRID5, True),  # a PCR-hot block's full lanes, 5-row LUT
+    (20, 130, 4, 3, [0.0, 0.5], False),
+])
+def test_exact_block_matches_likelihood_on_card(cuda_device, B, S, U, V,
+                                                grid, narrow):
+    """The exact block step through K2' and K3' on the card against the
+    port's dense f64 likelihood kernels (ops/likelihood.py) on the card:
+    within 1e-9 absolute, every (j, k, alpha) channel. On a wire-v2 style
+    dictionary of 4 codes when narrow, as the engine's main path runs."""
+    from demuxlet_tpu.host.wire import WireCfg
+    from demuxlet_tpu_torch.kernels import front_exact as k2
+    from demuxlet_tpu_torch.kernels import pair_exact as k3
+
+    codes, idx, msk, gps, _ = _workload(B + U, B=B, S=S, U=U, V=V)
+    rows = [23, 37, 41 + 23, 41 + 37] if narrow else None
+    if narrow:
+        codes = np.where(codes == 255, 255, codes % 4).astype(np.uint8)
+        codes[:, :, 8:][np.random.default_rng(0).random(
+            codes[:, :, 8:].shape) < 0.97] = 255
+    cfg = WireCfg(tuple(rows), 4, 8) if narrow else None
+    tab = TE.exact_tables_from_numpy(gps, grid, 40, cfg, cuda_device)
+    before = (k2.launches, k3.launches)
+    got = TF.exact_block(
+        torch.from_numpy(codes).to(cuda_device),
+        torch.from_numpy(idx).to(cuda_device),
+        torch.from_numpy(msk).to(cuda_device), tab.g_table, tab.lut,
+        tab.cmask, tab.gsel, tab.expand, len(grid), V, a0_sep=True,
+        sym_a=grid.index(0.5))
+    torch.cuda.synchronize()
+    assert (k2.launches, k3.launches) == (before[0] + 1, before[1] + 1)
+    want = _likelihood_f64(codes, idx, msk, gps, grid, rows=rows,
+                           device=cuda_device)
+    for name, g, ref in zip(("llk", "llk0", "llk_ab", "llk_00"), got, want):
+        assert g.shape == ref.shape, name
+        assert np.abs(g.cpu().numpy() - ref).max() < 1e-9, name

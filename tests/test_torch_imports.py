@@ -1,4 +1,4 @@
-"""The port stands without JAX and refuses what slice 1 does not cover."""
+"""The port stands without JAX and refuses what it does not cover yet."""
 
 import os
 import re
@@ -69,8 +69,8 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mode", "exact"], "item 11"),
-    ([], "item 11"),  # exact is the parser's default mode
+    (["--exact-kernel", "xla"], "item 12"),  # exact is the default mode
+    (["--mode", "exact", "--cap-BQ", "127"], "item 12"),
     (["--mode", "fast", "--write-pair"], "item 12"),
     (["--mode", "fast", "--spool", "spool_dir"], "item 12"),
     (["--mode", "fast", "--profile", "trace_dir"], "item 12"),
@@ -81,10 +81,23 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     (["--mode", "fast", "--mesh", "2x1"], "item 14"),
     (["--mode", "fast", "--precision", "f32"], "item 9"),
     (["--mode", "fast", "--device", "tpu"], "cpu"),
+    # V*V*A = 8*8*7 > 384: the tiled exact kernels (K6/K7)
+    (["--field", "GT", "--alpha", "0"]
+     + [a for x in (0.1, 0.2, 0.25, 0.3, 0.4, 0.5)
+        for a in ("--alpha", str(x))], "item 13"),
 ])
 def test_cli_refuses_unported(tmp_path, extra, item):
     from demuxlet_tpu_torch import cli
 
+    if item == "item 13":  # the pool size is known once the VCF is read
+        import random
+
+        from fixtures import random_workload, write_vcf
+
+        contigs, names, variants, _, _ = random_workload(
+            random.Random(3), n_cells=2, n_snps=10, n_samples=8)
+        write_vcf(str(tmp_path / "none.vcf"), names, variants,
+                  contigs=contigs)
     with pytest.raises(DemuxError, match=item):
         cli.main(["--sam", str(tmp_path / "none.bam"), "--vcf",
                   str(tmp_path / "none.vcf"), "--out", str(tmp_path / "o"),
