@@ -1,9 +1,10 @@
 """Command-line entry of the PyTorch port: ``python -m demuxlet_tpu_torch.cli``.
 
 Same options and outputs as ``demuxlet_tpu.cli`` (its parser, parameter
-echo, ingest, output opener and host-oracle parity mode are reused), with
-the device passes on PyTorch. ``--device auto`` means the CUDA card or an
-error, ``cpu`` runs the plain kernel versions (tests), ``tpu`` is an error.
+echo, ingest, output opener and host-oracle parity mode are the port's
+copies in ``cli_common.py``), with the device passes on PyTorch.
+``--device auto`` means the CUDA card or an error, ``cpu`` runs the plain
+kernel versions (tests), ``tpu`` is an error.
 
 ``--mode exact`` (the default; ``--exact-kernel auto|pallas`` both select
 the port's f64 kernels) and ``--mode fast`` run through
@@ -17,14 +18,14 @@ from __future__ import annotations
 import sys
 import time
 
-from demuxlet_tpu.cli import (
+from demuxlet_tpu_torch.cli_common import (
     _echo_params,
     _ingest,
     _open_out,
     _run_parity,
     build_parser,
 )
-from demuxlet_tpu.utils.logging_utils import error, notice
+from demuxlet_tpu_torch.utils.logging_utils import error, notice
 
 
 def _refuse_unported(args) -> None:
@@ -80,7 +81,7 @@ def _check_single_device(args) -> None:
 def _load_table(args):
     """The SNP table, as demuxlet_tpu.cli.main loads it (chunk patterns
     included; genome sharding is refused above)."""
-    from demuxlet_tpu.io.vcf import (
+    from demuxlet_tpu_torch.io.vcf import (
         expand_chunk_pattern,
         load_snp_table,
         merge_snp_tables,
@@ -96,10 +97,10 @@ def _load_table(args):
         verbose=args.vcf_verbose,
     )
     if any(t in args.vcf for t in ("-_CHR_-", "-_BEG_-", "-_END_-")):
-        from demuxlet_tpu.native.ingest import _bam_refs_len
+        from demuxlet_tpu_torch.native.ingest import _bam_refs_len
 
         if args.ref:
-            from demuxlet_tpu.utils.intervals import read_fai
+            from demuxlet_tpu_torch.utils.intervals import read_fai
 
             fai = args.ref if args.ref.endswith(".fai") else args.ref + ".fai"
             chrom_lengths = read_fai(fai)
@@ -173,7 +174,7 @@ def main(argv=None) -> int:
     if args.mode == "parity":
         return _run_parity(args, scl, table, grid_alpha, t_start)
 
-    from demuxlet_tpu.models import outputs as out_mod
+    from demuxlet_tpu_torch.models import outputs as out_mod
     from demuxlet_tpu_torch.models.engine import cell_stats
 
     t_eng = time.time()

@@ -29,8 +29,10 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG), "build", "kernels")
 
 # sm_90a: Hopper with its architecture-specific features. No
 # --use_fast_math: the fast-mode contract needs the accurate logf.
+# -Xptxas -v: ptxas reports each kernel's registers and spills, kept
+# beside the library (``ptxas_report``).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -69,8 +71,23 @@ def build(name: str) -> str:
             f"nvcc failed to build {src} (exit {proc.returncode}):\n"
             f"{proc.stdout}{proc.stderr}"
         )
+    with open(out + ".ptxas.txt", "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # a concurrent build never loads a partial file
     return out
+
+
+def ptxas_report(lib_path: str) -> list:
+    """ptxas's lines for a built library, per kernel instantiation: the
+    entry it compiled, its stack frame and spills, its registers (empty if
+    no report was kept)."""
+    path = lib_path + ".ptxas.txt"
+    if not os.path.exists(path):
+        return []
+    keep = ("Compiling entry", "spill stores", "Used ")
+    with open(path) as fh:
+        return [ln.replace("ptxas info    : ", "").strip()
+                for ln in fh if any(k in ln for k in keep)]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -15,8 +15,10 @@ copied here (``compute_gp0``, ``_prefetched``, ``_to_wire``, ``_bucket``,
 ``_shrink_codes_blk``, ``_blocks``, ``cell_stats``);
 tests/test_torch_engine.py pins each copy to the original.
 
-Refused, never emulated: pools with V*V*A > 384 (ROADMAP queue 1, item
-13); cap-BQ > 126 (the u8 codes cannot hold it: the JAX package refuses
+Exact mode runs every pool size: V*V*A > 384 takes the tiled K7' + K6'
+(``ops/pair_tiled.py``) where smaller pools take K3'. Refused, never
+emulated: fast mode on pools with V*V*A > 384 (ROADMAP queue 1, item
+13b); cap-BQ > 126 (the u8 codes cannot hold it: the JAX package refuses
 it in fast mode and sends exact mode to the dense ``run()``, item 12).
 """
 
@@ -32,11 +34,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from demuxlet_tpu.host.csr import CsrPileup, build_codes_block
-from demuxlet_tpu.host.pileup import PileupData
-from demuxlet_tpu.models.outputs import CellStats
-from demuxlet_tpu.ops import luts
-from demuxlet_tpu.utils.logging_utils import DemuxError
+from demuxlet_tpu_torch.host.csr import CsrPileup, build_codes_block
+from demuxlet_tpu_torch.host.pileup import PileupData
+from demuxlet_tpu_torch.models.outputs import CellStats
+from demuxlet_tpu_torch.ops import luts
+from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 from demuxlet_tpu_torch.models import decision as D
 from demuxlet_tpu_torch.ops.pair import UNROLL_CAP, dedup_channels, extend_luts
 
@@ -236,9 +238,10 @@ class DemuxEngine:
         device: Optional[torch.device] = None,
     ):
         """mode="exact" (the JAX engine's default): f64 front and pair
-        search with the singlet term (K2' and K3' on CUDA, their plain
-        versions on the CPU), f64 decision pass. mode="fast": f32 pair
-        search (K1), f32 singlet term, f64 decision pass.
+        search with the singlet term (K2' and K3' on CUDA, K2', K7' and K6'
+        when V*V*A > 384; their plain versions on the CPU), f64 decision
+        pass. mode="fast": f32 pair search (K1), f32 singlet term, f64
+        decision pass.
         device: a torch.device; None resolves "auto" (CUDA or DemuxError,
         ``utils/device.resolve_device``)."""
         if mode not in MODES:
@@ -252,12 +255,12 @@ class DemuxEngine:
         self.mode = mode
         self.nv = gps.shape[1]
         self.n_alpha = len(self.grid_alpha)
-        if self.nv * self.nv * self.n_alpha > UNROLL_CAP:
-            tiled = "K6/K7" if mode == "exact" else "K4/K5"
+        if mode == "fast" and self.nv * self.nv * self.n_alpha > UNROLL_CAP:
             raise DemuxError(
                 f"V*V*A = {self.nv * self.nv * self.n_alpha} > {UNROLL_CAP} "
-                f"needs the tiled pair kernels ({tiled}), not ported to "
-                "PyTorch yet (ROADMAP queue 1, item 13)"
+                "in fast mode needs the tiled f32 pair kernels (K4/K5), not "
+                "ported to PyTorch yet (ROADMAP queue 1, item 13b); exact "
+                "mode (the default) runs it"
             )
         if self.cap_bq > 126:
             raise DemuxError(
@@ -315,7 +318,7 @@ class DemuxEngine:
         if cache is not None and cache[0] == self.cap_bq:
             cfg = cache[1]
         else:
-            from demuxlet_tpu.host.wire import choose_cfg
+            from demuxlet_tpu_torch.host.wire import choose_cfg
 
             cfg = choose_cfg(scl, self.cap_bq)
             try:
@@ -338,7 +341,7 @@ class DemuxEngine:
         kw = {} if pad is None else {"pad_slots_to": pad}
         cfg = self._wire_cfg_for(scl)
         if self.cap_bq <= 126 and hasattr(scl, "cell_ptr"):
-            from demuxlet_tpu.native import prep as nprep
+            from demuxlet_tpu_torch.native import prep as nprep
 
             if cfg is not None and nprep.available():
                 out = self._pack_reg(lambda ff: nprep.pack_block_v2(
@@ -360,7 +363,7 @@ class DemuxEngine:
             pad_cells_to=self.cell_block, **kw,
         )
         if cfg is not None:
-            from demuxlet_tpu.host import wire as W
+            from demuxlet_tpu_torch.host import wire as W
 
             key = (codes_blk[0].shape[1], codes_blk[0].shape[2])
             out = self._pack_reg(
@@ -503,8 +506,8 @@ class DemuxEngine:
 
     def run_compact(self, scl, doublet_prior: float):
         """Exact- or fast-mode pipeline with the device-side decision pass
-        (one block step per block: K2' + K3' in exact mode, K1 in fast
-        mode): returns
+        (one block step per block: K2' + K3' in exact mode, K2' + K7' +
+        K6' on pools with V*V*A > 384, K1 in fast mode): returns
         (llks, llk0s, decision.CompactResult). Per-run accounting:
         ``h2d_bytes`` (block buffers shipped) and ``phase_s`` (setup = wire
         config, tables and blocking, on the first call for a pileup also

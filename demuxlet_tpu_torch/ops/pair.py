@@ -82,7 +82,8 @@ def pair_llks(t, gps_t, V, A, a0_sep=False, sym_a=None, expand=None):
     if V * V * A > UNROLL_CAP:
         raise ValueError(
             f"V*V*A = {V * V * A} exceeds the unrolled pool cap "
-            f"{UNROLL_CAP}; the tiled kernels are not ported yet"
+            f"{UNROLL_CAP}; the tiled fast kernels (K4/K5) are not "
+            "ported yet"
         )
     if t.device.type == "cuda":
         from demuxlet_tpu_torch.kernels import pair_fast

@@ -1,7 +1,8 @@
 """Exact-mode pair search and singlet term: dispatch to the Hopper kernel
 K3' and its plain PyTorch version (port of
 ``demuxlet_tpu/ops/pallas_pair_exact.py::_call_pair_kernel_df`` :445 on
-the unrolled path, ``V*V*A <= 384``, computed in f64 instead of df32).
+the unrolled path, ``V*V*A <= 384``, computed in f64 instead of df32);
+larger pools go to the tiled K7' + K6' (``ops/pair_tiled.py``).
 
 Per (cell, slot), with g the genotype posteriors (V, 3), g0 the host f64
 background row (3,), t the mixture table (A, 3, 3) and gl the pass-1 GL
@@ -22,6 +23,7 @@ from demuxlet_tpu_torch.ops.pair import (
     UNROLL_CAP,
     _pair_plain_chunk,
 )
+from demuxlet_tpu_torch.ops.pair_tiled import _dot3, pair_exact_tiled
 
 
 def pair_exact(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None):
@@ -35,14 +37,13 @@ def pair_exact(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None):
     llk (B, V), llk0 (B,)) f64.
 
     A CUDA tensor launches K3' (``kernels/pair_exact.py``); a CPU tensor
-    runs ``pair_exact_plain``. Nothing falls back from one to the other."""
+    runs ``pair_exact_plain``. Nothing falls back from one to the other.
+    Pools with V*V*A > 384 take ``pair_tiled.pair_exact_tiled`` (K7' and
+    K6', or their plain versions) with the same contract."""
     if expand is None:
         expand = tuple(range(A * 9))
     if V * V * A > UNROLL_CAP:
-        raise ValueError(
-            f"V*V*A = {V * V * A} exceeds the unrolled pool cap "
-            f"{UNROLL_CAP}; the tiled exact kernels are not ported yet"
-        )
+        return pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, expand)
     if t.device.type == "cuda":
         from demuxlet_tpu_torch.kernels import pair_exact as kernel
 
@@ -50,11 +51,6 @@ def pair_exact(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None):
     if t.device.type != "cpu":
         raise ValueError(f"pair_exact: unsupported device {t.device}")
     return pair_exact_plain(t, g, gl, V, A, a0_sep, sym_a, expand)
-
-
-def _dot3(q, r):
-    """q[0]*r[0] + q[1]*r[1] + q[2]*r[2] over the leading axis, in order."""
-    return q[0] * r[0] + q[1] * r[1] + q[2] * r[2]
 
 
 def pair_exact_plain(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None):

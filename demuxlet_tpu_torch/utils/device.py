@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from demuxlet_tpu.utils.logging_utils import DemuxError
+from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 
 
 def resolve_device(name: str) -> torch.device:

@@ -96,11 +96,13 @@ def test_run_compact_matches_jax(monkeypatch, wire, native):
     fields equal. The seed keeps every cell's competing values apart by
     more than that tolerance (asserted)."""
     from demuxlet_tpu.native import prep as nprep
+    from demuxlet_tpu_torch.native import prep as tprep
 
     monkeypatch.setenv("DEMUX_TPU_WIRE", wire)
-    if not native:
+    if not native:  # both engines on the Python packer
         monkeypatch.setattr(nprep, "available", lambda: False)
-    elif not nprep.available():
+        monkeypatch.setattr(tprep, "available", lambda: False)
+    elif not (nprep.available() and tprep.available()):
         pytest.skip("native prep not built")
     csr, gps = _pcr_hot_csr(17)
     grid = [0.0, 0.5]
@@ -143,7 +145,9 @@ def test_copied_engine_helpers_equal_jax(monkeypatch):
     assert port._blocks(40) == jax_eng._blocks(40)
     cfg_t = port._wire_cfg_for(csr)
     del csr._wire_cfg_cache
-    assert cfg_t == jax_eng._wire_cfg_for(csr) and cfg_t is not None
+    # the port's own copy of host/wire.py: equal fields, another class
+    assert cfg_t is not None and dataclasses.astuple(cfg_t) == \
+        dataclasses.astuple(jax_eng._wire_cfg_for(csr))
     monkeypatch.setenv("DEMUX_TPU_WIRE", "v1")
     assert port._wire_cfg_for(csr) is None
     assert jax_eng._wire_cfg_for(csr) is None
@@ -185,13 +189,15 @@ def test_copied_engine_helpers_equal_jax(monkeypatch):
 
 
 def test_engine_refuses_unported(monkeypatch):
-    from demuxlet_tpu.utils.logging_utils import DemuxError
+    from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 
     gps = np.full((10, 8, 3), 1 / 3)
+    big = np.full((10, 14, 3), 1 / 3)  # V*V*A = 392 > 384
+    with pytest.raises(DemuxError, match="K4/K5.*item 13b"):
+        TE.DemuxEngine(big, [0.0, 0.5], mode="fast", device=CPU)
+    # exact mode takes the tiled K7' + K6'
+    assert TE.DemuxEngine(big, [0.0, 0.5], device=CPU).mode == "exact"
     for mode in ("exact", "fast"):
-        with pytest.raises(DemuxError, match="item 13"):
-            TE.DemuxEngine(np.full((10, 14, 3), 1 / 3), [0.0, 0.5],
-                           mode=mode, device=CPU)
         with pytest.raises(DemuxError, match="cap-BQ.*item 12"):
             TE.DemuxEngine(gps, [0.0, 0.5], cap_bq=127, mode=mode,
                            device=CPU)
