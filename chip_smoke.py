@@ -33,13 +33,14 @@ version on the card. Phases, one line each:
      canonicalize_best;
   9. K7' (pair_tiled_exact) and K6' (extras_exact) against their plain
      versions at B=2048, S=1024 for (V, A) = (32, 5), (32, 2), (20, 2),
-     (17, 3) and a ragged B=40/S=384 case on 8-tiles: within 1e-9
-     absolute; kernel ms (median of CUDA-event timed launches) and plain ms;
+     (17, 3) and a ragged B=40/S=384 case (V=7, A=8: one 8-tile): within
+     1e-9 absolute; kernel ms (median of CUDA-event timed launches) and
+     plain ms;
  10. exact run_compact on the same pileup with V=32 donors on the default
      grid: K2', K7' and K6' launched once per block and K3' never, rate,
      phase seconds, peak device memory, and the first 2 and the deepest
      block through the plain versions (1e-9 absolute, near ties counted);
- 11. the CLI with no --mode on a V=16 default-grid BAM/VCF (300 cells,
+ 11. the CLI with no --mode on a V=16 default-grid BAM/VCF (100 cells,
      V*V*A = 512: K7' + K6') against --mode parity, as in phase 8;
  12. per run (exact and fast at V=8, exact at V=32), one more run_compact
      on the pileup (rate, phase seconds, peak device memory) and one under
@@ -48,9 +49,9 @@ version on the card. Phases, one line each:
 
 Then a JSON line of per-kernel numbers (with each kernel's bound: the
 larger of its operations over the card's peak rate for their type and its
-bytes over the memory rate, counted as ``bound`` says), the card's name and
-power limit, and, last, the ok line. Any failure exits non-zero before the
-ok line. With no CUDA device it exits 1 at once. Nothing of JAX, of the JAX
+bytes over the memory rate, counted as ``bound`` and ``channel_ops``
+say), the card's name and power limit, and, last, the ok line. Any failure
+exits non-zero before the ok line. With no CUDA device it exits 1 at once. Nothing of JAX, of the JAX
 package or of oracle/ is imported.
 
 Usage: python3 chip_smoke.py
@@ -76,6 +77,8 @@ sys.path.insert(0, os.path.join(HERE, "tests"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+START = time.monotonic()
+
 TOL = 2e-5  # fast-mode contract (tests/test_pallas.py): relative, scale max(1,|x|)
 EXACT_TOL = 1e-9  # exact-mode contract (tests/test_engine.py): absolute
 FRONT_TOL = 1e-12  # K2' vs plain: the same sums, the exp's last bits differ
@@ -89,10 +92,15 @@ V_LARGE, GRID_LARGE = 32, [0.0, 0.5]  # the large pool: the tiled K7' + K6'
 # f64 and 67 TFLOP/s f32 outside the tensor cores (which none of these
 # kernels can use), 3.35 TB/s HBM3. One log or exp is counted as 20
 # operations of its type (its polynomial is about ten FMAs), an FMA as 2.
+# A pair or singlet channel's sum over slots of log(inner) needs no log per
+# slot: its inner values multiply into a running product (with exponent
+# renormalisation, as the TPU's pair kernels did) and take one log per
+# channel per cell. So a channel costs its 3-term dot and one multiply per
+# slot, and one log per cell.
 PEAK_OPS = {"f64": 34e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 LOG_OPS = 20
-CHANNEL_OPS = LOG_OPS + 7  # a log of a 3-term dot (3 FMAs) added to a sum
+CHANNEL_OPS = 7  # per slot: a 3-term dot (3 FMAs) and one multiply
 ROW_OPS = 18  # one row of U = g_j . t_a: 9 FMAs
 
 
@@ -104,20 +112,28 @@ def bound(ops, nbytes, kind):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def channel_ops(B, S, channels, rows):
+    """The operations of ``channels`` log-sum channels and ``rows`` U rows
+    per slot over B cells of S slots: a dot and a multiply per channel and
+    slot, a U row per slot, and one log per channel and cell."""
+    return B * S * (channels * CHANNEL_OPS + rows * ROW_OPS) \
+        + B * channels * LOG_OPS
+
+
 def pair_work(V, A, a0_sep, sym_a, singlets):
-    """Per slot, the (log channels, U rows) a pair search needs: the
-    separable alpha == 0 plane as 2V factors and the background pair as 2,
-    the symmetric plane's upper triangle, V*V channels for any other alpha
-    plus one background channel each, and with ``singlets`` the V + 1
-    singlet channels."""
-    logs, rows = 0, 0
+    """Per slot, the (channels, U rows) a pair search needs: the separable
+    alpha == 0 plane as 2V factors and the background pair as 2, the
+    symmetric plane's upper triangle, V*V channels for any other alpha plus
+    one background channel each, and with ``singlets`` the V + 1 singlet
+    channels."""
+    chans, rows = 0, 0
     for a in range(A):
         if a0_sep and a == 0:
-            logs += 2 * V + 2
+            chans += 2 * V + 2
         else:
-            logs += (V * (V + 1) // 2 if a == sym_a else V * V) + 1
+            chans += (V * (V + 1) // 2 if a == sym_a else V * V) + 1
             rows += V + 1
-    return logs + (V + 1 if singlets else 0), rows
+    return chans + (V + 1 if singlets else 0), rows
 
 
 def fail(msg: str) -> None:
@@ -126,7 +142,9 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str, **kv) -> None:
-    print(json.dumps({"phase": name, **kv}), flush=True)
+    """One phase line; t_s: seconds since the script started."""
+    print(json.dumps({"phase": name, "t_s": time.monotonic() - START, **kv}),
+          flush=True)
 
 
 def rel_err(x, ref) -> float:
@@ -149,9 +167,30 @@ def median_ms(fn, n=20) -> float:
     return float(np.median(times))
 
 
+def flat_dirichlet(rng, shape, dev):
+    """Flat-Dirichlet draws over axis 1 of ``shape``, f64 on dev:
+    normalised Exp(1) variables from a generator seeded by rng."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    e = torch.empty(shape, dtype=torch.float64, device=dev).exponential_(
+        generator=gen)
+    return e / e.sum(dim=1, keepdim=True)
+
+
+def neutral_on(pad, g):
+    """g (n, 3, B, S) with the neutral row (1, 0, 0) on the padded slots
+    pad (B, S), as (3n, B, S) contiguous."""
+    one = torch.zeros(3, dtype=g.dtype, device=g.device)
+    one[0] = 1
+    pad = torch.from_numpy(pad).to(g.device)
+    return torch.where(pad, one.view(3, 1, 1), g).reshape(
+        -1, *pad.shape).contiguous()
+
+
 def pair_inputs(rng, B, S, grid, dev):
     """Main-path K1 inputs: t from real LUT rows and 1-3 observations per
-    slot, dirichlet genotype posteriors, ~20% padded (neutral) slots."""
+    slot, flat-Dirichlet genotype posteriors drawn on the device, ~20%
+    padded (neutral) slots."""
     from demuxlet_tpu_torch.ops import luts
     from demuxlet_tpu_torch.ops.pair import dedup_channels, norm_t
 
@@ -163,12 +202,9 @@ def pair_inputs(rng, B, S, grid, dev):
     lograw = np.zeros((B, S, len(cols)), np.float32)
     for u in range(3):
         lograw += np.where(((nobs > u) & ~pad)[..., None], w[codes[..., u]], 0)
-    g = rng.dirichlet(np.ones(3), size=(B, S, V)).astype(np.float32)
-    g[pad] = np.array([1.0, 0.0, 0.0], np.float32)
+    gps_t = neutral_on(pad, flat_dirichlet(rng, (V, 3, B, S), dev).float())
     t = norm_t(torch.from_numpy(np.ascontiguousarray(
         lograw.transpose(2, 0, 1))).to(dev), 0).contiguous()
-    gps_t = torch.from_numpy(np.ascontiguousarray(
-        g.transpose(2, 3, 0, 1).reshape(3 * V, B, S))).to(dev)
     return t, gps_t, expand
 
 
@@ -256,9 +292,9 @@ def compare_rows(got, ref, nv, na, tol, absolute=False):
 def exact_inputs(rng, B, S, grid, dev, nv=V):
     """Main-path K2' inputs: the unnarrowed cap-40 exact tables, 1-3
     observations per slot from real LUT rows (the rest of U=3 lanes none),
-    ~20% padded slots; and the pair kernels' genotype rows for nv samples:
-    dirichlet posteriors, their f64 mean as the background rows, neutral
-    rows on padded slots."""
+    ~20% padded slots; and the pair kernels' genotype rows for nv samples,
+    drawn on the device: flat-Dirichlet posteriors, their f64 mean as the
+    background rows, neutral rows on padded slots."""
     from demuxlet_tpu_torch.models.engine import exact_tables_from_numpy
 
     tab = exact_tables_from_numpy(np.full((1, nv, 3), 1 / 3), grid, 40, None,
@@ -267,11 +303,8 @@ def exact_inputs(rng, B, S, grid, dev, nv=V):
     nobs = rng.integers(1, 4, size=(B, S))
     pad = rng.random((B, S)) < 0.2
     codes[(np.arange(3) >= nobs[..., None]) | pad[..., None]] = 255
-    g = rng.dirichlet(np.ones(3), size=(B, S, nv))
-    g = np.concatenate([g, g.mean(axis=2, keepdims=True)], axis=2)
-    g[pad] = np.array([1.0, 0.0, 0.0])
-    g = torch.from_numpy(np.ascontiguousarray(
-        g.transpose(2, 3, 0, 1).reshape(3 * nv + 3, B, S))).to(dev)
+    g = flat_dirichlet(rng, (nv, 3, B, S), dev)
+    g = neutral_on(pad, torch.cat([g, g.mean(dim=0, keepdim=True)]))
     codes = torch.from_numpy(codes.astype(np.int32)).to(dev)
     return tab, codes, torch.from_numpy(~pad).to(dev), g
 
@@ -282,8 +315,13 @@ def cli_case(tmp, n_samples, n_cells, reads_per_cell):
 
     from demuxlet_tpu_torch.io import bgzf
 
-    # fixtures.py writes BGZF through demuxlet_tpu.io.bgzf: that name is
-    # bound to the port's copy, so no module of the JAX package is loaded
+    # fixtures.py imports BgzfWriter, BGZF_EOF, compress_block and
+    # read_block_at by the full name demuxlet_tpu.io.bgzf (its only import
+    # of the JAX package on the BAM/VCF path; rans is for CRAM). That name is
+    # bound to the port's copy, which the import finds in sys.modules without
+    # loading a parent package. tests/test_torch_imports.py runs this
+    # function with the JAX package blocked, so a new import there fails on
+    # the CPU first.
     sys.modules.setdefault("demuxlet_tpu.io.bgzf", bgzf)
     from fixtures import random_workload, write_bam, write_vcf
 
@@ -550,7 +588,6 @@ def main() -> int:
     from demuxlet_tpu_torch.utils.device import resolve_device
     from parity_utils import canonicalize_best_line
 
-    t_start = time.monotonic()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -599,8 +636,8 @@ def main() -> int:
             fail(f"K1 {name}: max relative error {err} > {TOL}")
         ms = median_ms(lambda: pair_llks(*args))
         plain_ms = median_ms(lambda: pair_llks_plain(*args))
-        logs, rows = pair_work(V, A, True, grid.index(0.5), False)
-        b_ms, b_by = bound(B * S * (logs * CHANNEL_OPS + rows * ROW_OPS),
+        b_ms, b_by = bound(channel_ops(B, S, *pair_work(
+                               V, A, True, grid.index(0.5), False)),
                            4 * (t.numel() + gps_t.numel() + ab.numel()
                                 + z0.numel()), "f32")
         phase("k1_vs_plain", case=name, B=B, S=S, V=V, A=A, C=t.shape[0],
@@ -681,9 +718,9 @@ def main() -> int:
                 fail(f"K3' {name}: max absolute error {aerr} > {EXACT_TOL}")
             ms = median_ms(lambda: pair_exact(*pargs))
             plain_ms = median_ms(lambda: pair_exact_plain(*pargs))
-            logs, rows = pair_work(V, A, True, grid.index(0.5), True)
             b_ms, b_by = bound(
-                B * S * (logs * CHANNEL_OPS + rows * ROW_OPS),
+                channel_ops(B, S, *pair_work(V, A, True, grid.index(0.5),
+                                             True)),
                 8 * (t.numel() + g.numel() + gl.numel()
                      + sum(x.numel() for x in got)), "f64")
             phase("k3_vs_plain", case=name, B=B, S=S, V=V, A=A,
@@ -709,20 +746,20 @@ def main() -> int:
 
     # ---- 9. K7' and K6' against their plain versions
     rng = np.random.default_rng(4)
-    grid3 = [0.0, 0.25, 0.5]
-    for name, B, S, nv, grid, tile in (
-        ("v32_a5", 2048, 1024, 32, GRID, None),
-        ("main", 2048, 1024, V_LARGE, GRID_LARGE, None),
-        ("v20_a2", 2048, 1024, 20, [0.0, 0.5], None),
-        ("v17_a3", 2048, 1024, 17, grid3, None),
-        ("ragged", 40, 384, 17, grid3, 8),
+    for name, B, S, nv, grid in (
+        ("v32_a5", 2048, 1024, 32, GRID),
+        ("main", 2048, 1024, V_LARGE, GRID_LARGE),
+        ("v20_a2", 2048, 1024, 20, [0.0, 0.5]),
+        ("v17_a3", 2048, 1024, 17, [0.0, 0.25, 0.5]),
+        # V*V*A = 392 on one ragged 8-tile
+        ("ragged", 40, 384, 7, np.linspace(0.0, 0.5, 8).tolist()),
     ):
         A = len(grid)
         a0_sep, sym_a = grid[0] == 0.0, grid.index(0.5)
         tab, codes, msk, g = exact_inputs(rng, B, S, grid, dev, nv)
         t, gl = front_exact(codes, tab.lut, msk, tab.cmask, tab.gsel)
         del codes, msk
-        plan = PT.plan_tiles(nv, A, a0_sep, sym_a, tile)
+        plan = PT.plan_tiles(nv, A, a0_sep, sym_a)
         a7 = (t, g, nv, A, plan, tab.expand)
         a6 = (t, g, gl, nv, A, a0_sep, tab.expand)
         got7, got6 = PT.pair_tiled(*a7), PT.extras(*a6)
@@ -741,14 +778,13 @@ def main() -> int:
         plain7 = median_ms(lambda: PT.pair_tiled_plain(*a7), n=3 if big else 10)
         ms6 = median_ms(lambda: PT.extras(*a6))
         plain6 = median_ms(lambda: PT.extras_plain(*a6), n=3 if big else 10)
-        logs = sum(nv * (nv + 1) // 2 if a == sym_a else nv * nv
-                   for a in plan.alist)
-        b7 = bound(B * S * (logs * CHANNEL_OPS + nv * len(plan.alist)
-                            * ROW_OPS),
+        chans = sum(nv * (nv + 1) // 2 if a == sym_a else nv * nv
+                    for a in plan.alist)
+        b7 = bound(channel_ops(B, S, chans, nv * len(plan.alist)),
                    8 * (t.numel() + g.numel() + got7.numel()), "f64")
         keys = PT.extras_keys(nv, A, a0_sep)
-        b6 = bound(B * S * (len(keys) * CHANNEL_OPS
-                            + sum(k[0] == "m0" for k in keys) * ROW_OPS),
+        b6 = bound(channel_ops(B, S, len(keys),
+                               sum(k[0] == "m0" for k in keys)),
                    8 * (t.numel() + g.numel() + gl.numel() + got6.numel()),
                    "f64")
         phase("k7_k6_vs_plain", case=name, B=B, S=S, V=nv, A=A, C=t.shape[0],
@@ -777,7 +813,7 @@ def main() -> int:
 
     # ---- 11. the CLI's default mode on a large pool against the oracle
     with tempfile.TemporaryDirectory() as tmp:
-        base = cli_case(tmp, 16, 300, 40)
+        base = cli_case(tmp, 16, 100, 40)
         cells, named = cli_vs_parity(base, tmp, [k2, k7, k6], absent=[k3])
         phase("cli", mode="exact (default)", cells=cells, samples=16,
               alphas=2, single_sing2_byte_identical=True,
@@ -799,7 +835,7 @@ def main() -> int:
                 "library_ms": None}
 
     src, jax = "demuxlet_tpu_torch/csrc/", "demuxlet_tpu/ops/"
-    phase("total", seconds=time.monotonic() - t_start)
+    phase("total", seconds=time.monotonic() - START)
     print(json.dumps({"kernels": [
         row("k1", "pair_fast (K1)", src + "pair_fast.cu",
             jax + "pallas_pair.py:96"),

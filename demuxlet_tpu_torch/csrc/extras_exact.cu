@@ -20,10 +20,12 @@
 // A masked slot carries t == 1, neutral rows (1, 0, 0) and gl == (1, 0, 0),
 // so it adds log 1 == 0 exactly.
 //
-// What bounds it on this card: one f64 log per column per slot (~3V + A),
+// What limits it on this card: one f64 log per column per slot (~3V + A),
 // against ~V*V*A in K7', so it is a small share of the block; per slot it
-// reads 3V + 6 doubles of g, gl and up to 3 + 9 (A - 1) of t, and its logs
-// bound it as they bind K7'.
+// reads 3V + 6 doubles of g, gl and up to 3 + 9 (A - 1) of t. The function
+// needs no per-slot log (a column's inner values can multiply into a
+// product with exponent renormalisation, one log per cell), so its bound
+// is those bytes; the per-slot logs are this simple kernel's cost.
 //
 // What the design does about it: K3''s layout. One block owns one cell and
 // loops over all of its slots; each warp takes whole columns; lanes stride

@@ -24,10 +24,12 @@
 // copies. A masked slot carries t == 1, neutral rows (1, 0, 0) and
 // gl == (1, 0, 0), so it adds log 1 == 0 exactly.
 //
-// What bounds it on this card: per slot it reads 3V + 6 + C doubles and
+// What limits it on this card: per slot it reads 3V + 6 + C doubles and
 // spends about V*V*A f64 logs (V=8, A=5: ~260 with a0_sep and sym_a),
-// each a software routine of a few dozen f64 instructions, so it is bound
-// by the SMs' f64 pipes, not by HBM.
+// each a software routine of a few dozen f64 instructions, so it runs on
+// the SMs' f64 pipes, not at HBM speed. The function needs one log per
+// channel per cell (products with exponent renormalisation, as the TPU's
+// K3 did), so its bound is the bytes it reads.
 //
 // What the design does about it: K1's layout. One block owns one cell and
 // loops over all of its slots; each warp takes whole tasks (one (j, a) row

@@ -17,10 +17,11 @@
 // computed and the j > k channels are copies, so ties resolve as in the
 // JAX package.
 //
-// What bounds it on this card: per slot it reads 3V + C floats and spends
+// What limits it on this card: per slot it reads 3V + C floats and spends
 // about V*V*A logs and 3*V*V*A FMAs (V=8, A=5: 42 floats against ~250 logs
-// of ~20 instructions each), so it is compute-bound on the SM's FP32 pipes
-// and the log, not on HBM bandwidth.
+// of ~20 instructions each), so it runs on the SM's FP32 pipes and the
+// log, not at HBM speed. The function needs one log per channel per cell
+// (products with exponent renormalisation), so its bound is the bytes.
 //
 // What the design does about it: the TPU kernel carried per-(j,k,a) sums
 // across its sequential slot grid axis in VMEM scratch. Hopper blocks run

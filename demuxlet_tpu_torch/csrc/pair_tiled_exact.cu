@@ -21,10 +21,13 @@
 // channel is an exact copy. A masked slot carries t == 1 and neutral rows
 // (1, 0, 0), so it adds log 1 == 0 exactly.
 //
-// What bounds it on this card: per slot it reads 3V + the used t channels
+// What limits it on this card: per slot it reads 3V + the used t channels
 // (doubles) and spends one f64 log per (j, k, alpha) channel (V=32, A=5:
 // ~3,600), each a software routine of a few dozen f64 instructions, so it
-// is bound by the SMs' f64 pipes, not by HBM.
+// runs on the SMs' f64 pipes, not at HBM speed. The function needs no
+// per-slot log (products with exponent renormalisation, one log per
+// channel per cell, as the TPU kernel did): its bound is the bytes at
+// V=32, A=2 and the dots at A=5, well below this kernel's time.
 //
 // What the design does about it: K3''s layout over a tile. One block owns
 // one (cell, item) and loops over all of the cell's slots; each warp takes

@@ -1,8 +1,9 @@
 """ctypes wrapper of K6' (``csrc/extras_exact.cu``), the Hopper port of
 ``demuxlet_tpu/ops/pallas_pair_exact.py::_extras_kernel_df``.
 
-Bound on this card: one f64 log per column per slot (~3V + A columns), so
-the SMs' f64 pipes, a small share of K7''s. Design: one block per cell,
+Cost on this card: one f64 log per column per slot (~3V + A columns), on
+the SMs' f64 pipes, a small share of K7''s; the function's bound is the
+bytes of g (one log per column per cell would do). Design: one block per cell,
 warps over columns, lanes over slots, a fixed warp-shuffle reduction, so
 runs are bit-reproducible. See the source.
 

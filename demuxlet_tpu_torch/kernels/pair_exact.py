@@ -1,8 +1,9 @@
 """ctypes wrapper of K3' (``csrc/pair_exact.cu``), the Hopper port of
 ``demuxlet_tpu/ops/pallas_pair_exact.py::_pair_kernel_df``.
 
-Bound on this card: per slot the kernel reads 3V + 6 + C doubles and
-spends about V*V*A f64 logs, so it is bound by the f64 pipes. Design: K1's
+Cost on this card: per slot the kernel reads 3V + 6 + C doubles and
+spends about V*V*A f64 logs, on the f64 pipes; the function needs one log
+per channel per cell, so its bound is the bytes. Design: K1's
 (one block per cell looping over its slots, warps over (j, alpha) rows,
 lanes over slots, sums in registers and a fixed warp-shuffle reduction, so
 runs are bit-reproducible), in f64, with the singlet row as one more task.

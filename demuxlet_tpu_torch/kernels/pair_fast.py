@@ -1,9 +1,9 @@
 """ctypes wrapper of K1 (``csrc/pair_fast.cu``), the Hopper port of
 ``demuxlet_tpu/ops/pallas_pair.py::_pair_kernel``.
 
-Bound on this card: per slot the kernel reads 3V + C floats and spends
-about V*V*A logs and 3*V*V*A FMAs, so it is compute-bound (FP32 pipes and
-the log), not bandwidth-bound. Design: one block per cell looping over
+Cost on this card: per slot the kernel reads 3V + C floats and spends
+about V*V*A logs and 3*V*V*A FMAs, on the FP32 pipes and the log; the
+function needs one log per channel per cell, so its bound is the bytes. Design: one block per cell looping over
 all its slots, warps over (j, alpha) accumulator rows, lanes over slots
 (coalesced along s), sums in registers and a fixed warp-shuffle reduction
 (no atomics, so runs are bit-reproducible). See the source for details.

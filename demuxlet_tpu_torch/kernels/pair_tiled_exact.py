@@ -1,8 +1,9 @@
 """ctypes wrapper of K7' (``csrc/pair_tiled_exact.cu``), the Hopper port of
 ``demuxlet_tpu/ops/pallas_pair_exact.py::_pair_kernel_df_tiled``.
 
-Bound on this card: one f64 log per (j, k, alpha) channel per slot, so the
-SMs' f64 pipes. Design: K3''s layout over one (cell, tile) per block (warps
+Cost on this card: one f64 log per (j, k, alpha) channel per slot, on the
+SMs' f64 pipes; the function needs one log per channel per cell, so its
+bound is far lower (bytes at V=32, A=2). Design: K3''s layout over one (cell, tile) per block (warps
 over (j, alpha) rows, lanes over slots, the tile's k sums in registers and
 a fixed warp-shuffle reduction, so runs are bit-reproducible), the
 symmetric plane on upper-triangle tiles and mirrored. See the source.

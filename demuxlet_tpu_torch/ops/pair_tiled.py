@@ -54,15 +54,12 @@ class TilePlan:
     items: tuple
 
 
-def plan_tiles(V, A, a0_sep, sym_a, tile=None) -> Optional[TilePlan]:
+def plan_tiles(V, A, a0_sep, sym_a) -> Optional[TilePlan]:
     """The tile plan of a pool, or None when the unrolled K3' takes it
-    (V*V*A <= 384). tile: 16 for V > 8, else 8, unless given."""
+    (V*V*A <= 384). The tile extent is 16 for V > 8, else 8."""
     if V * V * A <= UNROLL_CAP:
         return None
-    if tile is None:
-        tile = 16 if V > 8 else 8
-    if tile not in (8, 16):
-        raise ValueError(f"tile extent {tile} is not 8 or 16")
+    tile = 16 if V > 8 else 8
     n_t = -(-V // tile)
     ac = [a for a in range(A) if not (a0_sep and a == 0)]
     sym = [sym_a] if sym_a is not None and sym_a in ac else []
@@ -175,7 +172,7 @@ def extras_plain(t, g, gl, V, A, a0_sep, expand):
 
 
 def pair_exact_tiled(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None,
-                     tile=None, pair_fn=pair_tiled, extras_fn=extras):
+                     pair_fn=pair_tiled, extras_fn=extras):
     """The tiled exact pair search and singlet term, with
     ``pair_exact``'s contract: (llk_ab (B, V, V, A), llk_00 (B, A), llk
     (B, V), llk0 (B,)) f64. K7' (when some alpha is not separable) and K6'
@@ -185,7 +182,7 @@ def pair_exact_tiled(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None,
     g0s on a separable alpha == 0 plane, llk_00[a] = m0[a] otherwise."""
     if expand is None:
         expand = tuple(range(A * 9))
-    plan = plan_tiles(V, A, a0_sep, sym_a, tile)
+    plan = plan_tiles(V, A, a0_sep, sym_a)
     if plan is None:
         raise ValueError(f"V*V*A = {V * V * A} <= {UNROLL_CAP}: the "
                          "unrolled K3' takes this pool")

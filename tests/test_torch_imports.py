@@ -86,6 +86,28 @@ def test_port_cli_runs_without_jax_package(tmp_path):
         tmp_path / "parity.single").read_text()
 
 
+def test_chip_smoke_fixtures_without_jax_package(tmp_path):
+    """chip_smoke.py (which blocks jax, demuxlet_tpu and oracle) writes its
+    CLI BAM/VCF through tests/fixtures.py with the port's bgzf bound under
+    the JAX package's module name; no module of the blocked packages loads,
+    and the port CLI's default mode runs on that input on the CPU."""
+    code = (
+        "import sys\nimport chip_smoke\n"
+        "from demuxlet_tpu_torch import cli\n"
+        f"base = chip_smoke.cli_case({str(tmp_path)!r}, 16, 4, 10)\n"
+        f"out = {str(tmp_path)!r} + '/t'\n"
+        "assert cli.main(base + ['--out', out, '--device', 'cpu']) == 0\n"
+        "assert not [k for k, v in sys.modules.items() if v and "
+        f"v.__name__.split('.')[0] in {BLOCKED!r}]\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+    assert len((tmp_path / "t.best").read_text().splitlines()) == 5
+
+
 def test_no_jax_import_in_port_sources():
     """No source of the port, and not chip_smoke.py, imports jax,
     demuxlet_tpu or oracle."""

@@ -33,22 +33,23 @@ def _grid(A):
 
 # ---------------------------------------------------------------- plan
 
-@pytest.mark.parametrize("A", [1, 2, 3, 5])
-@pytest.mark.parametrize("tile", [None, 8, 16])
-def test_plan_covers_every_channel_once(A, tile):
-    """For V = 9..40 (pools past the unrolled cap): every (j, k, alpha)
-    channel of a non-separable alpha is written by exactly one tile, either
-    directly or, on the symmetric plane, as the mirror of (k, j); the
-    separable alpha == 0 plane by none. With and without a0_sep/sym_a."""
-    for V in range(9, 41):
+@pytest.mark.parametrize("A", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("vs", [(2, 17), (17, 29), (29, 41)])
+def test_plan_covers_every_channel_once(A, vs):
+    """For V in range(*vs) past the unrolled cap (V = 9..40, and V = 7, 8 on
+    8-tiles at A = 8): every (j, k, alpha) channel of a non-separable alpha
+    is written by exactly one tile, either directly or, on the symmetric
+    plane, as the mirror of (k, j); the separable alpha == 0 plane by none.
+    With and without a0_sep/sym_a."""
+    for V in range(*vs):
         for a0_sep, sym in ((True, True), (False, True), (False, False)):
             grid = _grid(A)
             sym_a = grid.index(0.5) if sym and 0.5 in grid else None
-            plan = PT.plan_tiles(V, A, a0_sep, sym_a, tile)
+            plan = PT.plan_tiles(V, A, a0_sep, sym_a)
             if V * V * A <= 384:
                 assert plan is None
                 continue
-            assert plan.tile == (tile or (16 if V > 8 else 8))
+            assert plan.tile == (16 if V > 8 else 8)
             hits = np.zeros((V, V, A), np.int64)
             for j0, k0, a0, na, is_sym in plan.items:
                 assert j0 % plan.tile == 0 and k0 % plan.tile == 0
@@ -99,11 +100,13 @@ def test_block_plain_matches_jax_f64(V, A):
         assert torch.equal(plane, plane.transpose(1, 2))
 
 
-@pytest.mark.parametrize("V,A,tile", [(17, 3, 8), (20, 2, 16), (12, 3, 8)])
+@pytest.mark.parametrize("V,A,tile", [(17, 3, 16), (20, 2, 16), (12, 3, 16),
+                                      (7, 8, 8)])
 def test_tiled_plain_matches_unrolled_plain(V, A, tile):
     """pair_exact_tiled (plain K7' + K6' and the reassembly) against the
     unrolled K3''s plain version on the same inputs, separable plane and
-    symmetric plane on and off: within 1e-12 absolute."""
+    symmetric plane on and off: within 1e-12 absolute. Each pool is planned
+    on the given tile extent with a ragged edge (V = 7 on 8-tiles)."""
     rng = np.random.default_rng(V + A)
     B, S = 4, 64
     t = torch.from_numpy(rng.random((A * 9, B, S)) + 0.05)
@@ -115,7 +118,8 @@ def test_tiled_plain_matches_unrolled_plain(V, A, tile):
     from demuxlet_tpu_torch.ops.pair_exact import pair_exact_plain
 
     for a0_sep, sym_a in ((True, A - 1), (False, A - 1), (False, None)):
-        got = PT.pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, tile=tile)
+        assert PT.plan_tiles(V, A, a0_sep, sym_a).tile == tile
+        got = PT.pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a)
         want = pair_exact_plain(t, g, gl, V, A, a0_sep, sym_a)
         for x, y in zip(got, want):
             assert x.shape == y.shape
@@ -264,15 +268,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,V,grid,tile", [
-    (16, 256, 32, _grid(5), None),
-    (40, 384, 17, _grid(3), 8),  # ragged edge, 8-tiles
-    (40, 384, 17, _grid(3), 16),  # ragged edge, 16-tiles
-    (33, 200, 20, [0.0, 0.5], 8),
-    (16, 130, 20, [0.5, 0.1], 16),  # no separable plane; S not a warp multiple
-    (16, 128, 24, [0.0], None),  # single-point alpha == 0 grid: K6' alone
+@pytest.mark.parametrize("B,S,V,grid", [
+    (16, 256, 32, _grid(5)),
+    (40, 384, 7, _grid(8)),  # ragged edge, 8-tiles
+    (40, 384, 17, _grid(3)),  # ragged edge, 16-tiles
+    (33, 200, 20, [0.0, 0.5]),
+    (16, 130, 20, [0.5, 0.1]),  # no separable plane; S not a warp multiple
+    (16, 128, 24, [0.0]),  # single-point alpha == 0 grid: K6' alone
 ])
-def test_k7_k6_match_likelihood_on_card(cuda_device, B, S, V, grid, tile):
+def test_k7_k6_match_likelihood_on_card(cuda_device, B, S, V, grid):
     """The tiled exact pair search through K7' and K6' on the card against
     the port's dense f64 likelihood kernels (ops/likelihood.py) on the
     card: within 1e-9 absolute, every (j, k, alpha) channel; against the
@@ -293,11 +297,10 @@ def test_k7_k6_match_likelihood_on_card(cuda_device, B, S, V, grid, tile):
     NS = tab.g_table.shape[1] - 1
     idx_n = torch.where(dev(msk), dev(idx).long(), NS).reshape(-1)
     g = tab.g_table.index_select(1, idx_n).view(-1, B, S)
-    plan = PT.plan_tiles(V, A, a0_sep, sym_a, tile)
+    plan = PT.plan_tiles(V, A, a0_sep, sym_a)
     before = (k7.launches, k6.launches)
-    got = PT.pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, tab.expand, tile)
-    again = PT.pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, tab.expand,
-                                tile)
+    got = PT.pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, tab.expand)
+    again = PT.pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, tab.expand)
     torch.cuda.synchronize()
     n7 = 2 if plan.items else 0
     assert (k7.launches, k6.launches) == (before[0] + n7, before[1] + 2)
