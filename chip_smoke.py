@@ -4,11 +4,11 @@
 Drives the port's device paths, fast-mode and exact-mode (the CLI default)
 ``DemuxEngine.run_compact`` and the CLI, at the full width of the repo's
 realistic configuration (V=8 donors, the 5-point alpha grid, 50,000 SNPs,
-~1,000 covered SNPs per cell, --cell-block 2048), and exact mode on a large
-pool (V=32 donors on the CLI's default grid [0, 0.5], V*V*A = 2048: the
-tiled K7' + K6'), after building every kernel of those paths from the
-sources in this checkout and holding each against its plain PyTorch
-version on the card. Phases, one line each:
+~1,000 covered SNPs per cell, --cell-block 2048), and both modes on a
+large pool (V=32 donors on the CLI's default grid [0, 0.5], V*V*A = 2048:
+the tiled K7' + K6' in exact mode, K5' + K4' in fast mode), after building
+every kernel of those paths from the sources in this checkout and holding
+each against its plain PyTorch version on the card. Phases, one line each:
 
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. nvcc build of every csrc/*.cu, one nvcc each, all started together
@@ -41,11 +41,22 @@ version on the card. Phases, one line each:
      phase seconds, peak device memory, and the first 2 and the deepest
      block through the plain versions (1e-9 absolute, near ties counted);
  11. the CLI with no --mode on a V=16 default-grid BAM/VCF (100 cells,
-     V*V*A = 512: K7' + K6') against --mode parity, as in phase 8;
- 12. per run (exact and fast at V=8, exact at V=32), one more run_compact
-     on the pileup (rate, phase seconds, peak device memory) and one under
-     torch.profiler: the device's busy ms and idle share, the top ops by
-     device ms, and the port's kernels' ms per block slot pad.
+     V*V*A = 512: K7' + K6') against --mode parity, as in phase 8, and
+     --mode fast on it (K5' + K4', never K1): its .best calls equal that
+     parity run's;
+ 12. K5' (pair_tiled_fast) and K4' (extras_fast) against their plain
+     versions at the shapes of phase 9: within 2e-5 relative (scale
+     max(1, |x|)), the alpha == 0.5 plane exactly symmetric; kernel ms and
+     plain ms;
+ 13. fast run_compact on the same pileup with V=32 donors on the default
+     grid: K5' and K4' launched once per block and K1 never, rate, phase
+     seconds, peak device memory, and the first 2 and the deepest block
+     through the plain versions (2e-5 relative, near ties counted);
+ 14. per run (exact and fast at V=8, exact and fast at V=32), one more
+     run_compact on the pileup (rate, phase seconds, peak device memory)
+     and one under torch.profiler: the device's busy ms and idle share, the
+     top ops by device ms, and the port's kernels' ms per block slot
+     pad.
 
 Then a JSON line of per-kernel numbers (with each kernel's bound: the
 larger of its operations over the card's peak rate for their type and its
@@ -84,7 +95,17 @@ EXACT_TOL = 1e-9  # exact-mode contract (tests/test_engine.py): absolute
 FRONT_TOL = 1e-12  # K2' vs plain: the same sums, the exp's last bits differ
 V, NSNPS, S_PER_CELL, N_CELLS, CELL_BLOCK = 8, 50_000, 1000, 20_480, 2048
 GRID = [float(a) for a in np.linspace(0.0, 0.5, 5)]
-V_LARGE, GRID_LARGE = 32, [0.0, 0.5]  # the large pool: the tiled K7' + K6'
+# the large pool: the tiled K7' + K6' (exact) and K5' + K4' (fast)
+V_LARGE, GRID_LARGE = 32, [0.0, 0.5]
+# the tiled kernels' cases: (name, B, S, V, grid); "main" is the large pool
+TILED_CASES = (
+    ("v32_a5", 2048, 1024, 32, GRID),
+    ("main", 2048, 1024, V_LARGE, GRID_LARGE),
+    ("v20_a2", 2048, 1024, 20, [0.0, 0.5]),
+    ("v17_a3", 2048, 1024, 17, [0.0, 0.25, 0.5]),
+    # V*V*A = 392 on one ragged 8-tile
+    ("ragged", 40, 384, 7, np.linspace(0.0, 0.5, 8).tolist()),
+)
 
 # the bound of a kernel: the larger of its operations over the card's peak
 # rate for their type and its bytes (each input read once, each output
@@ -187,10 +208,12 @@ def neutral_on(pad, g):
         -1, *pad.shape).contiguous()
 
 
-def pair_inputs(rng, B, S, grid, dev):
-    """Main-path K1 inputs: t from real LUT rows and 1-3 observations per
-    slot, flat-Dirichlet genotype posteriors drawn on the device, ~20%
-    padded (neutral) slots."""
+def pair_inputs(rng, B, S, grid, dev, nv=V):
+    """Main-path fast pair-search inputs for nv samples: t from real LUT
+    rows and 1-3 observations per slot, flat-Dirichlet genotype posteriors
+    drawn on the device and their mean as the background rows gp0_t (the
+    front's host gp0), ~20% padded (neutral) slots. Returns (t, gps_t,
+    gp0_t, expand), f32."""
     from demuxlet_tpu_torch.ops import luts
     from demuxlet_tpu_torch.ops.pair import dedup_channels, norm_t
 
@@ -202,10 +225,13 @@ def pair_inputs(rng, B, S, grid, dev):
     lograw = np.zeros((B, S, len(cols)), np.float32)
     for u in range(3):
         lograw += np.where(((nobs > u) & ~pad)[..., None], w[codes[..., u]], 0)
-    gps_t = neutral_on(pad, flat_dirichlet(rng, (V, 3, B, S), dev).float())
+    g = flat_dirichlet(rng, (nv, 3, B, S), dev)
+    gp0_t = neutral_on(pad, g.mean(dim=0, keepdim=True).float())
+    gps_t = neutral_on(pad, g.float())
+    del g
     t = norm_t(torch.from_numpy(np.ascontiguousarray(
         lograw.transpose(2, 0, 1))).to(dev), 0).contiguous()
-    return t, gps_t, expand
+    return t, gps_t, gp0_t, expand
 
 
 def synth_pileup(rng, n_cells):
@@ -365,6 +391,29 @@ def cli_vs_parity(base, tmp, kernels, absent=(), parity=None):
     return len(exact[".best"]) - 1, named
 
 
+def fast_cli_vs_parity(base, tmp, parity, kernels, absent=()):
+    """The CLI with --mode fast against --mode parity's files on one input:
+    equal BEST columns after canonicalize_best_line, every kernel of
+    ``kernels`` launched and none of ``absent``. Returns (cells, {kernel:
+    launches})."""
+    from parity_utils import canonicalize_best_line
+
+    for k in (*kernels, *absent):
+        k.reset_launches()
+    fast = run_cli(base, tmp, "fast", "fast")
+    counts = {k.__name__.rsplit(".", 1)[1]: k.launches
+              for k in (*kernels, *absent)}
+    calls = [[canonicalize_best_line(l).split("\t")[5] for l in f[1:]]
+             for f in (fast[".best"], parity[".best"])]
+    if (not calls[0] or calls[0] != calls[1]
+            or min(k.launches for k in kernels) < 1
+            or any(k.launches for k in absent)):
+        fail(f"CLI fast vs parity: {len(calls[0])} rows, "
+             f"{sum(a != b for a, b in zip(*calls))} calls differ, launches "
+             f"{counts}")
+    return len(calls[0]), counts
+
+
 def run_cli(base, tmp, name, mode=None):
     """One CLI run into tmp/name (no --mode: the parser default)."""
     from demuxlet_tpu_torch import cli
@@ -490,7 +539,8 @@ def drive_engine(csr, gps, mode, dev, kernels, grid=GRID, absent=()):
 # the port's own kernels, by the name CUPTI records for them
 OWN_KERNELS = {"front_exact_kernel": "K2'", "pair_exact_kernel": "K3'",
                "pair_fast_kernel": "K1", "pair_tiled_exact_kernel": "K7'",
-               "extras_exact_kernel": "K6'"}
+               "extras_exact_kernel": "K6'", "pair_tiled_fast_kernel": "K5'",
+               "extras_fast_kernel": "K4'"}
 
 
 def trace_summary(path, pads):
@@ -574,10 +624,12 @@ def main() -> int:
              "CUDA card")
     from demuxlet_tpu_torch.kernels import build as kbuild
     from demuxlet_tpu_torch.kernels import extras_exact as k6
+    from demuxlet_tpu_torch.kernels import extras_fast as k4
     from demuxlet_tpu_torch.kernels import front_exact as k2
     from demuxlet_tpu_torch.kernels import pair_exact as k3
     from demuxlet_tpu_torch.kernels import pair_fast
     from demuxlet_tpu_torch.kernels import pair_tiled_exact as k7
+    from demuxlet_tpu_torch.kernels import pair_tiled_fast as k5
     from demuxlet_tpu_torch.ops import pair_tiled as PT
     from demuxlet_tpu_torch.ops.front_exact import (
         front_exact,
@@ -586,7 +638,6 @@ def main() -> int:
     from demuxlet_tpu_torch.ops.pair import pair_llks, pair_llks_plain
     from demuxlet_tpu_torch.ops.pair_exact import pair_exact, pair_exact_plain
     from demuxlet_tpu_torch.utils.device import resolve_device
-    from parity_utils import canonicalize_best_line
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -608,7 +659,7 @@ def main() -> int:
     # per kernel: max errors over its cases; ms, plain ms and bound at the
     # main path's shape
     kstat = {k: {"max_abs": 0.0, "max_rel": 0.0}
-             for k in ("k1", "k2", "k3", "k6", "k7")}
+             for k in ("k1", "k2", "k3", "k4", "k5", "k6", "k7")}
 
     def record(key, case_is_main, aerr, rerr=None, **at_main):
         s = kstat[key]
@@ -625,7 +676,7 @@ def main() -> int:
         ("ragged", 40, 384, GRID),
     ):
         A = len(grid)
-        t, gps_t, expand = pair_inputs(rng, B, S, grid, dev)
+        t, gps_t, _, expand = pair_inputs(rng, B, S, grid, dev)
         args = (t, gps_t, V, A, grid[0] == 0.0, grid.index(0.5), expand)
         ab, z0 = pair_llks(*args)
         torch.cuda.synchronize()
@@ -662,18 +713,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 5. the CLI (fast) against the host oracle
         base = cli_case(tmp, V, 150, 80)
-        pair_fast.reset_launches()
-        fast = run_cli(base, tmp, "fast", "fast")
-        cli_launches = pair_fast.launches
         parity = run_cli(base, tmp, "parity", "parity")
-        calls = [[canonicalize_best_line(l).split("\t")[5] for l in f[1:]]
-                 for f in (fast[".best"], parity[".best"])]
-        if not calls[0] or calls[0] != calls[1] or cli_launches < 1:
-            fail(f"CLI fast calls differ from parity ({len(calls[0])} rows, "
-                 f"{sum(a != b for a, b in zip(*calls))} differ, "
-                 f"{cli_launches} K1 launches)")
-        phase("cli", mode="fast", cells=len(calls[0]), samples=V,
-              best_equal_parity=True, k1_launches=cli_launches)
+        cells, named = fast_cli_vs_parity(base, tmp, parity, [pair_fast],
+                                          absent=[k5, k4])
+        phase("cli", mode="fast", cells=cells, samples=V,
+              best_equal_parity=True, launches=named)
 
         # ---- 6. K2' and K3' against their plain versions
         rng = np.random.default_rng(3)
@@ -746,14 +790,7 @@ def main() -> int:
 
     # ---- 9. K7' and K6' against their plain versions
     rng = np.random.default_rng(4)
-    for name, B, S, nv, grid in (
-        ("v32_a5", 2048, 1024, 32, GRID),
-        ("main", 2048, 1024, V_LARGE, GRID_LARGE),
-        ("v20_a2", 2048, 1024, 20, [0.0, 0.5]),
-        ("v17_a3", 2048, 1024, 17, [0.0, 0.25, 0.5]),
-        # V*V*A = 392 on one ragged 8-tile
-        ("ragged", 40, 384, 7, np.linspace(0.0, 0.5, 8).tolist()),
-    ):
+    for name, B, S, nv, grid in TILED_CASES:
         A = len(grid)
         a0_sep, sym_a = grid[0] == 0.0, grid.index(0.5)
         tab, codes, msk, g = exact_inputs(rng, B, S, grid, dev, nv)
@@ -811,17 +848,84 @@ def main() -> int:
           k7_launches=counts[k7], k6_launches=counts[k6],
           k3_launches=counts[k3], card=card, **fields)
 
-    # ---- 11. the CLI's default mode on a large pool against the oracle
+    # ---- 11. the CLI's default mode and fast mode on a large pool against
+    # the oracle
     with tempfile.TemporaryDirectory() as tmp:
         base = cli_case(tmp, 16, 100, 40)
-        cells, named = cli_vs_parity(base, tmp, [k2, k7, k6], absent=[k3])
+        parity = run_cli(base, tmp, "parity", "parity")
+        cells, named = cli_vs_parity(base, tmp, [k2, k7, k6], absent=[k3],
+                                     parity=parity)
         phase("cli", mode="exact (default)", cells=cells, samples=16,
               alphas=2, single_sing2_byte_identical=True,
               best_equal_parity=True, launches=named)
+        cells, named = fast_cli_vs_parity(base, tmp, parity, [k5, k4],
+                                          absent=[pair_fast])
+        phase("cli", mode="fast", cells=cells, samples=16, alphas=2,
+              best_equal_parity=True, launches=named)
 
-    # ---- 12. where the device time goes, per run
+    # ---- 12. K5' and K4' against their plain versions
+    rng = np.random.default_rng(6)
+    for name, B, S, nv, grid in TILED_CASES:
+        A = len(grid)
+        a0_sep, sym_a = grid[0] == 0.0, grid.index(0.5)
+        t, gps_t, gp0_t, expand = pair_inputs(rng, B, S, grid, dev, nv)
+        plan = PT.plan_tiles(nv, A, a0_sep, sym_a)
+        a5 = (t, gps_t, nv, A, plan, expand)
+        a4 = (t, gps_t, gp0_t, nv, A, a0_sep, expand)
+        got5, got4 = PT.pair_tiled_fast(*a5), PT.extras_fast(*a4)
+        torch.cuda.synchronize()
+        want5, want4 = PT.pair_tiled_plain(*a5), PT.extras_fast_plain(*a4)
+        e5, e4 = rel_err(got5, want5), rel_err(got4, want4)
+        a5err, a4err = abs_err(got5, want5), abs_err(got4, want4)
+        del want5, want4
+        if not (np.isfinite(e5) and e5 <= TOL and np.isfinite(e4)
+                and e4 <= TOL):
+            fail(f"K5'/K4' {name}: max relative errors {e5}, {e4} > {TOL}")
+        plane = got5[..., sym_a]
+        if not torch.equal(plane, plane.transpose(1, 2)):
+            fail(f"K5' {name}: the alpha == 0.5 plane is not symmetric")
+        big = B * S * nv * nv * A > 1 << 30  # the plain versions take ~1 s
+        ms5 = median_ms(lambda: PT.pair_tiled_fast(*a5))
+        plain5 = median_ms(lambda: PT.pair_tiled_plain(*a5),
+                           n=3 if big else 10)
+        ms4 = median_ms(lambda: PT.extras_fast(*a4))
+        plain4 = median_ms(lambda: PT.extras_fast_plain(*a4),
+                           n=3 if big else 10)
+        chans = sum(nv * (nv + 1) // 2 if a == sym_a else nv * nv
+                    for a in plan.alist)
+        b5 = bound(channel_ops(B, S, chans, nv * len(plan.alist)),
+                   4 * (t.numel() + gps_t.numel() + got5.numel()), "f32")
+        keys = PT.extras_keys(nv, A, a0_sep, singlets=False)
+        b4 = bound(channel_ops(B, S, len(keys),
+                               sum(k[0] == "m0" for k in keys)),
+                   4 * (t.numel() + gps_t.numel() + gp0_t.numel()
+                        + got4.numel()), "f32")
+        phase("k5_k4_vs_plain", case=name, B=B, S=S, V=nv, A=A,
+              C=t.shape[0], tile=plan.tile, tile_items=len(plan.items),
+              k5_max_rel_err=e5, k5_max_abs_err=a5err, k4_max_rel_err=e4,
+              k4_max_abs_err=a4err, tol=TOL, sym_plane_exact=True,
+              k5_ms=ms5, k5_plain_ms=plain5, k5_bound_ms=b5[0],
+              k5_bound_by=b5[1], k4_ms=ms4, k4_plain_ms=plain4,
+              k4_bound_ms=b4[0], k4_bound_by=b4[1])
+        record("k5", name == "main", a5err, e5, ms=ms5, plain_ms=plain5,
+               bound_ms=b5[0], bound_by=b5[1])
+        record("k4", name == "main", a4err, e4, ms=ms4, plain_ms=plain4,
+               bound_ms=b4[0], bound_by=b4[1])
+        del t, gps_t, gp0_t, got5, got4, plane
+    torch.cuda.empty_cache()
+
+    # ---- 13. the fast engine on the large pool (K5', K4'; never K1)
+    fields, counts = drive_engine(csr, gps_large, "fast", dev, [k5, k4],
+                                  grid=GRID_LARGE, absent=[pair_fast])
+    launches.update(k5=counts[k5], k4=counts[k4])
+    phase("engine", mode="fast", k5_launches=counts[k5],
+          k4_launches=counts[k4], k1_launches=counts[pair_fast], card=card,
+          **fields)
+
+    # ---- 14. where the device time goes, per run
     for mode, g, grid in (("exact", gps, GRID), ("fast", gps, GRID),
-                          ("exact", gps_large, GRID_LARGE)):
+                          ("exact", gps_large, GRID_LARGE),
+                          ("fast", gps_large, GRID_LARGE)):
         phase("trace", card=card, **profile_engine(csr, g, mode, dev, grid))
 
     def row(key, name, source, replaces):
@@ -843,6 +947,10 @@ def main() -> int:
             jax + "pallas_pair_exact.py:962"),
         row("k3", "pair_exact (K3')", src + "pair_exact.cu",
             jax + "pallas_pair_exact.py:219"),
+        row("k4", "extras_fast (K4')", src + "extras_fast.cu",
+            jax + "pallas_pair.py:586"),
+        row("k5", "pair_tiled_fast (K5')", src + "pair_tiled_fast.cu",
+            jax + "pallas_pair.py:518"),
         row("k6", "extras_exact (K6')", src + "extras_exact.cu",
             jax + "pallas_pair_exact.py:698"),
         row("k7", "pair_tiled_exact (K7')", src + "pair_tiled_exact.cu",

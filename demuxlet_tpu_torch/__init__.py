@@ -5,7 +5,9 @@
 ``csrc/front_exact.cu`` and ``csrc/pair_exact.cu``; pools with
 V*V*A > 384 run the tiled f64 pair search K7' and its O(V) companion K6',
 ``csrc/pair_tiled_exact.cu`` and ``csrc/extras_exact.cu``) and in fast
-mode (f32 pair search K1, ``csrc/pair_fast.cu``): host wire-v2 pack ->
+mode (f32 pair search K1, ``csrc/pair_fast.cu``; on those pools the tiled
+f32 pair search K5' and its O(V) companion K4', ``csrc/pair_tiled_fast.cu``
+and ``csrc/extras_fast.cu``): host wire-v2 pack ->
 device wire decode -> front -> pair-search kernel -> singlet term ->
 device decision pass -> packed compact rows -> host render.
 

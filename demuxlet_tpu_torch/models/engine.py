@@ -15,11 +15,11 @@ copied here (``compute_gp0``, ``_prefetched``, ``_to_wire``, ``_bucket``,
 ``_shrink_codes_blk``, ``_blocks``, ``cell_stats``);
 tests/test_torch_engine.py pins each copy to the original.
 
-Exact mode runs every pool size: V*V*A > 384 takes the tiled K7' + K6'
-(``ops/pair_tiled.py``) where smaller pools take K3'. Refused, never
-emulated: fast mode on pools with V*V*A > 384 (ROADMAP queue 1, item
-13b); cap-BQ > 126 (the u8 codes cannot hold it: the JAX package refuses
-it in fast mode and sends exact mode to the dense ``run()``, item 12).
+Both modes run every pool size: V*V*A > 384 takes the tiled K7' + K6'
+(exact) or K5' + K4' (fast; ``ops/pair_tiled.py``) where smaller pools
+take K3' or K1. Refused, never emulated: cap-BQ > 126 (the u8 codes
+cannot hold it: the JAX package refuses it in fast mode and sends exact
+mode to the dense ``run()``, ROADMAP queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from demuxlet_tpu_torch.models.outputs import CellStats
 from demuxlet_tpu_torch.ops import luts
 from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 from demuxlet_tpu_torch.models import decision as D
-from demuxlet_tpu_torch.ops.pair import UNROLL_CAP, dedup_channels, extend_luts
+from demuxlet_tpu_torch.ops.pair import dedup_channels, extend_luts
 
 MODES = ("exact", "fast")
 
@@ -240,8 +240,9 @@ class DemuxEngine:
         """mode="exact" (the JAX engine's default): f64 front and pair
         search with the singlet term (K2' and K3' on CUDA, K2', K7' and K6'
         when V*V*A > 384; their plain versions on the CPU), f64 decision
-        pass. mode="fast": f32 pair search (K1), f32 singlet term, f64
-        decision pass.
+        pass. mode="fast": f32 pair search (K1, or K5' and K4' when
+        V*V*A > 384; their plain versions on the CPU), f32 singlet term,
+        f64 decision pass.
         device: a torch.device; None resolves "auto" (CUDA or DemuxError,
         ``utils/device.resolve_device``)."""
         if mode not in MODES:
@@ -255,13 +256,6 @@ class DemuxEngine:
         self.mode = mode
         self.nv = gps.shape[1]
         self.n_alpha = len(self.grid_alpha)
-        if mode == "fast" and self.nv * self.nv * self.n_alpha > UNROLL_CAP:
-            raise DemuxError(
-                f"V*V*A = {self.nv * self.nv * self.n_alpha} > {UNROLL_CAP} "
-                "in fast mode needs the tiled f32 pair kernels (K4/K5), not "
-                "ported to PyTorch yet (ROADMAP queue 1, item 13b); exact "
-                "mode (the default) runs it"
-            )
         if self.cap_bq > 126:
             raise DemuxError(
                 "--cap-BQ > 126 is not representable by the u8 observation "
@@ -507,7 +501,8 @@ class DemuxEngine:
     def run_compact(self, scl, doublet_prior: float):
         """Exact- or fast-mode pipeline with the device-side decision pass
         (one block step per block: K2' + K3' in exact mode, K2' + K7' +
-        K6' on pools with V*V*A > 384, K1 in fast mode): returns
+        K6' on pools with V*V*A > 384; K1 in fast mode, K5' + K4' on
+        those pools): returns
         (llks, llk0s, decision.CompactResult). Per-run accounting:
         ``h2d_bytes`` (block buffers shipped) and ``phase_s`` (setup = wire
         config, tables and blocking, on the first call for a pileup also

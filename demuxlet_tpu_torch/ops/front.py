@@ -15,7 +15,8 @@ to XLA:
   matmul may sum the R rows in another order than XLA (last-bit
   differences in lograw, well inside the 1e-5 relative front tolerance);
 * ``norm_t``, the pass-1 GL table, the neutral-row gps/gp0 gather, the
-  pair search (``ops/pair.pair_llks``) and the singlet contraction.
+  pair search (``ops/pair.pair_llks``: K1, or K5' + K4' with the gathered
+  gp0 rows on pools with V*V*A > 384) and the singlet contraction.
 """
 
 from __future__ import annotations
@@ -106,7 +107,8 @@ def fast_front(codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext,
     gps_t = g_all[: V * 3]
     gp0_t = g_all[V * 3 :]
 
-    llk_ab, llk_00 = pair_fn(t_x, gps_t, V, A, a0_sep, sym_a, expand)
+    # the tiled route (V*V*A > 384) takes gp0 for llk_00, as on the TPU
+    llk_ab, llk_00 = pair_fn(t_x, gps_t, V, A, a0_sep, sym_a, expand, gp0_t)
 
     # singlet pass (:415-461): masked slots meet neutral rows, log 1 == 0
     g = gps_t.view(V, 3, B, S)

@@ -1,18 +1,21 @@
-"""Fast-mode pair search: dispatch to the Hopper kernel K1 and its plain
-PyTorch version (port of ``demuxlet_tpu/ops/pallas_pair.py``:
+"""Fast-mode pair search: dispatch to the Hopper kernels and their plain
+PyTorch versions (port of ``demuxlet_tpu/ops/pallas_pair.py``:
 ``dedup_channels`` :48, ``_SMOOTH``/``_KNORM``/``_norm_t`` :78-93,
-``extend_luts`` :1190 and ``_call_pair_kernel`` :297 on the unrolled
-path, ``V*V*A <= 384``).
+``extend_luts`` :1190 and ``_call_pair_kernel`` :297). Pools with
+``V*V*A <= 384`` take the unrolled K1; larger pools the tiled K5' + K4'
+(``ops/pair_tiled.py``).
 
 Per (cell, slot) with g = genotype posteriors (V, 3) and t the mixture
 table (A, 3, 3):
     U[j,a,m]     = sum_l g[j,l] * t[a,l,m]
     inner[j,k,a] = sum_m g[k,m] * U[j,a,m]
 llk_ab[j,k,a] sums log(inner) over slots; llk_00[a] is the same with
-j = k = g0, the f32 mean of g over samples in j order. a0_sep: the
-alpha == 0 plane is separable, llk_ab[j,k,0] = sum log d[j] + sum log
-gsum[k]. sym_a: the alpha == 0.5 plane is (j,k)-symmetric and its j > k
-channels are copies of (k, j), so ties resolve as in the JAX package.
+j = k = g0: on the unrolled route the f32 mean of g over samples in j
+order, taken in the kernel; on the tiled route the rows the caller gives
+(the front's host gp0), else that same mean. a0_sep: the alpha == 0 plane
+is separable, llk_ab[j,k,0] = sum log d[j] + sum log gsum[k]. sym_a: the
+alpha == 0.5 plane is (j,k)-symmetric and its j > k channels are copies
+of (k, j), so ties resolve as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-UNROLL_CAP = 384  # pallas_pair._UNROLL_CAP: max V*V*A on this slice
+UNROLL_CAP = 384  # pallas_pair._UNROLL_CAP: max V*V*A of the unrolled K1/K3'
 
 # exact-neutrality constants, computed in numpy f32 exactly as the JAX
 # package does: with q = fl(1 + 1e-6), fl(q * fl(1/q)) == 1.0, so a padded
@@ -67,24 +70,28 @@ def norm_t(lograw: torch.Tensor, dim: int) -> torch.Tensor:
     return (torch.exp(lograw - mx) + float(_SMOOTH)) * float(_KNORM)
 
 
-def pair_llks(t, gps_t, V, A, a0_sep=False, sym_a=None, expand=None):
+def pair_llks(t, gps_t, V, A, a0_sep=False, sym_a=None, expand=None,
+              gp0_t=None):
     """Pair-search LLKs.
 
     t (C, B, S) f32: deduplicated mixture table (``expand`` maps the A*9
     logical channels onto its C rows; None means C == A*9 in order).
     gps_t (3V, B, S) f32, (j, l) major; padded slots carry (1, 0, 0).
-    Returns (llk_ab (B, V, V, A), llk_00 (B, A)) f32.
+    gp0_t (3, B, S) f32: the background rows of the tiled route (None:
+    ``_background_rows``); the unrolled route ignores it, as the JAX
+    package does. Returns (llk_ab (B, V, V, A), llk_00 (B, A)) f32.
 
-    A CUDA tensor launches K1 (``kernels/pair_fast.py``); a CPU tensor
-    runs ``pair_llks_plain``. Nothing falls back from one to the other."""
+    A CUDA tensor launches K1 (``kernels/pair_fast.py``), or K5' and K4'
+    when V*V*A > 384; a CPU tensor runs their plain versions. Nothing
+    falls back from one to the other."""
     if expand is None:
         expand = tuple(range(A * 9))
     if V * V * A > UNROLL_CAP:
-        raise ValueError(
-            f"V*V*A = {V * V * A} exceeds the unrolled pool cap "
-            f"{UNROLL_CAP}; the tiled fast kernels (K4/K5) are not "
-            "ported yet"
-        )
+        # imported here: pair_tiled imports this module
+        from demuxlet_tpu_torch.ops import pair_tiled as PT
+
+        return PT.pair_fast_tiled(t, gps_t, _gp0(gps_t, gp0_t, V), V, A,
+                                  a0_sep, sym_a, expand)
     if t.device.type == "cuda":
         from demuxlet_tpu_torch.kernels import pair_fast
 
@@ -102,12 +109,30 @@ def _background_rows(g, V):
     return s * float(np.float32(1.0 / V))
 
 
-def pair_llks_plain(t, gps_t, V, A, a0_sep=False, sym_a=None, expand=None):
+def _gp0(gps_t, gp0_t, V):
+    """The tiled route's background rows: gp0_t, or without it the f32
+    sample mean (``_call_pair_kernel`` :315-319)."""
+    if gp0_t is not None:
+        return gp0_t
+    _, B, S = gps_t.shape
+    return _background_rows(gps_t.view(V, 3, B, S), V).contiguous()
+
+
+def pair_llks_plain(t, gps_t, V, A, a0_sep=False, sym_a=None, expand=None,
+                    gp0_t=None):
     """The plain PyTorch version of K1: the same math as einsums, the same
     ``expand``, ``a0_sep``, ``sym_a`` mirroring and ``g0`` order,
-    processed in cell chunks (``_PLAIN_CHUNK_ELEMS``)."""
+    processed in cell chunks (``_PLAIN_CHUNK_ELEMS``); when V*V*A > 384,
+    the plain versions of K5' and K4' with ``pair_llks``' background
+    rows."""
     if expand is None:
         expand = tuple(range(A * 9))
+    if V * V * A > UNROLL_CAP:
+        from demuxlet_tpu_torch.ops import pair_tiled as PT
+
+        return PT.pair_fast_tiled(
+            t, gps_t, _gp0(gps_t, gp0_t, V), V, A, a0_sep, sym_a, expand,
+            pair_fn=PT.pair_tiled_plain, extras_fn=PT.extras_fast_plain)
     _, B, S = t.shape
     step = max(1, _PLAIN_CHUNK_ELEMS // max(V * V * A * S, 1))
     ex = torch.as_tensor(expand, dtype=torch.int64, device=t.device)

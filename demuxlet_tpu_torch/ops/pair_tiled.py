@@ -1,29 +1,40 @@
-"""Exact-mode pair search on large pools, V*V*A > 384: the tile plan, the
-tiled f64 pair kernel K7' and its O(V) companion K6' with their plain
-PyTorch versions, and the reassembly (port of
-``demuxlet_tpu/ops/pallas_pair_exact.py``: ``plan_pair_tiles_df`` :524,
-``_extras_slots`` :559, ``_call_pair_kernel_df_tiled`` :787 and the tiled
-branch of ``demux_block_exact_impl`` :1283-1315, with ``plan_groups``
-:465 of ``ops/pallas_pair.py``).
+"""Pair search on large pools, V*V*A > 384, in both modes: the tile plan,
+the tiled pair kernels and their O(V) companions with their plain PyTorch
+versions, and the reassembly.
 
-Per (cell, slot), with g_j the f64 genotype row (3,), g0 the host
-background row, t_a the mixture table (3, 3) and gl the pass-1 GL row:
+Exact mode (f64; port of ``demuxlet_tpu/ops/pallas_pair_exact.py``:
+``plan_pair_tiles_df`` :524, ``_extras_slots`` :559,
+``_call_pair_kernel_df_tiled`` :787 and the tiled branch of
+``demux_block_exact_impl`` :1283-1315, with ``plan_groups`` :465 of
+``ops/pallas_pair.py``): K7' (``pair_tiled``) and K6' (``extras``).
+Fast mode (f32; port of ``ops/pallas_pair.py``: ``plan_pair_tiles`` :426,
+``_call_extras_only`` :660 and ``_call_pair_kernel_tiled`` :712): K5'
+(``pair_tiled_fast``) and K4' (``extras_fast``).
 
-* K7' (``pair_tiled``), for each (j, k) of a planned tile and each alpha
-  of the tile's alpha list: ``llk_ab[j,k,a] = sum_s log(g_k . (g_j t_a))``;
-* K6' (``extras``), the O(V) channels in ``extras_keys`` order: the
+Per (cell, slot), with g_j the genotype row (3,), g0 the host background
+row, t_a the mixture table (3, 3) and gl the pass-1 GL row:
+
+* K7'/K5', for each (j, k) of a planned tile and each alpha of the tile's
+  alpha list: ``llk_ab[j,k,a] = sum_s log(g_k . (g_j t_a))``;
+* K6'/K4', the O(V) channels in ``extras_keys`` order: (K6' only) the
   singlets ``sum log(gl . g_j)`` (j = V: g0); with a separable alpha == 0
   plane ``log(g_j . t_0[:,0])``, ``log(sum g_k)``, ``u00`` and ``g0s``;
-  and ``sum log(g0 . (g0 t_a))`` for every other alpha.
+  and ``sum log(g0 . (g0 t_a))`` for every other alpha. Fast mode's
+  singlets come from the fast front (``ops/front.py``).
 
 The TPU's tile extents came from its VMEM budget and padded V with neutral
 samples. On Hopper the extent is a compile-time register count (8 or 16)
-and the kernel guards the ragged edge (j, k < V). As on the TPU's default
-plan, the symmetric alpha == 0.5 plane runs apart from the other alphas on
-upper-triangle tiles only (diagonal tiles skip k < j) and its (k, j)
-channels are exact copies of (j, k); the port does so on every grid,
-single-alpha ones included. K7' writes straight into (B, V, V, A) and
-mirrors there, so the TPU's position-map gather is not needed.
+and the kernel guards the ragged edge (j, k < V). The symmetric
+alpha == 0.5 plane runs apart from the other alphas on upper-triangle
+tiles only (diagonal tiles skip k < j) and its (k, j) channels are exact
+copies of (j, k), on every grid and in both modes. That is the TPU's
+default exact plan; its fast plan keeps the plane with the other alphas on
+multi-alpha grids (``plan_groups(..., default=False)``), where (j, k) and
+(k, j) then differ by ulps, because a second ``pallas_call`` re-streamed
+the t and g blocks (``pallas_pair.py:476-482``). Here the split costs
+nothing, so fast mode keeps K1's exact symmetry. The kernels write
+straight into (B, V, V, A) and mirror there, so the TPU's position-map
+gather (``tile_pos_map``) is not needed.
 """
 
 from __future__ import annotations
@@ -74,11 +85,12 @@ def plan_tiles(V, A, a0_sep, sym_a) -> Optional[TilePlan]:
     return TilePlan(tile, tuple(others + sym), tuple(items))
 
 
-def extras_keys(V, A, a0_sep):
+def extras_keys(V, A, a0_sep, singlets=True):
     """K6''s output columns in order (``_extras_slots``' key scheme):
     ('s', j) for j <= V (V: g0), then with a0_sep ('d', j), ('gs', k),
-    ('u00',), ('g0s',), then ('m0', a) for every non-separable alpha."""
-    keys = [("s", j) for j in range(V + 1)]
+    ('u00',), ('g0s',), then ('m0', a) for every non-separable alpha.
+    singlets=False: K4''s columns, the same without the ('s', j)."""
+    keys = [("s", j) for j in range(V + 1)] if singlets else []
     if a0_sep:
         keys += [("d", j) for j in range(V)]
         keys += [("gs", k) for k in range(V)]
@@ -102,10 +114,25 @@ def pair_tiled(t, g, V, A, plan, expand):
     return pair_tiled_plain(t, g, V, A, plan, expand)
 
 
+def pair_tiled_fast(t, gps_t, V, A, plan, expand):
+    """K5': ``pair_tiled`` in f32 for fast mode. t (C, B, S) and gps_t
+    (3V, B, S) f32 as ``ops/pair.pair_llks`` takes them. A CUDA tensor
+    launches the kernel (``kernels/pair_tiled_fast.py``), a CPU tensor runs
+    ``pair_tiled_plain``; nothing falls back."""
+    if t.device.type == "cuda":
+        from demuxlet_tpu_torch.kernels import pair_tiled_fast as kernel
+
+        return kernel.pair_tiled_fast(t, gps_t, V, A, plan, expand)
+    if t.device.type != "cpu":
+        raise ValueError(f"pair_tiled_fast: unsupported device {t.device}")
+    return pair_tiled_plain(t, gps_t, V, A, plan, expand)
+
+
 def pair_tiled_plain(t, g, V, A, plan, expand):
-    """The plain PyTorch version of K7': every (j, k) of the planned
-    alphas by einsums over cell chunks, then the symmetric plane's j > k
-    channels copied from (k, j)."""
+    """The plain PyTorch version of K7' and K5', in the dtype of t: every
+    (j, k) of the planned alphas by einsums over cell chunks, then the
+    symmetric plane's j > k channels copied from (k, j). g: the 3V
+    genotype rows, optionally followed by rows it does not read."""
     _, B, S = t.shape
     out = t.new_zeros((B, V, V, A))
     al = list(plan.alist)
@@ -144,18 +171,44 @@ def extras(t, g, gl, V, A, a0_sep, expand):
     return extras_plain(t, g, gl, V, A, a0_sep, expand)
 
 
+def extras_fast(t, gps_t, gp0_t, V, A, a0_sep, expand):
+    """K4': the O(V) channels of fast mode, (B, len(extras_keys(...,
+    singlets=False))) f32. t (C, B, S), gps_t (3V, B, S) and gp0_t (3, B,
+    S), the host background rows, f32. A CUDA tensor launches the kernel
+    (``kernels/extras_fast.py``), a CPU tensor runs ``extras_fast_plain``;
+    nothing falls back."""
+    if t.device.type == "cuda":
+        from demuxlet_tpu_torch.kernels import extras_fast as kernel
+
+        return kernel.extras_fast(t, gps_t, gp0_t, V, A, a0_sep, expand)
+    if t.device.type != "cpu":
+        raise ValueError(f"extras_fast: unsupported device {t.device}")
+    return extras_fast_plain(t, gps_t, gp0_t, V, A, a0_sep, expand)
+
+
+def extras_fast_plain(t, gps_t, gp0_t, V, A, a0_sep, expand):
+    """The plain PyTorch version of K4': ``extras_plain`` without the
+    singlet columns, its background rows given apart."""
+    return extras_plain(t, gps_t, None, V, A, a0_sep, expand, g0=gp0_t)
+
+
 def _dot3(q, r):
     """q[0]*r[0] + q[1]*r[1] + q[2]*r[2] over the leading axis, in order."""
     return q[0] * r[0] + q[1] * r[1] + q[2] * r[2]
 
 
-def extras_plain(t, g, gl, V, A, a0_sep, expand):
-    """The plain PyTorch version of K6', column by column group."""
+def extras_plain(t, g, gl, V, A, a0_sep, expand, g0=None):
+    """The plain PyTorch version of K6', column by column group, in the
+    dtype of t. g0: the background rows, None for rows 3V.. of g.
+    gl None: no singlet columns (K4')."""
     gj = g[: 3 * V].reshape(V, 3, *g.shape[1:]).transpose(0, 1)  # (3, V, B, S)
-    g0 = g[3 * V :]
+    if g0 is None:
+        g0 = g[3 * V :]
     tx = lambda a, l, m: t[expand[a * 9 + l * 3 + m]]
-    cols = [torch.log(_dot3(gl[:, None], gj)).sum(dim=-1).T,
-            torch.log(_dot3(gl, g0)).sum(dim=-1)[:, None]]
+    cols = []
+    if gl is not None:
+        cols += [torch.log(_dot3(gl[:, None], gj)).sum(dim=-1).T,
+                 torch.log(_dot3(gl, g0)).sum(dim=-1)[:, None]]
     if a0_sep:
         t0 = torch.stack([tx(0, l, 0) for l in range(3)])
         cols += [torch.log(_dot3(t0[:, None], gj)).sum(dim=-1).T,
@@ -171,6 +224,26 @@ def extras_plain(t, g, gl, V, A, a0_sep, expand):
     return torch.cat(cols, dim=1).contiguous()
 
 
+def _reassemble(llk_ab, ex, V, a0_sep):
+    """(llk_ab, llk_00) from the tiled channels and the O(V) columns after
+    the singlets: llk_ab[j,k,0] = logD[j] + logG[k] and llk_00[0] = u00 +
+    g0s on a separable alpha == 0 plane, llk_00[a] = m0[a] otherwise."""
+    if not a0_sep:
+        return llk_ab, ex.contiguous()
+    logd, logg = ex[:, :V], ex[:, V : 2 * V]
+    llk_ab[..., 0] = logd[:, :, None] + logg[:, None, :]
+    z00 = ex[:, 2 * V] + ex[:, 2 * V + 1]
+    return llk_ab, torch.cat([z00[:, None], ex[:, 2 * V + 2 :]], dim=1)
+
+
+def _tiled_plan(V, A, a0_sep, sym_a, first):
+    plan = plan_tiles(V, A, a0_sep, sym_a)
+    if plan is None:
+        raise ValueError(f"V*V*A = {V * V * A} <= {UNROLL_CAP}: the "
+                         f"unrolled {first} takes this pool")
+    return plan
+
+
 def pair_exact_tiled(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None,
                      pair_fn=pair_tiled, extras_fn=extras):
     """The tiled exact pair search and singlet term, with
@@ -178,26 +251,37 @@ def pair_exact_tiled(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None,
     (B, V), llk0 (B,)) f64. K7' (when some alpha is not separable) and K6'
     on a CUDA tensor, their plain versions on a CPU tensor (pair_fn and
     extras_fn: for a check, the plain versions on any device); then the
-    reassembly: llk_ab[j,k,0] = logD[j] + logG[k] and llk_00[0] = u00 +
-    g0s on a separable alpha == 0 plane, llk_00[a] = m0[a] otherwise."""
+    reassembly (``_reassemble``)."""
     if expand is None:
         expand = tuple(range(A * 9))
-    plan = plan_tiles(V, A, a0_sep, sym_a)
-    if plan is None:
-        raise ValueError(f"V*V*A = {V * V * A} <= {UNROLL_CAP}: the "
-                         "unrolled K3' takes this pool")
+    plan = _tiled_plan(V, A, a0_sep, sym_a, "K3'")
     _, B, _ = t.shape
     if plan.items:
         llk_ab = pair_fn(t, g, V, A, plan, expand)
     else:  # a single-point alpha == 0 grid: K6' carries everything
         llk_ab = t.new_zeros((B, V, V, A))
     ex = extras_fn(t, g, gl, V, A, a0_sep, expand)
-    llk, llk0 = ex[:, :V], ex[:, V]
-    if a0_sep:
-        logd, logg = ex[:, V + 1 : 2 * V + 1], ex[:, 2 * V + 1 : 3 * V + 1]
-        llk_ab[..., 0] = logd[:, :, None] + logg[:, None, :]
-        z00 = ex[:, 3 * V + 1] + ex[:, 3 * V + 2]
-        llk_00 = torch.cat([z00[:, None], ex[:, 3 * V + 3 :]], dim=1)
-    else:
-        llk_00 = ex[:, V + 1 :]
-    return llk_ab, llk_00.contiguous(), llk.contiguous(), llk0.contiguous()
+    llk_ab, llk_00 = _reassemble(llk_ab, ex[:, V + 1 :], V, a0_sep)
+    return llk_ab, llk_00, ex[:, :V].contiguous(), ex[:, V].contiguous()
+
+
+def pair_fast_tiled(t, gps_t, gp0_t, V, A, a0_sep=False, sym_a=None,
+                    expand=None, pair_fn=pair_tiled_fast,
+                    extras_fn=extras_fast):
+    """The tiled fast pair search, with ``ops/pair.pair_llks``' contract:
+    (llk_ab (B, V, V, A), llk_00 (B, A)) f32. gp0_t (3, B, S): the
+    background rows of llk_00 (the front's host gp0, as the TPU's tiled
+    path takes them). K5' (when some alpha is not separable) and K4' on a
+    CUDA tensor, their plain versions on a CPU tensor (pair_fn and
+    extras_fn: for a check, the plain versions on any device); then the
+    reassembly (``_reassemble``)."""
+    if expand is None:
+        expand = tuple(range(A * 9))
+    plan = _tiled_plan(V, A, a0_sep, sym_a, "K1")
+    _, B, _ = t.shape
+    if plan.items:
+        llk_ab = pair_fn(t, gps_t, V, A, plan, expand)
+    else:  # a single-point alpha == 0 grid: K4' carries everything
+        llk_ab = t.new_zeros((B, V, V, A))
+    ex = extras_fn(t, gps_t, gp0_t, V, A, a0_sep, expand)
+    return _reassemble(llk_ab, ex, V, a0_sep)

@@ -1,4 +1,5 @@
-"""The port stands without JAX and refuses what it does not cover yet."""
+"""The port stands without JAX, runs large pools in every mode and
+refuses what it does not cover yet."""
 
 import os
 import re
@@ -54,8 +55,9 @@ def test_every_port_module_imports_without_jax():
 
 def test_port_cli_runs_without_jax_package(tmp_path):
     """With jax, demuxlet_tpu and oracle blocked, the port CLI runs on the
-    CPU in parity, exact (the default) and fast modes on one BAM/VCF; the
-    exact .single equals parity's."""
+    CPU in parity, exact (the default) and fast modes on one BAM/VCF, and
+    in fast mode on a large pool (V=8, 7 alphas: K5' + K4'); the exact
+    .single equals parity's."""
     import random
 
     from fixtures import random_workload, write_bam, write_vcf
@@ -65,15 +67,18 @@ def test_port_cli_runs_without_jax_package(tmp_path):
         reads_per_cell=40)
     vcf = write_vcf(str(tmp_path / "w.vcf"), names, variants, contigs=contigs)
     bam = write_bam(str(tmp_path / "w.bam"), contigs, reads)
-    runs = [("parity", ["--mode", "parity"]), ("exact", []),
-            ("fast", ["--mode", "fast"])]
     base = ["--sam", bam, "--vcf", vcf, "--field", "GT", "--device", "cpu",
             "--mesh", "none"]
+    large = tmp_path / "large"
+    large.mkdir()
+    runs = [("parity", base + ["--mode", "parity"]), ("exact", base),
+            ("fast", base + ["--mode", "fast"]),
+            ("fast_large", _large_pool_case(large, 3) + ["--mode", "fast"])]
     code = (
         _BLOCK + "from demuxlet_tpu_torch import cli\n"
-        f"for name, extra in {runs!r}:\n"
+        f"for name, argv in {runs!r}:\n"
         f"    out = {str(tmp_path)!r} + '/' + name\n"
-        f"    assert cli.main({base!r} + ['--out', out] + extra) == 0\n"
+        "    assert cli.main(argv + ['--out', out]) == 0\n"
         + _NONE_LOADED + "print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -81,7 +86,8 @@ def test_port_cli_runs_without_jax_package(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
     for name, _ in runs:
-        assert len((tmp_path / f"{name}.best").read_text().splitlines()) == 13
+        n = 11 if name == "fast_large" else 13
+        assert len((tmp_path / f"{name}.best").read_text().splitlines()) == n
     assert (tmp_path / "exact.single").read_text() == (
         tmp_path / "parity.single").read_text()
 
@@ -152,49 +158,62 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     (["--mode", "fast", "--mesh", "2x1"], "item 14"),
     (["--mode", "fast", "--precision", "f32"], "item 9"),
     (["--mode", "fast", "--device", "tpu"], "cpu"),
-    # V*V*A = 8*8*7 > 384 in fast mode: the tiled f32 kernels (K4/K5)
-    (["--mode", "fast", "--field", "GT", "--alpha", "0"]
-     + [a for x in (0.1, 0.2, 0.25, 0.3, 0.4, 0.5)
-        for a in ("--alpha", str(x))], "item 13"),
 ])
 def test_cli_refuses_unported(tmp_path, extra, item):
     from demuxlet_tpu_torch import cli
 
-    if item == "item 13":  # the pool size is known once the VCF is read
-        import random
-
-        from fixtures import random_workload, write_vcf
-
-        contigs, names, variants, _, _ = random_workload(
-            random.Random(3), n_cells=2, n_snps=10, n_samples=8)
-        write_vcf(str(tmp_path / "none.vcf"), names, variants,
-                  contigs=contigs)
-        item = "K4/K5.*item 13b"
     with pytest.raises(DemuxError, match=item):
         cli.main(["--sam", str(tmp_path / "none.bam"), "--vcf",
                   str(tmp_path / "none.vcf"), "--out", str(tmp_path / "o"),
                   "--device", "cpu"] + extra)
 
 
+def _large_pool_case(tmp_path, seed):
+    """A V=8 BAM/VCF and the 7-point grid (V*V*A = 448 > 384): the CLI
+    arguments, --device cpu."""
+    import random
+
+    from fixtures import random_workload, write_bam, write_vcf
+
+    contigs, names, variants, reads, _ = random_workload(
+        random.Random(seed), n_cells=10, n_snps=40, n_samples=8,
+        reads_per_cell=50)
+    vcf = write_vcf(str(tmp_path / "w.vcf"), names, variants, contigs=contigs)
+    bam = write_bam(str(tmp_path / "w.bam"), contigs, reads)
+    return ["--sam", bam, "--vcf", vcf, "--field", "GT", "--device", "cpu",
+            "--alpha", "0"] + [a for x in (0.1, 0.2, 0.25, 0.3, 0.4, 0.5)
+                               for a in ("--alpha", str(x))]
+
+
+def test_cli_fast_runs_large_pool(tmp_path):
+    """--mode fast on V=8 and the 7-point grid (V*V*A = 448 > 384) runs on
+    the tiled K5' + K4' (their plain versions on the CPU): its .best calls
+    (the BEST column) equal --mode parity's after canonicalize_best_line."""
+    from parity_utils import canonicalize_best_line
+
+    from demuxlet_tpu_torch import cli
+
+    base = _large_pool_case(tmp_path, 3)
+    calls = {}
+    for mode in ("fast", "parity"):
+        out = str(tmp_path / mode)
+        assert cli.main(base + ["--out", out, "--mode", mode]) == 0
+        with open(out + ".best") as fh:
+            calls[mode] = [canonicalize_best_line(l).split("\t")[5]
+                           for l in fh.read().splitlines()[1:]]
+    assert len(calls["fast"]) == 10
+    assert calls["fast"] == calls["parity"]
+
+
 def test_cli_exact_runs_large_pool(tmp_path):
     """V*V*A = 8*8*7 > 384 in exact mode (the default) runs on the tiled
     K7' + K6' (their plain versions on the CPU): .single and .sing2 equal
     --mode parity's, .best equal after canonicalize_best."""
-    import random
-
-    from fixtures import random_workload, write_bam, write_vcf
     from parity_utils import canonicalize_best
 
     from demuxlet_tpu_torch import cli
 
-    contigs, names, variants, reads, _ = random_workload(
-        random.Random(13), n_cells=10, n_snps=40, n_samples=8,
-        reads_per_cell=50)
-    vcf = write_vcf(str(tmp_path / "w.vcf"), names, variants, contigs=contigs)
-    bam = write_bam(str(tmp_path / "w.bam"), contigs, reads)
-    base = ["--sam", bam, "--vcf", vcf, "--field", "GT", "--device", "cpu",
-            "--alpha", "0"] + [a for x in (0.1, 0.2, 0.25, 0.3, 0.4, 0.5)
-                               for a in ("--alpha", str(x))]
+    base = _large_pool_case(tmp_path, 13)
     out = {}
     for name, extra in (("exact", []), ("parity", ["--mode", "parity"])):
         assert cli.main(base + ["--out", str(tmp_path / name)] + extra) == 0
