@@ -44,6 +44,8 @@
 
 #include <cuda_runtime.h>
 
+#include "logprod.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -61,11 +63,9 @@ struct Params {
   int S, V, A, a0_sep, sym_a;
 };
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using dmx::lp_log;
+using dmx::lp_mul;
+using dmx::warp_sum;
 
 template <int MAXV>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -91,9 +91,14 @@ pair_exact_kernel(Params p) {
 
   for (int task = warp; task < n_tasks; task += kWarps) {
     double acc[MAXV];
+    int ex[MAXV];
 #pragma unroll
-    for (int i = 0; i < MAXV; ++i) acc[i] = 0.0;
-    double acc_bg = 0.0;
+    for (int i = 0; i < MAXV; ++i) {
+      acc[i] = 1.0;
+      ex[i] = 0;
+    }
+    double acc_bg = 1.0;
+    int ex_bg = 0;
     if (task < n_pair) {
       const int j = task / nac;
       const int a = p.a0_sep + task % nac;
@@ -112,26 +117,26 @@ pair_exact_kernel(Params p) {
                  gj2 * t[e[6 + m] * plane + s];
         }
         if (bg) {
-          acc_bg += log(gj0 * u[0] + gj1 * u[1] + gj2 * u[2]);
+          lp_mul(acc_bg, ex_bg, gj0 * u[0] + gj1 * u[1] + gj2 * u[2]);
         } else {
 #pragma unroll
           for (int k = 0; k < MAXV; ++k) {
             if (k < V && k >= k_lo) {
               const double* gk = g + (k * 3) * plane + s;
-              acc[k] += log(gk[0] * u[0] + gk[plane] * u[1] +
-                            gk[2 * plane] * u[2]);
+              lp_mul(acc[k], ex[k],
+                     gk[0] * u[0] + gk[plane] * u[1] + gk[2 * plane] * u[2]);
             }
           }
         }
       }
       if (bg) {
-        const double v = warp_sum(acc_bg);
+        const double v = warp_sum(lp_log(acc_bg, ex_bg));
         if (lane == 0) out_00[a] = v;
       } else {
 #pragma unroll
         for (int k = 0; k < MAXV; ++k) {
           if (k < V && k >= k_lo) {
-            const double v = warp_sum(acc[k]);
+            const double v = warp_sum(lp_log(acc[k], ex[k]));
             if (lane == 0) {
               out_ab[(j * V + k) * A + a] = v;
               if (a == p.sym_a && k > j) out_ab[(k * V + j) * A + a] = v;
@@ -156,22 +161,23 @@ pair_exact_kernel(Params p) {
           if (j < V) {
             const double* gj = g + (j * 3) * plane + s;
             const double a0 = gj[0], a1 = gj[plane], a2 = gj[2 * plane];
-            acc[j] += is_d ? log(a0 * t0 + a1 * t3 + a2 * t6)
-                           : log(a0 + a1 + a2);
+            lp_mul(acc[j], ex[j],
+                   is_d ? a0 * t0 + a1 * t3 + a2 * t6 : a0 + a1 + a2);
           }
         }
         const double b0 = g0[s], b1 = g0[plane + s], b2 = g0[2 * plane + s];
-        acc_bg += is_d ? log(b0 * t0 + b1 * t3 + b2 * t6) : log(b0 + b1 + b2);
+        lp_mul(acc_bg, ex_bg,
+               is_d ? b0 * t0 + b1 * t3 + b2 * t6 : b0 + b1 + b2);
       }
       const int r = is_d ? 0 : 1;
 #pragma unroll
       for (int j = 0; j < MAXV; ++j) {
         if (j < V) {
-          const double v = warp_sum(acc[j]);
+          const double v = warp_sum(lp_log(acc[j], ex[j]));
           if (lane == 0) sep[r][j] = v;
         }
       }
-      const double v = warp_sum(acc_bg);
+      const double v = warp_sum(lp_log(acc_bg, ex_bg));
       if (lane == 0) sep[r][MAXV] = v;
     } else {
       // the singlet term (pass 1) for every sample and the background
@@ -181,19 +187,21 @@ pair_exact_kernel(Params p) {
         for (int j = 0; j < MAXV; ++j) {
           if (j < V) {
             const double* gj = g + (j * 3) * plane + s;
-            acc[j] += log(q0 * gj[0] + q1 * gj[plane] + q2 * gj[2 * plane]);
+            lp_mul(acc[j], ex[j],
+                   q0 * gj[0] + q1 * gj[plane] + q2 * gj[2 * plane]);
           }
         }
-        acc_bg += log(q0 * g0[s] + q1 * g0[plane + s] + q2 * g0[2 * plane + s]);
+        lp_mul(acc_bg, ex_bg,
+               q0 * g0[s] + q1 * g0[plane + s] + q2 * g0[2 * plane + s]);
       }
 #pragma unroll
       for (int j = 0; j < MAXV; ++j) {
         if (j < V) {
-          const double v = warp_sum(acc[j]);
+          const double v = warp_sum(lp_log(acc[j], ex[j]));
           if (lane == 0) p.out_s[(long long)b * V + j] = v;
         }
       }
-      const double v = warp_sum(acc_bg);
+      const double v = warp_sum(lp_log(acc_bg, ex_bg));
       if (lane == 0) p.out_s0[b] = v;
     }
   }

@@ -45,6 +45,8 @@
 
 #include <cuda_runtime.h>
 
+#include "logprod.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -61,11 +63,9 @@ struct Params {
   int S, V, A, n_items;
 };
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using dmx::lp_log;
+using dmx::lp_mul;
+using dmx::warp_sum;
 
 template <int KT>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -93,8 +93,12 @@ pair_tiled_exact_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < 9; ++i) e[i] = p.expand[a * 9 + i];
     double acc[KT];
+    int ex[KT];
 #pragma unroll
-    for (int i = 0; i < KT; ++i) acc[i] = 0.0;
+    for (int i = 0; i < KT; ++i) {
+      acc[i] = 1.0;
+      ex[i] = 0;
+    }
     const double* gj = g + (3LL * j) * plane;
     for (int s = lane; s < S; s += 32) {
       const double gj0 = gj[s], gj1 = gj[plane + s], gj2 = gj[2 * plane + s];
@@ -109,8 +113,8 @@ pair_tiled_exact_kernel(Params p) {
         const int k = k0 + dk;
         if (k < V && (!sym || k >= j)) {
           const double* gk = gk0 + (3LL * dk) * plane + s;
-          acc[dk] += log(gk[0] * u[0] + gk[plane] * u[1] +
-                         gk[2 * plane] * u[2]);
+          lp_mul(acc[dk], ex[dk],
+                 gk[0] * u[0] + gk[plane] * u[1] + gk[2 * plane] * u[2]);
         }
       }
     }
@@ -118,7 +122,7 @@ pair_tiled_exact_kernel(Params p) {
     for (int dk = 0; dk < KT; ++dk) {
       const int k = k0 + dk;
       if (k < V && (!sym || k >= j)) {
-        const double v = warp_sum(acc[dk]);
+        const double v = warp_sum(lp_log(acc[dk], ex[dk]));
         if (lane == 0) {
           out[(j * V + k) * A + a] = v;
           if (sym && k > j) out[(k * V + j) * A + a] = v;

@@ -3,7 +3,8 @@
 Route: nvcc by hand into a shared library with a plain C interface,
 loaded with ctypes (no PyTorch headers, so a build takes seconds). The
 library is built from the sources in ``demuxlet_tpu_torch/csrc`` at first
-use and named by a hash of its source, so an edited source never loads a
+use and named by a hash of its source, the headers beside it and the nvcc
+flags (``source_digest``), so an edited source or header never loads a
 stale library. Nothing is built when the package is imported.
 
 Usage: python -m demuxlet_tpu_torch.kernels.build   (builds every
@@ -53,18 +54,32 @@ def nvcc_path() -> str:
     )
 
 
-def build(name: str) -> str:
+def source_digest(name: str, csrc: str = CSRC, flags=NVCC_FLAGS) -> str:
+    """sha256 (hex) of what a build of csrc/<name>.cu reads: the source,
+    every header in csrc (``*.cuh``, ``*.h``, by name) and the flags."""
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith((".cuh", ".h")))
+    digest = hashlib.sha256(repr(tuple(flags)).encode())
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(csrc, fname), "rb") as fh:
+            data = fh.read()
+        digest.update(f"{fname}\0{len(data)}\0".encode() + data)
+    return digest.hexdigest()
+
+
+def build(name: str, csrc: str = CSRC, defines=()) -> str:
     """Compile csrc/<name>.cu (if its hashed library is absent) and return
-    the library path. A failed compile raises with nvcc's output."""
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + repr(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+    the library path. ``csrc`` and ``defines`` (``-D`` macros) build another
+    tree or a variant of it, side by side. A failed compile raises with
+    nvcc's output."""
+    src = os.path.join(csrc, name + ".cu")
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    digest = source_digest(name, csrc, flags)
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest[:12]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [nvcc_path(), *flags, "-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
