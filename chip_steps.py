@@ -70,7 +70,9 @@ def load_all(variants):
     for ((label, _, _), kernel), path in zip(jobs, paths):
         lib = ctypes.CDLL(path)
         if kernel == "pair_exact":
-            lib.dmx_pair_exact.argtypes = [P] * 8 + [I] * 6 + [P]
+            # the staged K3' takes C (t's rows) after A; PR 4's did not
+            lib.dmx_pair_exact.argtypes = [P] * 8 + [I] * (
+                7 if hasattr(lib, "dmx_pair_exact_smem") else 6) + [P]
         else:
             lib.dmx_pair_tiled_exact.argtypes = [P] * 6 + [I] * 6 + [P]
         libs[label, kernel] = (lib, path)
@@ -83,10 +85,13 @@ def k3_call(lib, t, g, gl, V, A, a0_sep, sym_a, exp_dev):
     outs = (torch.empty((B, V * V * A), **kw), torch.empty((B, A), **kw),
             torch.empty((B, V), **kw), torch.empty((B,), **kw))
 
+    shape = (B, S, V, A, C) if hasattr(lib, "dmx_pair_exact_smem") else (
+        B, S, V, A)
+
     def run():
         rc = lib.dmx_pair_exact(
             t.data_ptr(), g.data_ptr(), gl.data_ptr(), exp_dev.data_ptr(),
-            *(o.data_ptr() for o in outs), B, S, V, A, int(a0_sep), sym_a,
+            *(o.data_ptr() for o in outs), *shape, int(a0_sep), sym_a,
             torch.cuda.current_stream().cuda_stream)
         if rc:
             cs.fail(f"dmx_pair_exact returned {rc}")

@@ -2,15 +2,15 @@
 //
 // Replaces the TPU kernel demuxlet_tpu/ops/pallas_pair_exact.py::
 // _pair_kernel_df (launched by _call_pair_kernel_df) on the unrolled path,
-// V*V*A <= 384. The TPU kernel multiplied df32 products with exponent
-// tracking and took one log per accumulator, because the TPU has no f64;
-// this kernel is K1 (pair_fast.cu) in native f64 and sums logs.
+// V*V*A <= 384. Like the TPU kernel, it multiplies each channel's inner
+// values into a product with exponent tracking and takes one log per
+// accumulator (logprod.cuh), in native f64 instead of df32.
 //
 // What it computes, per cell b and slot s (t: the front's mixture table,
 // C deduplicated channels that expand maps onto the A*9 logical (a, l, m)
 // channels; g: per-slot genotype posteriors, rows j*3 + l for the V
-// samples, then the three rows of the host f64 background gp0; gl: the
-// pass-1 GL table):
+// samples, then the three rows of the host f64 background gp0, read as
+// sample j = V; gl: the pass-1 GL table):
 //   U[j,a,m]        = sum_l g[j,l] * t[a,l,m]
 //   inner[j,k,a]    = sum_m g[k,m] * U[j,a,m]
 //   llk_ab[b,j,k,a] = sum_s log inner[j,k,a]
@@ -22,33 +22,41 @@
 // g[k]; llk_00[0] likewise from gp0. sym_a (>= 0): the alpha == 0.5 plane
 // is (j,k)-symmetric; only k >= j is computed and the j > k channels are
 // copies. A masked slot carries t == 1, neutral rows (1, 0, 0) and
-// gl == (1, 0, 0), so it adds log 1 == 0 exactly.
+// gl == (1, 0, 0), so its inner values are exactly 1 and leave the
+// products as they were.
 //
-// What limits it on this card: per slot it reads 3V + 6 + C doubles and
-// spends about V*V*A f64 logs (V=8, A=5: ~260 with a0_sep and sym_a),
-// each a software routine of a few dozen f64 instructions, so it runs on
-// the SMs' f64 pipes, not at HBM speed. The function needs one log per
-// channel per cell (products with exponent renormalisation, as the TPU's
-// K3 did), so its bound is the bytes it reads.
+// What limits it on this card: STEPS_NOTE
 //
-// What the design does about it: K1's layout. One block owns one cell and
-// loops over all of its slots; each warp takes whole tasks (one (j, a) row
-// of accumulators over k, the background row, one of the two separable
-// alpha == 0 factor rows, or the singlet row); lanes stride over slots, so
-// loads are coalesced along s. Sums live in registers (the k loop unrolled
-// to a compile-time bound MAXV, 8 or 20, with a uniform guard) and end in a
-// fixed warp-shuffle butterfly: no atomics, so runs give identical bits.
-// Shapes, V, A, a0_sep, sym_a and expand are runtime arguments.
+// What the design does about it (stage.cuh): one block owns one cell and
+// streams its slots in chunks of CH (64; 16 on grids with hundreds of t
+// channels) through two shared-memory stages (cp.async; chunk c + 1 lands
+// while chunk c is computed): the 3V + 3 g rows, the 3 gl rows and the C t
+// rows, each read from HBM once. Its warps own units, each with its lanes
+// over slots and all of its accumulators in registers: a 4 x 8 patch of
+// (j, k) channels of one alpha (one g_k load serves 4 channels), up to 8
+// background channels, or the V + 1 columns of one kind (the separable
+// factors d or gsum, or the singlet row). Up to 12 warps (V=8, A=5: 8
+// patches and 4 other units, 259 channels); with more units than that the
+// block takes them in rounds, each a pass over the slots. The products end
+// in one log per lane and a fixed warp-shuffle butterfly: no atomics, so
+// runs give identical bits. Shapes, V, A, C, a0_sep, sym_a and expand are
+// runtime arguments; only MAXV (8 or 20) and CH are compile-time.
 //
 // Build without --use_fast_math: log must be the accurate f64 one.
 
 #include <cuda_runtime.h>
 
 #include "logprod.cuh"
+#include "stage.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+using dmx::PJ;
+using dmx::PK;
+
+constexpr int kMaxWarps = 12;
+constexpr int kBgPerUnit = 8;  // background channels per unit
+constexpr int kSmemMax = 200 * 1024;
 
 struct Params {
   const double* t;    // (C, B, S)
@@ -60,83 +68,154 @@ struct Params {
   double* out_s;      // (B, V)
   double* out_s0;     // (B,)
   long long plane;    // B*S: stride between channels
-  int S, V, A, a0_sep, sym_a;
+  int S, V, A, C, a0_sep, sym_a;
+  int nk;                       // k groups of PK per alpha
+  int n_pair, n_bg, n_units;    // units: patches, background, then d, gs, s
+  bool vec;  // S even and the tensors 16-byte aligned: 16-byte copies
 };
 
-using dmx::lp_log;
-using dmx::lp_mul;
-using dmx::warp_sum;
+// The unit counts of a launch (host side).
+void plan_units(Params& p) {
+  const int nac = p.A - p.a0_sep;
+  p.nk = (p.V + PK - 1) / PK;
+  p.n_pair = nac * ((p.V + PJ - 1) / PJ) * p.nk;
+  p.n_bg = (nac + kBgPerUnit - 1) / kBgPerUnit;
+  p.n_units = p.n_pair + p.n_bg + 2 * p.a0_sep + 1;
+}
 
-template <int MAXV>
-__global__ void __launch_bounds__(kWarps * 32)
+__host__ __device__ int stage_rows(const Params& p) {
+  return 3 * p.V + 6 + p.C;
+}
+
+// Dynamic shared memory: two stages of R x CH doubles, R row pointers and
+// the stage row of each of the A*9 logical t channels.
+int smem_bytes(const Params& p, int ch) {
+  const int R = stage_rows(p);
+  return 2 * R * ch * static_cast<int>(sizeof(double)) +
+         R * static_cast<int>(sizeof(const double*)) +
+         9 * p.A * static_cast<int>(sizeof(int));
+}
+
+// kind of column unit: separable factor d, genotype sum gs, singlet
+enum { kD = 0, kG = 1, kS = 2 };
+
+template <int MAXV, int CH>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
 pair_exact_kernel(Params p) {
+  // a unit's accumulators: a patch, V + 1 columns or the background ones
+  constexpr int kAcc = dmx::cmax(PJ * PK, dmx::cmax(MAXV + 1, kBgPerUnit));
   // separable alpha == 0 sums: [0] log d[j] (index MAXV: log d0),
   // [1] log gsum[k] (index MAXV: log g0sum)
   __shared__ double sep[2][MAXV + 1];
+  extern __shared__ double smem[];
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int S = p.S, V = p.V, A = p.A;
   const long long plane = p.plane;
-  const double* t = p.t + (long long)b * S;
-  const double* g = p.g + (long long)b * S;
-  const double* g0 = g + 3LL * V * plane;  // the host background rows
-  const double* gl = p.gl + (long long)b * S;
+  const int R = stage_rows(p);
+  const double** rows = reinterpret_cast<const double**>(smem + 2 * R * CH);
+  int* erow = reinterpret_cast<int*>(rows + R);
+  const int gl_row = 3 * V + 3, t_row = 3 * V + 6;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const double* base = r < gl_row ? p.g + r * plane
+                         : r < t_row ? p.gl + (r - gl_row) * plane
+                                     : p.t + (r - t_row) * plane;
+    rows[r] = base + static_cast<long long>(b) * S;
+  }
+  for (int i = threadIdx.x; i < 9 * A; i += blockDim.x) {
+    erow[i] = (t_row + p.expand[i]) * CH;
+  }
+  __syncthreads();
   double* out_ab = p.out_ab + (long long)b * V * V * A;
   double* out_00 = p.out_00 + (long long)b * A;
-  const int nac = A - p.a0_sep;      // alphas with a pair plane
-  const int n_pair = (V + 1) * nac;  // row V is the background gp0
-  const int n_sep = 2 * p.a0_sep;
-  const int n_tasks = n_pair + n_sep + 1;  // the last task: singlet row
+  const int nac = A - p.a0_sep;
+  const int nw = blockDim.x >> 5;
 
-  for (int task = warp; task < n_tasks; task += kWarps) {
-    double acc[MAXV];
-    int ex[MAXV];
+  for (int u0 = 0; u0 < p.n_units; u0 += nw) {
+    const int u = u0 + warp;
+    // this warp's unit
+    int a = 0, jb = 0, kb = 0, n_acc = 0, kind = 0;
+    unsigned act = 0;
+    int to[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+    const bool is_pair = u < p.n_pair;
+    const bool is_bg = !is_pair && u < p.n_pair + p.n_bg;
+    if (is_pair) {
+      const int per_a = p.n_pair / nac;
+      a = p.a0_sep + u / per_a;
+      jb = (u % per_a) / p.nk * PJ;
+      kb = (u % per_a) % p.nk * PK;
+      act = dmx::patch_mask(jb, kb, V, a == p.sym_a);
 #pragma unroll
-    for (int i = 0; i < MAXV; ++i) {
-      acc[i] = 1.0;
-      ex[i] = 0;
+      for (int c = 0; c < 9; ++c) to[c] = erow[a * 9 + c];
+    } else if (is_bg) {
+      a = p.a0_sep + (u - p.n_pair) * kBgPerUnit;  // the first of its alphas
+      n_acc = min(kBgPerUnit, A - a);
+    } else if (u < p.n_units) {
+      const int w = u - p.n_pair - p.n_bg;
+      kind = p.a0_sep ? w : kS;
+      n_acc = V + 1;
     }
-    double acc_bg = 1.0;
-    int ex_bg = 0;
-    if (task < n_pair) {
-      const int j = task / nac;
-      const int a = p.a0_sep + task % nac;
-      const bool bg = j == V;
-      const int k_lo = (a == p.sym_a && !bg) ? j : 0;
-      const double* gj = bg ? g0 : g + (j * 3) * plane;
-      int e[9];
+    const bool is_cols = !is_pair && !is_bg && u < p.n_units;
+    dmx::Acc<kAcc> acc;
+    acc.init();
+    dmx::stream_chunks<CH>(
+        smem, rows, R, S, p.vec, [&](const double* stage, int n) {
+          if (is_pair) {
+            dmx::patch_chunk_any<CH>(stage, n, 3 * jb, 3 * kb, to, act, acc);
+          } else if (is_bg) {
+            // g0 . (g0 t_a) for n_acc alphas from a
+            const double* g0 = stage + 3 * V * CH;
+            for (int s = lane; s < n; s += 32) {
+              const double b0 = g0[s], b1 = g0[CH + s], b2 = g0[2 * CH + s];
 #pragma unroll
-      for (int i = 0; i < 9; ++i) e[i] = p.expand[a * 9 + i];
-      for (int s = lane; s < S; s += 32) {
-        const double gj0 = gj[s], gj1 = gj[plane + s], gj2 = gj[2 * plane + s];
-        double u[3];
+              for (int i = 0; i < kBgPerUnit; ++i) {
+                if (i < n_acc) {
+                  const int* e = erow + (a + i) * 9;
+                  double uu[3];
 #pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          u[m] = gj0 * t[e[m] * plane + s] + gj1 * t[e[3 + m] * plane + s] +
-                 gj2 * t[e[6 + m] * plane + s];
-        }
-        if (bg) {
-          lp_mul(acc_bg, ex_bg, gj0 * u[0] + gj1 * u[1] + gj2 * u[2]);
-        } else {
+                  for (int m = 0; m < 3; ++m) {
+                    uu[m] = b0 * stage[e[m] + s] + b1 * stage[e[3 + m] + s] +
+                            b2 * stage[e[6 + m] + s];
+                  }
+                  acc.mul(i, b0 * uu[0] + b1 * uu[1] + b2 * uu[2]);
+                }
+              }
+            }
+          } else if (is_cols) {
+            // w . g[j] for j = 0..V: w = t[0,:,0] (d), 1 (gs) or gl (s)
+            for (int s = lane; s < n; s += 32) {
+              double w0 = 1.0, w1 = 1.0, w2 = 1.0;
+              if (kind == kD) {
+                w0 = stage[erow[0] + s];
+                w1 = stage[erow[3] + s];
+                w2 = stage[erow[6] + s];
+              } else if (kind == kS) {
+                const double* q = stage + gl_row * CH;
+                w0 = q[s];
+                w1 = q[CH + s];
+                w2 = q[2 * CH + s];
+              }
 #pragma unroll
-          for (int k = 0; k < MAXV; ++k) {
-            if (k < V && k >= k_lo) {
-              const double* gk = g + (k * 3) * plane + s;
-              lp_mul(acc[k], ex[k],
-                     gk[0] * u[0] + gk[plane] * u[1] + gk[2 * plane] * u[2]);
+              for (int j = 0; j <= MAXV; ++j) {
+                if (j <= V) {
+                  const double* gj = stage + 3 * j * CH;
+                  acc.mul(j, gj[s] * w0 + gj[CH + s] * w1 +
+                                 gj[2 * CH + s] * w2);
+                }
+              }
             }
           }
-        }
-      }
-      if (bg) {
-        const double v = warp_sum(lp_log(acc_bg, ex_bg));
-        if (lane == 0) out_00[a] = v;
-      } else {
+        });
+    // one log per lane and channel, then the butterfly
+    if (is_pair && act != 0) {
 #pragma unroll
-        for (int k = 0; k < MAXV; ++k) {
-          if (k < V && k >= k_lo) {
-            const double v = warp_sum(lp_log(acc[k], ex[k]));
+      for (int dj = 0; dj < PJ; ++dj) {
+#pragma unroll
+        for (int dk = 0; dk < PK; ++dk) {
+          if ((act >> (dj * PK + dk)) & 1u) {
+            const double v = dmx::warp_sum(acc.log_sum(dj * PK + dk));
+            const int j = jb + dj, k = kb + dk;
             if (lane == 0) {
               out_ab[(j * V + k) * A + a] = v;
               if (a == p.sym_a && k > j) out_ab[(k * V + j) * A + a] = v;
@@ -144,65 +223,26 @@ pair_exact_kernel(Params p) {
           }
         }
       }
-    } else if (task < n_pair + n_sep) {
-      // separable alpha == 0 factors: d[j] = g[j] . t[0, :, 0] (is_d) or
-      // gsum[k] = g[k,0] + g[k,1] + g[k,2]; the background row rides along
-      const bool is_d = task == n_pair;
-      const int e0 = p.expand[0], e3 = p.expand[3], e6 = p.expand[6];
-      for (int s = lane; s < S; s += 32) {
-        double t0 = 0.0, t3 = 0.0, t6 = 0.0;
-        if (is_d) {
-          t0 = t[e0 * plane + s];
-          t3 = t[e3 * plane + s];
-          t6 = t[e6 * plane + s];
-        }
+    } else if (is_bg || is_cols) {
 #pragma unroll
-        for (int j = 0; j < MAXV; ++j) {
-          if (j < V) {
-            const double* gj = g + (j * 3) * plane + s;
-            const double a0 = gj[0], a1 = gj[plane], a2 = gj[2 * plane];
-            lp_mul(acc[j], ex[j],
-                   is_d ? a0 * t0 + a1 * t3 + a2 * t6 : a0 + a1 + a2);
+      for (int i = 0; i < kAcc; ++i) {
+        if (i < n_acc) {
+          const double v = dmx::warp_sum(acc.log_sum(i));
+          if (lane == 0) {
+            if (is_bg) {
+              out_00[a + i] = v;
+            } else if (kind == kS) {
+              if (i < V) {
+                p.out_s[(long long)b * V + i] = v;
+              } else {
+                p.out_s0[b] = v;
+              }
+            } else {
+              sep[kind][i < V ? i : MAXV] = v;
+            }
           }
         }
-        const double b0 = g0[s], b1 = g0[plane + s], b2 = g0[2 * plane + s];
-        lp_mul(acc_bg, ex_bg,
-               is_d ? b0 * t0 + b1 * t3 + b2 * t6 : b0 + b1 + b2);
       }
-      const int r = is_d ? 0 : 1;
-#pragma unroll
-      for (int j = 0; j < MAXV; ++j) {
-        if (j < V) {
-          const double v = warp_sum(lp_log(acc[j], ex[j]));
-          if (lane == 0) sep[r][j] = v;
-        }
-      }
-      const double v = warp_sum(lp_log(acc_bg, ex_bg));
-      if (lane == 0) sep[r][MAXV] = v;
-    } else {
-      // the singlet term (pass 1) for every sample and the background
-      for (int s = lane; s < S; s += 32) {
-        const double q0 = gl[s], q1 = gl[plane + s], q2 = gl[2 * plane + s];
-#pragma unroll
-        for (int j = 0; j < MAXV; ++j) {
-          if (j < V) {
-            const double* gj = g + (j * 3) * plane + s;
-            lp_mul(acc[j], ex[j],
-                   q0 * gj[0] + q1 * gj[plane] + q2 * gj[2 * plane]);
-          }
-        }
-        lp_mul(acc_bg, ex_bg,
-               q0 * g0[s] + q1 * g0[plane + s] + q2 * g0[2 * plane + s]);
-      }
-#pragma unroll
-      for (int j = 0; j < MAXV; ++j) {
-        if (j < V) {
-          const double v = warp_sum(lp_log(acc[j], ex[j]));
-          if (lane == 0) p.out_s[(long long)b * V + j] = v;
-        }
-      }
-      const double v = warp_sum(lp_log(acc_bg, ex_bg));
-      if (lane == 0) p.out_s0[b] = v;
     }
   }
   if (p.a0_sep) {
@@ -215,24 +255,64 @@ pair_exact_kernel(Params p) {
   }
 }
 
-template <int MAXV>
-void launch(const Params& p, int B, cudaStream_t stream) {
-  pair_exact_kernel<MAXV><<<B, kWarps * 32, 0, stream>>>(p);
+template <int MAXV, int CH>
+int launch(const Params& p, int B, cudaStream_t stream) {
+  const int bytes = smem_bytes(p, CH);
+  const cudaError_t err = cudaFuncSetAttribute(
+      pair_exact_kernel<MAXV, CH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int warps = p.n_units < kMaxWarps ? p.n_units : kMaxWarps;
+  pair_exact_kernel<MAXV, CH><<<B, warps * 32, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunk a launch stages: 64 slots, or 16 where 64 would not fit.
+int chunk_for(const Params& p) {
+  if (smem_bytes(p, 64) <= kSmemMax) return 64;
+  if (smem_bytes(p, 16) <= kSmemMax) return 16;
+  return 0;
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<unsigned long long>(ptr) & 15) == 0;
+}
+
+Params shape_params(int B, int S, int V, int A, int C, int a0_sep,
+                    int sym_a) {
+  Params p = {};
+  p.plane = (long long)B * S;
+  p.S = S;
+  p.V = V;
+  p.A = A;
+  p.C = C;
+  p.a0_sep = a0_sep ? 1 : 0;
+  p.sym_a = sym_a;
+  plan_units(p);
+  return p;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K3' on `stream` and returns cudaGetLastError() (0 on success).
-// t (C, B, S), g (3V+3, B, S), gl (3, B, S), expand (A*9) on the device;
-// out_ab (B, V*V*A), out_00 (B, A), out_s (B, V), out_s0 (B) allocated by
-// the caller. sym_a < 0 means no symmetric plane.
+// The dynamic shared memory K3' takes at this shape (bytes), or 0 if its
+// stages do not fit (the launch then returns cudaErrorInvalidValue).
+int dmx_pair_exact_smem(int V, int A, int C, int a0_sep) {
+  const Params p = shape_params(1, 1, V, A, C, a0_sep, -1);
+  const int ch = chunk_for(p);
+  return ch ? smem_bytes(p, ch) : 0;
+}
+
+// Launches K3' on `stream` and returns the first CUDA error (0 on success).
+// t (C, B, S), g (3V+3, B, S), gl (3, B, S), expand (A*9, values < C) on
+// the device; out_ab (B, V*V*A), out_00 (B, A), out_s (B, V), out_s0 (B)
+// allocated by the caller. sym_a < 0 means no symmetric plane.
 int dmx_pair_exact(const double* t, const double* g, const double* gl,
                    const int* expand, double* out_ab, double* out_00,
                    double* out_s, double* out_s0, int B, int S, int V, int A,
-                   int a0_sep, int sym_a, void* stream) {
-  Params p;
+                   int C, int a0_sep, int sym_a, void* stream) {
+  Params p = shape_params(B, S, V, A, C, a0_sep, sym_a);
   p.t = t;
   p.g = g;
   p.gl = gl;
@@ -241,21 +321,18 @@ int dmx_pair_exact(const double* t, const double* g, const double* gl,
   p.out_00 = out_00;
   p.out_s = out_s;
   p.out_s0 = out_s0;
-  p.plane = (long long)B * S;
-  p.S = S;
-  p.V = V;
-  p.A = A;
-  p.a0_sep = a0_sep;
-  p.sym_a = sym_a;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (V <= 8) {
-    launch<8>(p, B, st);
-  } else if (V <= 20) {
-    launch<20>(p, B, st);
-  } else {
+  p.vec = S % 2 == 0 && aligned16(t) && aligned16(g) && aligned16(gl);
+  const int ch = chunk_for(p);
+  if (B < 1 || V < 1 || A < 1 || C < 1 || ch == 0 ||
+      S > 32LL * dmx::kMaxSteps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (V <= 8) {
+    return ch == 64 ? launch<8, 64>(p, B, st) : launch<8, 16>(p, B, st);
+  }
+  if (V <= 20 && ch == 64) return launch<20, 64>(p, B, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* dmx_cuda_error_string(int code) {

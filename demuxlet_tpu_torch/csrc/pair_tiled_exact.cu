@@ -3,9 +3,9 @@
 // Replaces the TPU kernel demuxlet_tpu/ops/pallas_pair_exact.py::
 // _pair_kernel_df_tiled (launched by _call_pair_kernel_df_tiled) on pools
 // with V*V*A > 384, where the unrolled K3' (pair_exact.cu) would need more
-// accumulators than a thread holds. The TPU kernel multiplied df32 products
-// with exponent tracking, one log per accumulator, because the TPU has no
-// f64; this kernel sums native f64 logs, as K3' does.
+// accumulators than a block holds. Like the TPU kernel, it multiplies each
+// channel's inner values into a product with exponent tracking and takes one
+// log per accumulator (logprod.cuh), in native f64 instead of df32.
 //
 // What it computes, per cell b and slot s (t: the front's mixture table, C
 // deduplicated channels that expand maps onto the A*9 logical (a, l, m)
@@ -19,38 +19,42 @@
 // alpha == 0.5 plane's upper-triangle tiles: channels with k < j are
 // skipped and those with k > j are also written at (k, j), so the mirrored
 // channel is an exact copy. A masked slot carries t == 1 and neutral rows
-// (1, 0, 0), so it adds log 1 == 0 exactly.
+// (1, 0, 0), so its inner value is exactly 1 and leaves the product as it
+// was.
 //
-// What limits it on this card: per slot it reads 3V + the used t channels
-// (doubles) and spends one f64 log per (j, k, alpha) channel (V=32, A=5:
-// ~3,600), each a software routine of a few dozen f64 instructions, so it
-// runs on the SMs' f64 pipes, not at HBM speed. The function needs no
-// per-slot log (products with exponent renormalisation, one log per
-// channel per cell, as the TPU kernel did): its bound is the bytes at
-// V=32, A=2 and the dots at A=5, well below this kernel's time.
+// What limits it on this card: STEPS_NOTE
 //
-// What the design does about it: K3''s layout over a tile. One block owns
-// one (cell, item) and loops over all of the cell's slots; each warp takes
-// whole rows (one (j, alpha) of the tile, accumulators over the tile's k);
-// lanes stride over slots, so loads are coalesced along s. The KT sums of a
-// row live in registers (the k loop unrolled to the compile-time tile
-// extent KT, 8 or 16, with uniform guards for the ragged edge k < V and
-// the triangle k >= j) and end in a fixed warp-shuffle butterfly: no
-// atomics, so runs give identical bits. Blocks of one cell are adjacent in
-// the grid, so the cell's t and g rows are read from HBM about once and
-// then from L2. Shapes, V, A, the tile list and expand are runtime
-// arguments; only the tile extent is compile-time.
+// What the design does about it (stage.cuh): one block owns one (cell,
+// item) and streams the cell's slots in chunks of 64 through two
+// shared-memory stages (cp.async; chunk c + 1 lands while chunk c is
+// computed): the tile's j rows, its k rows (once, on diagonal tiles) and
+// the 9 t rows of the alphas in flight. Each warp owns one 4 x 8 patch of
+// (j, k) channels of one alpha, its lanes over slots; per slot a thread
+// loads 4 g_j rows, 9 t values and 8 g_k rows from shared memory for 32
+// channels (1.4 loads per channel, against ~3.7 through L1/L2 before). A
+// 16 x 16 tile is 8 patches per alpha: with more alphas than that, the
+// block takes them in rounds, each a pass over the slots. The products end
+// in one log per lane and a fixed warp-shuffle butterfly: no atomics, so
+// runs give identical bits. Blocks of one cell are adjacent in the grid, so
+// the cell's rows come from HBM about once and then from L2. Shapes, V, A,
+// the tile list and expand are runtime arguments; the tile extent KT (8 or
+// 16) is compile-time.
 //
 // Build without --use_fast_math: log must be the accurate f64 one.
 
 #include <cuda_runtime.h>
 
 #include "logprod.cuh"
+#include "stage.cuh"
 
 namespace {
 
+using dmx::PJ;
+using dmx::PK;
+
 constexpr int kWarps = 8;
 constexpr int kItem = 5;  // ints per item: j0, k0, a_begin, a_count, sym
+constexpr int kChunk = 64;
 
 struct Params {
   const double* t;    // (C, B, S)
@@ -61,15 +65,29 @@ struct Params {
   double* out;        // (B, V*V*A)
   long long plane;    // B*S: stride between channels
   int S, V, A, n_items;
+  bool vec;  // S even and the tensors 16-byte aligned: 16-byte copies
 };
 
-using dmx::lp_log;
-using dmx::lp_mul;
-using dmx::warp_sum;
+// A KT tile's patches and the most rows a round stages: j rows, k rows,
+// and the 9 t rows of each alpha its warps' patches can touch.
+template <int KT>
+struct Tile {
+  static_assert(KT % PJ == 0 && KT % PK == 0, "patches must tile KT");
+  static constexpr int kNk = KT / PK;
+  static constexpr int kPatches = (KT / PJ) * kNk;
+  static constexpr int kRoundAlphas = (kWarps + kPatches - 1) / kPatches + 1;
+  static constexpr int kRows = 6 * KT + 9 * kRoundAlphas;
+  static constexpr int kSmem =
+      2 * kRows * kChunk * sizeof(double) + kRows * sizeof(const double*);
+};
 
 template <int KT>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, 1)
 pair_tiled_exact_kernel(Params p) {
+  using T = Tile<KT>;
+  extern __shared__ double smem[];  // 2 stages, then the row pointers
+  const double** rows =
+      reinterpret_cast<const double**>(smem + 2 * T::kRows * kChunk);
   const int item = blockIdx.x % p.n_items;
   const long long b = blockIdx.x / p.n_items;
   const int warp = threadIdx.x >> 5;
@@ -81,62 +99,98 @@ pair_tiled_exact_kernel(Params p) {
   const long long plane = p.plane;
   const double* t = p.t + b * S;
   const double* g = p.g + b * S;
-  const double* gk0 = g + (3LL * k0) * plane;
   double* out = p.out + b * V * V * A;
-  const int n_rows = KT * a_count;
+  // stage rows: 3*KT j rows, then (off the diagonal) 3*KT k rows, then 9 t
+  // rows per alpha of the round
+  const bool diag = j0 == k0;
+  const int krow = diag ? 0 : 3 * KT;
+  const int trow = diag ? 3 * KT : 6 * KT;
+  const int n_units = a_count * T::kPatches;
 
-  for (int r = warp; r < n_rows; r += kWarps) {
-    const int j = j0 + r / a_count;
-    if (j >= V) continue;  // the ragged edge; uniform across the warp
-    const int a = p.alist[a_begin + r % a_count];
-    int e[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) e[i] = p.expand[a * 9 + i];
-    double acc[KT];
-    int ex[KT];
-#pragma unroll
-    for (int i = 0; i < KT; ++i) {
-      acc[i] = 1.0;
-      ex[i] = 0;
-    }
-    const double* gj = g + (3LL * j) * plane;
-    for (int s = lane; s < S; s += 32) {
-      const double gj0 = gj[s], gj1 = gj[plane + s], gj2 = gj[2 * plane + s];
-      double u[3];
-#pragma unroll
-      for (int m = 0; m < 3; ++m) {
-        u[m] = gj0 * t[e[m] * plane + s] + gj1 * t[e[3 + m] * plane + s] +
-               gj2 * t[e[6 + m] * plane + s];
+  for (int u0 = 0; u0 < n_units; u0 += kWarps) {
+    const int a_lo = u0 / T::kPatches;
+    const int n_ra = (min(u0 + kWarps, n_units) - 1) / T::kPatches - a_lo + 1;
+    const int n_rows = trow + 9 * n_ra;
+    for (int r = threadIdx.x; r < n_rows; r += blockDim.x) {
+      const double* src = nullptr;
+      if (r < trow) {
+        const bool is_k = r >= 3 * KT;
+        const int q = is_k ? r - 3 * KT : r;
+        const int first = is_k ? k0 : j0;
+        if (first + q / 3 < V) src = g + (3LL * first + q) * plane;
+      } else {
+        const int ai = (r - trow) / 9, c = (r - trow) % 9;
+        const int a = p.alist[a_begin + a_lo + ai];
+        src = t + static_cast<long long>(p.expand[a * 9 + c]) * plane;
       }
+      rows[r] = src;
+    }
+    __syncthreads();
+
+    const int u = u0 + warp;
+    const int ai = u / T::kPatches, patch = u % T::kPatches;
+    const int jb = j0 + (patch / T::kNk) * PJ;
+    const int kb = k0 + (patch % T::kNk) * PK;
+    const unsigned act = u < n_units ? dmx::patch_mask(jb, kb, V, sym) : 0u;
+    const int gj = 3 * (jb - j0), gk = krow + 3 * (kb - k0);
+    int to[9];
 #pragma unroll
-      for (int dk = 0; dk < KT; ++dk) {
-        const int k = k0 + dk;
-        if (k < V && (!sym || k >= j)) {
-          const double* gk = gk0 + (3LL * dk) * plane + s;
-          lp_mul(acc[dk], ex[dk],
-                 gk[0] * u[0] + gk[plane] * u[1] + gk[2 * plane] * u[2]);
+    for (int c = 0; c < 9; ++c) to[c] = (trow + 9 * (ai - a_lo) + c) * kChunk;
+    dmx::Acc<PJ * PK> acc;
+    acc.init();
+    dmx::stream_chunks<kChunk>(
+        smem, rows, n_rows, S, p.vec, [&](const double* stage, int n) {
+          dmx::patch_chunk_any<kChunk>(stage, n, gj, gk, to, act, acc);
+        });
+    if (act != 0) {
+      const int a = p.alist[a_begin + ai];
+#pragma unroll
+      for (int dj = 0; dj < PJ; ++dj) {
+#pragma unroll
+        for (int dk = 0; dk < PK; ++dk) {
+          if ((act >> (dj * PK + dk)) & 1u) {
+            const double v = dmx::warp_sum(acc.log_sum(dj * PK + dk));
+            const int j = jb + dj, k = kb + dk;
+            if (lane == 0) {
+              out[(j * V + k) * A + a] = v;
+              if (sym && k > j) out[(k * V + j) * A + a] = v;
+            }
+          }
         }
       }
     }
-#pragma unroll
-    for (int dk = 0; dk < KT; ++dk) {
-      const int k = k0 + dk;
-      if (k < V && (!sym || k >= j)) {
-        const double v = warp_sum(lp_log(acc[dk], ex[dk]));
-        if (lane == 0) {
-          out[(j * V + k) * A + a] = v;
-          if (sym && k > j) out[(k * V + j) * A + a] = v;
-        }
-      }
-    }
+    // stream_chunks ended on a barrier after every read of the row
+    // pointers, so the next round may rewrite them
   }
+}
+
+template <int KT>
+int launch(const Params& p, long long n_blocks, cudaStream_t stream) {
+  constexpr int bytes = Tile<KT>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      pair_tiled_exact_kernel<KT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pair_tiled_exact_kernel<KT>
+      <<<static_cast<unsigned>(n_blocks), kWarps * 32, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<unsigned long long>(ptr) & 15) == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K7' on `stream` and returns cudaGetLastError() (0 on success).
+// The dynamic shared memory K7' takes with tile extent `tile` (bytes), or 0
+// for an extent it does not take.
+int dmx_pair_tiled_exact_smem(int tile) {
+  return tile == 8 ? Tile<8>::kSmem : tile == 16 ? Tile<16>::kSmem : 0;
+}
+
+// Launches K7' on `stream` and returns the first CUDA error (0 on success).
 // t (C, B, S), g (3V+3, B, S), expand (A*9), items (n_items, 5) and alist
 // on the device; out (B, V*V*A) allocated by the caller, which also fills
 // the channels no item writes. tile: the items' extent, 8 or 16.
@@ -156,20 +210,16 @@ int dmx_pair_tiled_exact(const double* t, const double* g, const int* expand,
   p.V = V;
   p.A = A;
   p.n_items = n_items;
+  p.vec = S % 2 == 0 && aligned16(t) && aligned16(g);
   const long long n_blocks = (long long)B * n_items;
-  if (n_blocks < 1 || n_blocks > 0x7fffffffLL) {
+  if (n_blocks < 1 || n_blocks > 0x7fffffffLL ||
+      S > 32LL * dmx::kMaxSteps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(n_blocks));
-  if (tile == 8) {
-    pair_tiled_exact_kernel<8><<<grid, kWarps * 32, 0, st>>>(p);
-  } else if (tile == 16) {
-    pair_tiled_exact_kernel<16><<<grid, kWarps * 32, 0, st>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (tile == 8) return launch<8>(p, n_blocks, st);
+  if (tile == 16) return launch<16>(p, n_blocks, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* dmx_cuda_error_string(int code) {

@@ -37,11 +37,19 @@ def _lib():
     if fn.argtypes is None:
         P = ctypes.c_void_p
         I = ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         fn.restype = I
+        lib.dmx_pair_exact_smem.argtypes = [I, I, I, I]
+        lib.dmx_pair_exact_smem.restype = I
         lib.dmx_cuda_error_string.argtypes = [I]
         lib.dmx_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def smem_bytes(V, A, C, a0_sep) -> int:
+    """The dynamic shared memory K3' takes at this shape (0: its stages do
+    not fit)."""
+    return _lib().dmx_pair_exact_smem(V, A, C, int(bool(a0_sep)))
 
 
 def pair_exact(t, g, gl, V, A, a0_sep, sym_a, expand):
@@ -82,12 +90,15 @@ def pair_exact(t, g, gl, V, A, a0_sep, sym_a, expand):
     out_s0 = new((B,), **kw)
     if B and S:
         lib = _lib()
+        if not smem_bytes(V, A, C, a0_sep):
+            raise ValueError(f"pair_exact: V={V}, A={A} and C={C} channels "
+                             "do not fit the kernel's shared-memory stages")
         exp_dev = kbuild.int_table(t.device, expand)
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = lib.dmx_pair_exact(
             t.data_ptr(), g.data_ptr(), gl.data_ptr(), exp_dev.data_ptr(),
             out_ab.data_ptr(), out_00.data_ptr(), out_s.data_ptr(),
-            out_s0.data_ptr(), B, S, V, A, int(bool(a0_sep)),
+            out_s0.data_ptr(), B, S, V, A, C, int(bool(a0_sep)),
             -1 if sym_a is None else int(sym_a), stream,
         )
         if rc != 0:

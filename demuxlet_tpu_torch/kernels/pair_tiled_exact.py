@@ -39,9 +39,16 @@ def _lib():
         I = ctypes.c_int
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
         fn.restype = I
+        lib.dmx_pair_tiled_exact_smem.argtypes = [I]
+        lib.dmx_pair_tiled_exact_smem.restype = I
         lib.dmx_cuda_error_string.argtypes = [I]
         lib.dmx_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def smem_bytes(tile) -> int:
+    """The dynamic shared memory K7' takes with tile extent ``tile``."""
+    return _lib().dmx_pair_tiled_exact_smem(tile)
 
 
 def pair_tiled(t, g, V, A, plan, expand):

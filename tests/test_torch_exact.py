@@ -432,20 +432,58 @@ def test_k2_matches_plain_on_card(cuda_device, B, S, U, grid, cap, lut_kb):
     assert torch.equal(t, t2) and torch.equal(gl, gl2)
 
 
+def edge_inputs(edge, t, g, gl, V, expand, rng):
+    """Rewrite a card test's f64 inputs t (C, B, S), g (3V+3, B, S) and
+    gl (3, B, S) in place for an edge case of the product accumulators:
+    "floor", every t at the +1e-6 smoothing floor (inner values ~1e-6, so
+    the exponents run far); "special", cell 0 with an all-zero g row of
+    sample 1 at one slot (exact-zero inner values: -inf) and cell 1 with a
+    NaN t value of the last alpha at one slot; "padding", every slot
+    masked (t == 1, neutral rows): every LLK exactly 0."""
+    if edge == "floor":
+        t.copy_(1e-6 * (1.0 + torch.from_numpy(
+            rng.random(tuple(t.shape))).to(t.device)))
+    elif edge == "special":
+        g[3:6, 0, 5] = 0.0
+        t[expand[-1], 1, 7] = float("nan")
+    elif edge == "padding":
+        t.fill_(1.0)
+        g.view(V + 1, 3, *g.shape[1:])[:, 0] = 1.0
+        g.view(V + 1, 3, *g.shape[1:])[:, 1:] = 0.0
+        gl[0], gl[1:] = 1.0, 0.0
+
+
+def assert_close_on_card(got, want, tol=1e-9):
+    """got within tol absolute of want, where equal infinities and NaN
+    against NaN count as equal (the plain version's log of 0 or NaN)."""
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    err = torch.where(same, torch.zeros_like(got), (got - want).abs())
+    assert not bool(torch.isnan(err).any())
+    assert float(err.max()) < tol
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,V,grid", [
-    (64, 256, 8, GRID5),
-    (40, 384, 8, [0.0, 0.5]),
-    (33, 200, 13, [0.0, 0.5]),
-    (32, 128, 3, [0.1, 0.3, 0.5]),
-    (16, 130, 2, [0.0]),  # separable plane only; S not a warp multiple
-    (8, 160, 19, [0.5]),  # the V <= 20 instantiation, symmetric plane
-    (8, 128, 1, [0.0, 0.25, 0.5]),
-    (4, 128, 2, np.linspace(0, 0.5, 96).tolist()),  # V*V*A == 384
+@pytest.mark.parametrize("B,S,V,grid,edge", [
+    (64, 256, 8, GRID5, None),
+    (40, 384, 8, [0.0, 0.5], None),
+    (33, 200, 13, [0.0, 0.5], None),
+    (32, 128, 3, [0.1, 0.3, 0.5], None),
+    (16, 130, 2, [0.0], None),  # separable plane only; S not a warp multiple
+    (8, 160, 19, [0.5], None),  # the V <= 20 instantiation, symmetric plane
+    (8, 128, 1, [0.0, 0.25, 0.5], None),
+    (4, 128, 2, np.linspace(0, 0.5, 96).tolist(), None),  # V*V*A == 384
+    (4, 8192, 8, GRID5, None),  # deep: the exponents run far
+    (8, 1000, 8, GRID5, "floor"),  # S not a multiple of the 64-slot chunk
+    (6, 200, 13, [0.0, 0.5], "floor"),
+    (4, 256, 8, GRID5, "special"),
+    (4, 130, 13, [0.0, 0.5], "special"),
+    (4, 200, 8, GRID5, "padding"),
 ])
-def test_k3_matches_plain_on_card(cuda_device, B, S, V, grid):
+def test_k3_matches_plain_on_card(cuda_device, B, S, V, grid, edge):
     """K3' against pair_exact_plain on the card: LLKs within 1e-9
-    absolute, and two launches give identical bits (no atomics)."""
+    absolute (equal infinities and NaNs match), two launches give
+    identical bits (no atomics), the alpha == 0.5 plane is exactly
+    symmetric; an all-padding block gives exact zeros."""
     from demuxlet_tpu_torch.kernels import pair_exact as kernel
 
     rng = np.random.default_rng(3)
@@ -462,6 +500,7 @@ def test_k3_matches_plain_on_card(cuda_device, B, S, V, grid):
     g[:, ~msk] = np.array([1.0, 0.0, 0.0])
     g = torch.from_numpy(np.ascontiguousarray(
         g.transpose(0, 3, 1, 2).reshape(3 * V + 3, B, S))).to(cuda_device)
+    edge_inputs(edge, t, g, gl, V, tab.expand, rng)
     a0_sep = grid[0] == 0.0
     sym_a = grid.index(0.5) if 0.5 in grid else None
     before = kernel.launches
@@ -471,8 +510,16 @@ def test_k3_matches_plain_on_card(cuda_device, B, S, V, grid):
     assert kernel.launches == before + 2
     want = TP.pair_exact_plain(t, g, gl, V, A, a0_sep, sym_a, tab.expand)
     for x, y, z in zip(got, want, again):
-        assert float((x - y).abs().max()) < 1e-9
-        assert torch.equal(x, z)
+        assert_close_on_card(x, y)
+        assert torch.equal(x.nan_to_num(), z.nan_to_num())
+        if edge == "padding":
+            assert bool((x == 0).all())
+    if sym_a is not None:
+        plane = got[0][..., sym_a].nan_to_num()
+        assert torch.equal(plane, plane.transpose(1, 2))
+    if edge == "special":
+        assert bool(torch.isneginf(got[2][0, 1])) and bool(
+            torch.isnan(got[0][1, :, :, A - 1]).all())
 
 
 @pytest.mark.cuda

@@ -20,7 +20,7 @@ import torch
 from demuxlet_tpu_torch.models import engine as TE
 from demuxlet_tpu_torch.ops import pair_tiled as PT
 from test_torch_exact import _jax_f64, _likelihood_f64, _port_block, \
-    _swap_equal, _workload
+    _swap_equal, _workload, assert_close_on_card, edge_inputs
 
 torch.set_num_threads(2)
 
@@ -268,20 +268,30 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,V,grid", [
-    (16, 256, 32, _grid(5)),
-    (40, 384, 7, _grid(8)),  # ragged edge, 8-tiles
-    (40, 384, 17, _grid(3)),  # ragged edge, 16-tiles
-    (33, 200, 20, [0.0, 0.5]),
-    (16, 130, 20, [0.5, 0.1]),  # no separable plane; S not a warp multiple
-    (16, 128, 24, [0.0]),  # single-point alpha == 0 grid: K6' alone
+@pytest.mark.parametrize("B,S,V,grid,edge", [
+    (16, 256, 32, _grid(5), None),
+    (40, 384, 7, _grid(8), None),  # ragged edge, 8-tiles
+    (40, 384, 17, _grid(3), None),  # ragged edge, 16-tiles
+    (33, 200, 20, [0.0, 0.5], None),
+    (16, 130, 20, [0.5, 0.1], None),  # no separable plane; S % 32 != 0
+    (16, 128, 24, [0.0], None),  # single-point alpha == 0 grid: K6' alone
+    (2, 8192, 32, [0.0, 0.5], None),  # deep: the exponents run far
+    (8, 1000, 17, _grid(3), "floor"),  # S % 64 != 0 (the staging chunk)
+    (4, 200, 7, _grid(8), "floor"),
+    (4, 256, 32, _grid(5), "special"),
+    (4, 130, 20, [0.5, 0.1], "special"),
+    (4, 200, 20, [0.0, 0.5], "padding"),
 ])
-def test_k7_k6_match_likelihood_on_card(cuda_device, B, S, V, grid):
+def test_k7_k6_match_likelihood_on_card(cuda_device, B, S, V, grid, edge):
     """The tiled exact pair search through K7' and K6' on the card against
     the port's dense f64 likelihood kernels (ops/likelihood.py) on the
     card: within 1e-9 absolute, every (j, k, alpha) channel; against the
-    plain versions on the card within 1e-9; two launches give identical
-    bits (no atomics)."""
+    plain versions on the card within 1e-9 (equal infinities and NaNs
+    match); two launches give identical bits (no atomics) and the
+    alpha == 0.5 plane is exactly symmetric. The edge cases of
+    ``edge_inputs`` (inputs at the smoothing floor, exact-zero and NaN
+    inner values, an all-padding block: exact zeros) rewrite t and g after
+    the front, so they are held against the plain versions alone."""
     from demuxlet_tpu_torch.kernels import extras_exact as k6
     from demuxlet_tpu_torch.kernels import pair_tiled_exact as k7
     from demuxlet_tpu_torch.ops.front_exact import front_exact_plain
@@ -297,6 +307,8 @@ def test_k7_k6_match_likelihood_on_card(cuda_device, B, S, V, grid):
     NS = tab.g_table.shape[1] - 1
     idx_n = torch.where(dev(msk), dev(idx).long(), NS).reshape(-1)
     g = tab.g_table.index_select(1, idx_n).view(-1, B, S)
+    g = g.clone()
+    edge_inputs(edge, t, g, gl, V, tab.expand, np.random.default_rng(S))
     plan = PT.plan_tiles(V, A, a0_sep, sym_a)
     before = (k7.launches, k6.launches)
     got = PT.pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, tab.expand)
@@ -305,17 +317,24 @@ def test_k7_k6_match_likelihood_on_card(cuda_device, B, S, V, grid):
     n7 = 2 if plan.items else 0
     assert (k7.launches, k6.launches) == (before[0] + n7, before[1] + 2)
     for x, y in zip(got, again):
-        assert torch.equal(x, y)
-    llk, llk0, ab, z0 = _likelihood_f64(codes, idx, msk, gps, grid,
-                                        device=cuda_device)
-    for name, x, ref in zip(("llk_ab", "llk_00", "llk", "llk0"), got,
-                            (ab, z0, llk, llk0)):
-        assert x.shape == ref.shape, name
-        assert np.abs(x.cpu().numpy() - ref).max() < 1e-9, name
+        assert torch.equal(x.nan_to_num(), y.nan_to_num())
+        if edge == "padding":
+            assert bool((x == 0).all())
+    if sym_a is not None:
+        plane = got[0][..., sym_a].nan_to_num()
+        assert torch.equal(plane, plane.transpose(1, 2))
+    if edge is None:
+        llk, llk0, ab, z0 = _likelihood_f64(codes, idx, msk, gps, grid,
+                                            device=cuda_device)
+        for name, x, ref in zip(("llk_ab", "llk_00", "llk", "llk0"), got,
+                                (ab, z0, llk, llk0)):
+            assert x.shape == ref.shape, name
+            assert np.abs(x.cpu().numpy() - ref).max() < 1e-9, name
     if plan.items:
         want = PT.pair_tiled_plain(t, g, V, A, plan, tab.expand)
-        assert float((PT.pair_tiled(t, g, V, A, plan, tab.expand)
-                      - want).abs().max()) < 1e-9
+        assert_close_on_card(PT.pair_tiled(t, g, V, A, plan, tab.expand),
+                             want)
     want = PT.extras_plain(t, g, gl, V, A, a0_sep, tab.expand)
-    assert float((PT.extras(t, g, gl, V, A, a0_sep, tab.expand)
-                  - want).abs().max()) < 1e-9
+    assert_close_on_card(PT.extras(t, g, gl, V, A, a0_sep, tab.expand), want)
+    if edge == "special":
+        assert bool(torch.isneginf(got[2][0, 1]))
