@@ -1,4 +1,4 @@
-// A sum of logs kept as a product: the accumulator of the exact pair
+// A sum of logs kept as a product: the accumulators of the exact pair
 // kernels K3' (pair_exact.cu) and K7' (pair_tiled_exact.cu).
 //
 // sum_s log(x_s) over one lane's slots is kept as m * 2^e: an f64 mantissa
@@ -9,15 +9,17 @@
 // (demuxlet_tpu/ops/pallas_pair_exact.py: _renorm, the stacked product
 // accumulators of _pair_kernel_df, _log_mantissa) in native f64.
 //
-// Renormalised at every step: m in [1, 2) times any positive normal x is a
-// positive normal product unless x is near the top of the range, so no
-// floor on x is assumed. A step whose product is not positive, normal and
-// finite takes the rare path lp_slow: a positive subnormal or huge x is split
-// by frexp and kept exact; x == 0 makes m 0 (the sum is -inf), a negative
-// or NaN x makes m NaN and x == inf makes m inf, and those values of m are
-// sticky and combine as the plain version's sum of logs does (0 then inf
-// gives NaN). A masked slot's x == 1 leaves m and e unchanged, so a lane
-// of padding ends at log(1) + 0 == 0 exactly.
+// Renormalised at every step, and without a branch: an x in the safe range
+// [2^-1022, 2^1022) gives a positive normal product whatever m in [1, 2)
+// is, so no floor on x is assumed. Any other x (0, subnormal, huge, inf,
+// NaN, negative) multiplies in 1 instead and the step reports it; the
+// kernels then take the rare path `fix` for the whole warp (a vote per
+// slot): a positive subnormal or huge x is split by frexp and multiplied in
+// exactly, and 0, inf and NaN (or x < 0) set the channel's bit in one of
+// three masks, so the lane's sum ends at -inf, +inf or NaN as the plain
+// version's sum of logs does (-inf and +inf together give NaN). A masked
+// slot's x == 1 leaves m and e unchanged, so a lane of padding ends at
+// log(1) + 0 == 0 exactly.
 //
 // The exponent: |e| grows by at most 1075 per step, so int32 holds any
 // lane of at most kMaxSteps steps (the kernels refuse longer rows).
@@ -36,55 +38,116 @@ constexpr int kMaxSteps = 1 << 20;  // 2^20 * 1075 < 2^31
 constexpr double kLn2Hi = 6.93147180369123816490e-01;
 constexpr double kLn2Lo = 1.90821492927058770002e-10;
 
-// m in [1, 2) from a positive normal finite p whose high word is hi; the
-// exponent goes into e.
-__device__ __forceinline__ void lp_renorm(int hi, double p, double& m,
-                                          int& e) {
-  e += (hi >> 20) - 1023;
-  m = __hiloint2double((hi & 0x000fffff) | 0x3ff00000, __double2loint(p));
+// x in [2^-1022, 2^1022): its high word in [0x00100000, 0x7fc00000)
+__device__ __forceinline__ bool lp_safe(double x) {
+  return static_cast<unsigned>(__double2hiint(x) - 0x00100000) < 0x7fb00000u;
 }
 
-struct Prod {
-  double m;
-  int e;
-};
+// One step: m * x renormalised if x is safe, else m * 1; returns
+// lp_safe(x). No branch: the kernels vote once per slot and take lp_fix
+// for the whole warp when a lane met an unsafe x.
+__device__ __forceinline__ bool lp_step(double& m, int& e, double x) {
+  const bool safe = lp_safe(x);
+  const double p = m * (safe ? x : 1.0);
+  const int hp = __double2hiint(p);
+  e += (hp >> 20) - 1023;
+  m = __hiloint2double((hp & 0x000fffff) | 0x3ff00000, __double2loint(p));
+  return safe;
+}
 
-// The rare step (see above); returns the new (m, e).
-__device__ __noinline__ Prod lp_slow(double m, int e, double x) {
-  constexpr double kMax = 1.7976931348623157e308;
-  if (!(m > 0.0 && m <= kMax)) {  // m is already 0, inf or NaN: sticky
-    if (!(x > 0.0 && x <= kMax)) m = exp(log(m) + log(x));
-    return {m, e};
-  }
-  if (x > 0.0 && x <= kMax) {  // subnormal or huge: x = f 2^k exactly
+// The rare path for an x that lp_step left out (nothing if x is safe).
+__device__ __forceinline__ void lp_fix(double& m, int& e, unsigned& zero,
+                                       unsigned& inf, unsigned& nan,
+                                       unsigned bit, double x) {
+  if (lp_safe(x)) return;
+  if (x > 0.0 && x <= 1.7976931348623157e308) {
+    // subnormal or huge: x = f 2^k exactly, f in [0.5, 1), so the product
+    // m f lies in [0.5, 2)
     int k;
-    const double f = frexp(x, &k);  // f in [0.5, 1)
-    const double p = m * f;         // in [0.5, 2): positive normal
-    lp_renorm(__double2hiint(p), p, m, e);
-    return {m, e + k};
-  }
-  return {exp(log(x)), e};  // 0 -> 0, inf -> inf, NaN or x < 0 -> NaN
-}
-
-// One step: (m, e) <- (m * x) renormalised.
-__device__ __forceinline__ void lp_mul(double& m, int& e, double x) {
-  const double p = m * x;
-  const int hi = __double2hiint(p);
-  // positive, normal and finite: the high word in [0x00100000, 0x7fefffff]
-  if (static_cast<unsigned>(hi - 0x00100000) < 0x7fe00000u) {
-    lp_renorm(hi, p, m, e);
+    const double p = m * frexp(x, &k);
+    const int hp = __double2hiint(p);
+    e += k + (hp >> 20) - 1023;
+    m = __hiloint2double((hp & 0x000fffff) | 0x3ff00000, __double2loint(p));
+  } else if (x == 0.0) {
+    zero |= bit;
+  } else if (x > 0.0) {
+    inf |= bit;
   } else {
-    const Prod r = lp_slow(m, e, x);
-    m = r.m;
-    e = r.e;
+    nan |= bit;  // NaN or x < 0
   }
 }
 
-// log(m * 2^e): one log per lane and channel.
-__device__ __forceinline__ double lp_log(double m, int e) {
+// A lane's sum of logs: log(m) + e ln 2, or -inf, +inf, NaN.
+__device__ __forceinline__ double lp_sum(double m, int e, unsigned zero,
+                                         unsigned inf, unsigned nan,
+                                         unsigned bit) {
+  if ((nan & bit) || (zero & inf & bit)) {
+    return __longlong_as_double(0x7ff8000000000000LL);
+  }
+  if (zero & bit) return -__longlong_as_double(0x7ff0000000000000LL);
+  if (inf & bit) return __longlong_as_double(0x7ff0000000000000LL);
   const double ed = static_cast<double>(e);
   return fma(ed, kLn2Hi, fma(ed, kLn2Lo, log(m)));
 }
+
+// N product accumulators of one thread in registers: every index is a
+// compile-time constant once the kernels' loops are unrolled.
+template <int N>
+struct Acc {
+  static_assert(N <= 32, "one bit per accumulator in the masks");
+  double m[N];
+  int e[N];
+  unsigned zero, inf, nan;  // channels that met x == 0, inf, NaN (or < 0)
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      m[i] = 1.0;
+      e[i] = 0;
+    }
+    zero = inf = nan = 0u;
+  }
+  __device__ __forceinline__ bool step(int i, double x) {
+    return lp_step(m[i], e[i], x);
+  }
+  __device__ __forceinline__ void fix(int i, double x) {
+    lp_fix(m[i], e[i], zero, inf, nan, 1u << i, x);
+  }
+  __device__ __forceinline__ double log_sum(int i) const {
+    return lp_sum(m[i], e[i], zero, inf, nan, 1u << i);
+  }
+};
+
+// N accumulators of one thread in shared memory, stored so that a warp's
+// lanes touch consecutive words: accumulator i of thread t at m[i * T + t]
+// (T threads; masks: zero, inf, nan at [k * T + t]).
+template <int N>
+struct SharedAcc {
+  double* m;
+  int* e;
+  unsigned* masks;
+  int T;
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      m[i * T] = 1.0;
+      e[i * T] = 0;
+    }
+    masks[0] = masks[T] = masks[2 * T] = 0u;
+  }
+  __device__ __forceinline__ bool step(int i, double x) {
+    return lp_step(m[i * T], e[i * T], x);
+  }
+  __device__ __forceinline__ void fix(int i, double x) {
+    lp_fix(m[i * T], e[i * T], masks[0], masks[T], masks[2 * T], 1u << i,
+           x);
+  }
+  __device__ __forceinline__ double log_sum(int i) const {
+    return lp_sum(m[i * T], e[i * T], masks[0], masks[T], masks[2 * T],
+                  1u << i);
+  }
+};
 
 // The fixed butterfly over a warp: every lane gets the same sum, in an order
 // that does not depend on timing, so two launches give identical bits.

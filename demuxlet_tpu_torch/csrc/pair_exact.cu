@@ -54,9 +54,15 @@ namespace {
 using dmx::PJ;
 using dmx::PK;
 
-constexpr int kMaxWarps = 12;
-constexpr int kBgPerUnit = 8;  // background channels per unit
-constexpr int kSmemMax = 200 * 1024;
+constexpr int kSmemMax = 190 * 1024;  // with ~31 KB of static shared memory
+// Warps per block: 16 for 16-channel patches (each thread up to 128
+// registers), 8 for 32-channel ones.
+constexpr int kMaxWarps = 32 * 8 / (PJ * PK);
+constexpr int kX = PJ * PK / 4;  // the most extra channels a unit carries
+
+// the extra channels' kinds: separable factor d, genotype sum gs, singlet,
+// background pair
+enum { kD = 0, kG = 1, kS = 2, kBg = 3 };
 
 struct Params {
   const double* t;    // (C, B, S)
@@ -69,26 +75,30 @@ struct Params {
   double* out_s0;     // (B,)
   long long plane;    // B*S: stride between channels
   int S, V, A, C, a0_sep, sym_a;
-  int nk;                       // k groups of PK per alpha
-  int n_pair, n_bg, n_units;    // units: patches, background, then d, gs, s
+  int nk;  // k groups of PK per alpha
+  int gr;  // stage rows of g: 3V + 3, padded to whole patches past V
+  int n_pair, nx, n_units;  // patches, extra channels, units
   bool vec;  // S even and the tensors 16-byte aligned: 16-byte copies
 };
 
-// The unit counts of a launch (host side).
+// The units of a launch: one per patch, at least enough for the extra
+// channels (d, gs for a0_sep, the singlets, one background pair per
+// non-separable alpha), which are dealt round-robin over the units.
 void plan_units(Params& p) {
   const int nac = p.A - p.a0_sep;
-  p.nk = (p.V + PK - 1) / PK;
   p.n_pair = nac * ((p.V + PJ - 1) / PJ) * p.nk;
-  p.n_bg = (nac + kBgPerUnit - 1) / kBgPerUnit;
-  p.n_units = p.n_pair + p.n_bg + 2 * p.a0_sep + 1;
+  p.nx = (p.a0_sep ? 3 : 1) * (p.V + 1) + nac;
+  const int for_x = (p.nx + kX - 1) / kX;
+  p.n_units = p.n_pair > for_x ? p.n_pair : for_x;
 }
 
 __host__ __device__ int stage_rows(const Params& p) {
-  return 3 * p.V + 6 + p.C;
+  return p.gr + 3 + p.C;
 }
 
-// Dynamic shared memory: two stages of R x CH doubles, R row pointers and
-// the stage row of each of the A*9 logical t channels.
+// Dynamic shared memory: two stages of R x CH doubles (g rows, padding
+// rows that patches past V read and ignore, gl rows, t rows), R row
+// pointers and the stage offset of each of the A*9 logical t channels.
 int smem_bytes(const Params& p, int ch) {
   const int R = stage_rows(p);
   return 2 * R * ch * static_cast<int>(sizeof(double)) +
@@ -96,17 +106,32 @@ int smem_bytes(const Params& p, int ch) {
          9 * p.A * static_cast<int>(sizeof(int));
 }
 
-// kind of column unit: separable factor d, genotype sum gs, singlet
-enum { kD = 0, kG = 1, kS = 2 };
+// Extra channel x of a cell as (kind << 16) | index (index: j = 0..V, V
+// the background row, or the alpha of a background pair).
+__device__ __forceinline__ int extra_desc(int x, const Params& p) {
+  const int n = p.V + 1;
+  if (p.a0_sep) {
+    if (x < n) return (kD << 16) | x;
+    if (x < 2 * n) return (kG << 16) | (x - n);
+    x -= 2 * n;
+  }
+  if (x < n) return (kS << 16) | x;
+  return (kBg << 16) | (p.a0_sep + x - n);
+}
 
 template <int MAXV, int CH>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 pair_exact_kernel(Params p) {
-  // a unit's accumulators: a patch, V + 1 columns or the background ones
-  constexpr int kAcc = dmx::cmax(PJ * PK, dmx::cmax(MAXV + 1, kBgPerUnit));
   // separable alpha == 0 sums: [0] log d[j] (index MAXV: log d0),
   // [1] log gsum[k] (index MAXV: log g0sum)
   __shared__ double sep[2][MAXV + 1];
+  __shared__ int xdesc[kMaxWarps][kX];
+  // the extra channels' accumulators in shared memory: in registers they
+  // would push the patch past the 128 registers of 16 warps
+  constexpr int T = kMaxWarps * 32;
+  __shared__ double xm[kX * T];
+  __shared__ int xe[kX * T];
+  __shared__ unsigned xmasks[3 * T];
   extern __shared__ double smem[];
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5;
@@ -116,12 +141,13 @@ pair_exact_kernel(Params p) {
   const int R = stage_rows(p);
   const double** rows = reinterpret_cast<const double**>(smem + 2 * R * CH);
   int* erow = reinterpret_cast<int*>(rows + R);
-  const int gl_row = 3 * V + 3, t_row = 3 * V + 6;
+  const int gl_row = p.gr, t_row = p.gr + 3;
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    const double* base = r < gl_row ? p.g + r * plane
-                         : r < t_row ? p.gl + (r - gl_row) * plane
-                                     : p.t + (r - t_row) * plane;
-    rows[r] = base + static_cast<long long>(b) * S;
+    const double* base = r < 3 * V + 3 ? p.g + r * plane
+                         : r < gl_row  ? nullptr
+                         : r < t_row   ? p.gl + (r - gl_row) * plane
+                                       : p.t + (r - t_row) * plane;
+    rows[r] = base ? base + static_cast<long long>(b) * S : nullptr;
   }
   for (int i = threadIdx.x; i < 9 * A; i += blockDim.x) {
     erow[i] = (t_row + p.expand[i]) * CH;
@@ -129,86 +155,96 @@ pair_exact_kernel(Params p) {
   __syncthreads();
   double* out_ab = p.out_ab + (long long)b * V * V * A;
   double* out_00 = p.out_00 + (long long)b * A;
-  const int nac = A - p.a0_sep;
   const int nw = blockDim.x >> 5;
 
   for (int u0 = 0; u0 < p.n_units; u0 += nw) {
     const int u = u0 + warp;
-    // this warp's unit
-    int a = 0, jb = 0, kb = 0, n_acc = 0, kind = 0;
+    // this warp's unit: a patch (if u < n_pair) and extra channels
+    // u, u + n_units, ...
+    int a = 0, jb = 0, kb = 0, n_x = 0;
     unsigned act = 0;
-    int to[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-    const bool is_pair = u < p.n_pair;
-    const bool is_bg = !is_pair && u < p.n_pair + p.n_bg;
-    if (is_pair) {
-      const int per_a = p.n_pair / nac;
+    if (u < p.n_pair) {
+      const int per_a = p.n_pair / (A - p.a0_sep);
       a = p.a0_sep + u / per_a;
       jb = (u % per_a) / p.nk * PJ;
       kb = (u % per_a) % p.nk * PK;
       act = dmx::patch_mask(jb, kb, V, a == p.sym_a);
-#pragma unroll
-      for (int c = 0; c < 9; ++c) to[c] = erow[a * 9 + c];
-    } else if (is_bg) {
-      a = p.a0_sep + (u - p.n_pair) * kBgPerUnit;  // the first of its alphas
-      n_acc = min(kBgPerUnit, A - a);
-    } else if (u < p.n_units) {
-      const int w = u - p.n_pair - p.n_bg;
-      kind = p.a0_sep ? w : kS;
-      n_acc = V + 1;
     }
-    const bool is_cols = !is_pair && !is_bg && u < p.n_units;
-    dmx::Acc<kAcc> acc;
+    // the extra channels' descriptors live in shared memory, read each
+    // slot, which keeps the thread within its registers
+    int* xd = xdesc[warp];
+    __syncwarp();  // the last round's reads are done
+#pragma unroll
+    for (int i = 0; i < kX; ++i) {
+      const int x = u + i * p.n_units;
+      if (u < p.n_units && x < p.nx) {
+        if (lane == 0) xd[i] = extra_desc(x, p);
+        n_x = i + 1;
+      }
+    }
+    __syncwarp();
+    // the inner value of extra channel d at slot s of a stage
+    auto extra_inner = [&](const double* stage, int d, int s) {
+      const int kind = d >> 16, idx = d & 0xffff;
+      if (kind == kBg) {  // g0 . (g0 t_a)
+        const int* e = erow + idx * 9;
+        const double* g0 = stage + 3 * V * CH;
+        const double b0 = g0[s], b1 = g0[CH + s], b2 = g0[2 * CH + s];
+        double uu[3];
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          uu[m] = b0 * stage[e[m] + s] + b1 * stage[e[3 + m] + s] +
+                  b2 * stage[e[6 + m] + s];
+        }
+        return b0 * uu[0] + b1 * uu[1] + b2 * uu[2];
+      }
+      // w . g[idx]: w = t[0,:,0] (d), 1 (gs) or gl (s)
+      double w0 = 1.0, w1 = 1.0, w2 = 1.0;
+      if (kind == kD) {
+        w0 = stage[erow[0] + s];
+        w1 = stage[erow[3] + s];
+        w2 = stage[erow[6] + s];
+      } else if (kind == kS) {
+        const double* q = stage + gl_row * CH;
+        w0 = q[s];
+        w1 = q[CH + s];
+        w2 = q[2 * CH + s];
+      }
+      const double* gj = stage + 3 * idx * CH;
+      return gj[s] * w0 + gj[CH + s] * w1 + gj[2 * CH + s] * w2;
+    };
+    dmx::Acc<PJ * PK> acc;
+    dmx::SharedAcc<kX> xacc{xm + threadIdx.x, xe + threadIdx.x,
+                            xmasks + threadIdx.x, T};
     acc.init();
+    xacc.init();
     dmx::stream_chunks<CH>(
         smem, rows, R, S, p.vec, [&](const double* stage, int n) {
-          if (is_pair) {
-            dmx::patch_chunk_any<CH>(stage, n, 3 * jb, 3 * kb, to, act, acc);
-          } else if (is_bg) {
-            // g0 . (g0 t_a) for n_acc alphas from a
-            const double* g0 = stage + 3 * V * CH;
-            for (int s = lane; s < n; s += 32) {
-              const double b0 = g0[s], b1 = g0[CH + s], b2 = g0[2 * CH + s];
+          // the alpha's t offsets are read from shared memory each slot
+          dmx::patch_chunk_any<CH>(stage, n, 3 * jb, 3 * kb, erow + a * 9,
+                                   act, acc);
+          if (n_x == 0) return;
+#pragma unroll 1
+          for (int s0 = 0; s0 < n; s0 += 32) {
+            const int s = s0 + lane;
+            const bool live = s < n;
+            bool bad = false;
 #pragma unroll
-              for (int i = 0; i < kBgPerUnit; ++i) {
-                if (i < n_acc) {
-                  const int* e = erow + (a + i) * 9;
-                  double uu[3];
-#pragma unroll
-                  for (int m = 0; m < 3; ++m) {
-                    uu[m] = b0 * stage[e[m] + s] + b1 * stage[e[3 + m] + s] +
-                            b2 * stage[e[6 + m] + s];
-                  }
-                  acc.mul(i, b0 * uu[0] + b1 * uu[1] + b2 * uu[2]);
-                }
+            for (int i = 0; i < kX; ++i) {
+              if (live && i < n_x) {
+                bad |= !xacc.step(i, extra_inner(stage, xd[i], s));
               }
             }
-          } else if (is_cols) {
-            // w . g[j] for j = 0..V: w = t[0,:,0] (d), 1 (gs) or gl (s)
-            for (int s = lane; s < n; s += 32) {
-              double w0 = 1.0, w1 = 1.0, w2 = 1.0;
-              if (kind == kD) {
-                w0 = stage[erow[0] + s];
-                w1 = stage[erow[3] + s];
-                w2 = stage[erow[6] + s];
-              } else if (kind == kS) {
-                const double* q = stage + gl_row * CH;
-                w0 = q[s];
-                w1 = q[CH + s];
-                w2 = q[2 * CH + s];
-              }
+            if (__any_sync(0xffffffffu, bad) && live) {  // the rare path
 #pragma unroll
-              for (int j = 0; j <= MAXV; ++j) {
-                if (j <= V) {
-                  const double* gj = stage + 3 * j * CH;
-                  acc.mul(j, gj[s] * w0 + gj[CH + s] * w1 +
-                                 gj[2 * CH + s] * w2);
-                }
+              for (int i = 0; i < kX; ++i) {
+                if (i < n_x) xacc.fix(i, extra_inner(stage, xd[i], s));
               }
             }
           }
         });
     // one log per lane and channel, then the butterfly
-    if (is_pair && act != 0) {
+    if (act != 0) {
 #pragma unroll
       for (int dj = 0; dj < PJ; ++dj) {
 #pragma unroll
@@ -223,23 +259,23 @@ pair_exact_kernel(Params p) {
           }
         }
       }
-    } else if (is_bg || is_cols) {
+    }
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i) {
-        if (i < n_acc) {
-          const double v = dmx::warp_sum(acc.log_sum(i));
-          if (lane == 0) {
-            if (is_bg) {
-              out_00[a + i] = v;
-            } else if (kind == kS) {
-              if (i < V) {
-                p.out_s[(long long)b * V + i] = v;
-              } else {
-                p.out_s0[b] = v;
-              }
+    for (int i = 0; i < kX; ++i) {
+      if (i < n_x) {
+        const double v = dmx::warp_sum(xacc.log_sum(i));
+        const int kind = xd[i] >> 16, idx = xd[i] & 0xffff;
+        if (lane == 0) {
+          if (kind == kBg) {
+            out_00[idx] = v;
+          } else if (kind == kS) {
+            if (idx < V) {
+              p.out_s[(long long)b * V + idx] = v;
             } else {
-              sep[kind][i < V ? i : MAXV] = v;
+              p.out_s0[b] = v;
             }
+          } else {
+            sep[kind][idx < V ? idx : MAXV] = v;
           }
         }
       }
@@ -256,7 +292,8 @@ pair_exact_kernel(Params p) {
 }
 
 template <int MAXV, int CH>
-int launch(const Params& p, int B, cudaStream_t stream) {
+int launch(Params p, int B, cudaStream_t stream) {
+  plan_units(p);
   const int bytes = smem_bytes(p, CH);
   const cudaError_t err = cudaFuncSetAttribute(
       pair_exact_kernel<MAXV, CH>,
@@ -288,7 +325,8 @@ Params shape_params(int B, int S, int V, int A, int C, int a0_sep,
   p.C = C;
   p.a0_sep = a0_sep ? 1 : 0;
   p.sym_a = sym_a;
-  plan_units(p);
+  p.nk = (V + PK - 1) / PK;
+  p.gr = 3 * dmx::cmax(V + 1, dmx::cmax((V + PJ - 1) / PJ * PJ, p.nk * PK));
   return p;
 }
 

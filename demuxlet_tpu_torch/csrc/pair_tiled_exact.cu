@@ -52,7 +52,9 @@ namespace {
 using dmx::PJ;
 using dmx::PK;
 
-constexpr int kWarps = 8;
+// Warps per block: one per patch of a 16 x 16 tile's alpha (16 patches
+// of 4 x 4, each thread up to 128 registers), at most 16.
+constexpr int kWarps = (16 / PJ) * (16 / PK) < 16 ? (16 / PJ) * (16 / PK) : 16;
 constexpr int kItem = 5;  // ints per item: j0, k0, a_begin, a_count, sym
 constexpr int kChunk = 64;
 

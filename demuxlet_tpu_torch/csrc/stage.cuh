@@ -12,7 +12,8 @@
 // A patch is PJ j rows x PK k rows of one alpha in one thread: per slot it
 // loads PJ g_j rows, the 9 t values of the alpha and PK g_k rows, forms
 // U[j, m] = sum_l g[j,l] t[l,m] once per j, and each g_k load then serves
-// PJ channels. The accumulators are logprod.cuh's products.
+// PJ channels. The accumulators are logprod.cuh's products; a warp whose
+// lanes met no unsafe inner value in a slot (the rule) never branches.
 
 #pragma once
 
@@ -24,7 +25,13 @@
 #define DMX_PJ 4
 #endif
 #ifndef DMX_PK
-#define DMX_PK 8
+#define DMX_PK 4
+#endif
+// Measurement probes (chip_steps.py), never in a build of the kernels'
+// results: 1 stages every chunk and computes nothing; 2 stages the first
+// chunk once and computes on it for every chunk.
+#ifndef DMX_PROBE
+#define DMX_PROBE 0
 #endif
 
 namespace dmx {
@@ -100,7 +107,7 @@ __device__ __forceinline__ void stream_chunks(double* smem,
   stage_chunk<CH>(smem, rows, n_rows, 0, min(CH, S), vec);
   cp_async_commit();
   for (int c = 0; c < n_ch; ++c) {
-    if (c + 1 < n_ch) {
+    if (c + 1 < n_ch && DMX_PROBE != 2) {
       const int s1 = (c + 1) * CH;
       stage_chunk<CH>(smem + ((c + 1) & 1) * n_rows * CH, rows, n_rows, s1,
                       min(CH, S - s1), vec);
@@ -108,71 +115,76 @@ __device__ __forceinline__ void stream_chunks(double* smem,
     cp_async_commit();
     cp_async_wait1();  // chunk c has landed; c + 1 may be in flight
     __syncthreads();
-    body(smem + (c & 1) * n_rows * CH, min(CH, S - c * CH));
+    if (DMX_PROBE != 1) {
+      body(smem + (DMX_PROBE == 2 ? 0 : (c & 1) * n_rows * CH),
+           min(CH, S - c * CH));
+    }
     __syncthreads();  // the stage is free for chunk c + 2
   }
 }
 
-// N product accumulators of one thread (a patch's channel (dj, dk) is
-// dj * PK + dk); every index is a compile-time constant once unrolled, so
-// they live in registers.
-template <int N>
-struct Acc {
-  double m[N];
-  int e[N];
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      m[i] = 1.0;
-      e[i] = 0;
-    }
-  }
-  __device__ __forceinline__ void mul(int i, double x) {
-    lp_mul(m[i], e[i], x);
-  }
-  __device__ __forceinline__ double log_sum(int i) const {
-    return lp_log(m[i], e[i]);
-  }
-};
-
 // One chunk of a patch, n slots at `stage`: g_j rows at stage rows
 // gj + 3 dj + l, g_k rows at gk + 3 dk + l, the alpha's t rows at stage
-// element offsets to[0..8] ((l, m) order). kGuard: only the channels whose
+// element offsets to[0..8] ((l, m) order; in registers or in shared
+// memory). kGuard: only the channels whose
 // bit (dj * PK + dk) is set in act are updated (ragged edge, triangle).
 template <int CH, bool kGuard, int N>
 __device__ __forceinline__ void patch_chunk(const double* stage, int n,
                                             int gj, int gk,
-                                            const int (&to)[9], unsigned act,
+                                            const int* to, unsigned act,
                                             Acc<N>& a) {
   static_assert(N >= PJ * PK, "the patch's accumulators");
   const double* pj = stage + gj * CH;
   const double* pk = stage + gk * CH;
-  for (int s = threadIdx.x & 31; s < n; s += 32) {
+#pragma unroll 1
+  for (int s0 = 0; s0 < n; s0 += 32) {
+    const int s = s0 + (threadIdx.x & 31);
+    const bool live = s < n;
     double u[PJ][3];
-    {
-      double tv[9];
-#pragma unroll
-      for (int c = 0; c < 9; ++c) tv[c] = stage[to[c] + s];
+    bool bad = false;
+    if (live) {
+      // U one column m at a time: 3 t values live, not 9
+      double gv[PJ][3];
 #pragma unroll
       for (int dj = 0; dj < PJ; ++dj) {
-        const double g0 = pj[(3 * dj) * CH + s];
-        const double g1 = pj[(3 * dj + 1) * CH + s];
-        const double g2 = pj[(3 * dj + 2) * CH + s];
 #pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          u[dj][m] = g0 * tv[m] + g1 * tv[3 + m] + g2 * tv[6 + m];
+        for (int l = 0; l < 3; ++l) gv[dj][l] = pj[(3 * dj + l) * CH + s];
+      }
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const double t0 = stage[to[m] + s], t1 = stage[to[3 + m] + s],
+                     t2 = stage[to[6 + m] + s];
+#pragma unroll
+        for (int dj = 0; dj < PJ; ++dj) {
+          u[dj][m] = gv[dj][0] * t0 + gv[dj][1] * t1 + gv[dj][2] * t2;
+        }
+      }
+#pragma unroll
+      for (int dk = 0; dk < PK; ++dk) {
+        const double k0 = pk[(3 * dk) * CH + s];
+        const double k1 = pk[(3 * dk + 1) * CH + s];
+        const double k2 = pk[(3 * dk + 2) * CH + s];
+#pragma unroll
+        for (int dj = 0; dj < PJ; ++dj) {
+          if (!kGuard || ((act >> (dj * PK + dk)) & 1u)) {
+            bad |= !a.step(dj * PK + dk,
+                           k0 * u[dj][0] + k1 * u[dj][1] + k2 * u[dj][2]);
+          }
         }
       }
     }
+    // the rare path, taken by the whole warp: the same inner values again
+    if (__any_sync(0xffffffffu, bad) && live) {
 #pragma unroll
-    for (int dk = 0; dk < PK; ++dk) {
-      const double k0 = pk[(3 * dk) * CH + s];
-      const double k1 = pk[(3 * dk + 1) * CH + s];
-      const double k2 = pk[(3 * dk + 2) * CH + s];
+      for (int dk = 0; dk < PK; ++dk) {
+        const double k0 = pk[(3 * dk) * CH + s];
+        const double k1 = pk[(3 * dk + 1) * CH + s];
+        const double k2 = pk[(3 * dk + 2) * CH + s];
 #pragma unroll
-      for (int dj = 0; dj < PJ; ++dj) {
-        if (!kGuard || ((act >> (dj * PK + dk)) & 1u)) {
-          a.mul(dj * PK + dk, k0 * u[dj][0] + k1 * u[dj][1] + k2 * u[dj][2]);
+        for (int dj = 0; dj < PJ; ++dj) {
+          if (!kGuard || ((act >> (dj * PK + dk)) & 1u)) {
+            a.fix(dj * PK + dk, k0 * u[dj][0] + k1 * u[dj][1] + k2 * u[dj][2]);
+          }
         }
       }
     }
@@ -202,8 +214,8 @@ constexpr unsigned kFullPatch =
 template <int CH, int N>
 __device__ __forceinline__ void patch_chunk_any(const double* stage, int n,
                                                 int gj, int gk,
-                                                const int (&to)[9],
-                                                unsigned act, Acc<N>& a) {
+                                                const int* to, unsigned act,
+                                                Acc<N>& a) {
   if (act == kFullPatch) {
     patch_chunk<CH, false>(stage, n, gj, gk, to, act, a);
   } else if (act != 0) {
