@@ -12,7 +12,8 @@ each against its plain PyTorch version on the card. Phases, one line each:
 
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. nvcc build of every csrc/*.cu, one nvcc each, all started together
-     (seconds per kernel; ptxas's registers and spills per instantiation);
+     (seconds per kernel; ptxas's registers, stack and spills per
+     instantiation; a spill in K3' or K7' fails);
   3. K1 against pair_llks_plain at the main-path shapes (max relative
      error, scale max(1, |x|), limit 2e-5; median ms of 20 launches each);
   4. fast run_compact on a synthetic 20,480-cell pileup (10 blocks of
@@ -22,8 +23,10 @@ each against its plain PyTorch version on the card. Phases, one line each:
   5. the CLI (--mode fast) on a BAM/VCF from tests/fixtures.py (150 cells,
      V=8): its .best calls equal the host-oracle --mode parity calls;
   6. K2' (front_exact) and K3' (pair_exact) against their plain versions
-     at the main-path shapes (K2': t and gl within 1e-12 relative; K3':
-     LLKs within 1e-9 absolute; median ms of 20 launches each);
+     at the main-path shapes and the engine's deepest slot pad S = 4096
+     (K2': t and gl within 1e-12 relative; K3': LLKs within 1e-9
+     absolute, two launches bit-equal, the alpha == 0.5 plane exactly
+     symmetric, its dynamic shared memory; median ms of 20 launches each);
   7. exact run_compact on the same pileup: K2' and K3' launched once per
      block, barcodes/s and phase seconds, the first 2 and the last
      (deepest) block again through the plain versions on the card (floats
@@ -33,9 +36,10 @@ each against its plain PyTorch version on the card. Phases, one line each:
      canonicalize_best;
   9. K7' (pair_tiled_exact) and K6' (extras_exact) against their plain
      versions at B=2048, S=1024 for (V, A) = (32, 5), (32, 2), (20, 2),
-     (17, 3) and a ragged B=40/S=384 case (V=7, A=8: one 8-tile): within
-     1e-9 absolute; kernel ms (median of CUDA-event timed launches) and
-     plain ms;
+     (17, 3), a ragged B=40/S=384 case (V=7, A=8: one 8-tile) and the
+     deepest pad (V=32, A=2, S=4096): within 1e-9 absolute, K7' bit-equal
+     over two launches, the plane exactly symmetric; kernel ms (median of
+     CUDA-event timed launches), plain ms and K7''s dynamic shared memory;
  10. exact run_compact on the same pileup with V=32 donors on the default
      grid: K2', K7' and K6' launched once per block and K3' never, rate,
      phase seconds, peak device memory, and the first 2 and the deepest
@@ -155,6 +159,24 @@ def pair_work(V, A, a0_sep, sym_a, singlets):
             chans += (V * (V + 1) // 2 if a == sym_a else V * V) + 1
             rows += V + 1
     return chans + (V + 1 if singlets else 0), rows
+
+
+def ptxas_summary(lines):
+    """[{entry, registers, stack, spill_stores}] from ptxas's report of a
+    library (``kernels/build.ptxas_report``): one entry per kernel
+    instantiation, the report's lines after its "Compiling entry" line."""
+    import re
+
+    out = []
+    for ln in lines:
+        if ln.startswith("Compiling entry"):
+            out.append({"entry": ln.split("'")[1] if "'" in ln else ln})
+        elif out and "spill stores" in ln and "stack" not in out[-1]:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[-1].update(stack=nums[0], spill_stores=nums[1])
+        elif out and ln.startswith("Used ") and "registers" not in out[-1]:
+            out[-1]["registers"] = int(re.search(r"Used (\d+)", ln)[1])
+    return out
 
 
 def fail(msg: str) -> None:
@@ -652,9 +674,13 @@ def main() -> int:
 
     dev = resolve_device("auto")
     for name, (lib_path, secs) in kbuild.build_all().items():
+        entries = ptxas_summary(kbuild.ptxas_report(lib_path))
         phase("build", kernel=name, seconds=secs,
-              library=os.path.relpath(lib_path, HERE),
-              ptxas=kbuild.ptxas_report(lib_path))
+              library=os.path.relpath(lib_path, HERE), ptxas=entries)
+        if name in ("pair_exact", "pair_tiled_exact") and any(
+                e.get("spill_stores", 1) or e.get("stack", 1)
+                for e in entries):
+            fail(f"{name}: ptxas reports spills or a stack frame: {entries}")
 
     # per kernel: max errors over its cases; ms, plain ms and bound at the
     # main path's shape
@@ -725,6 +751,7 @@ def main() -> int:
             ("main", 2048, 1024, GRID),
             ("default_grid", 2048, 1024, [0.0, 0.5]),
             ("ragged", 40, 384, GRID),
+            ("deep", 2048, 4096, GRID),  # the engine's deepest slot pad
         ):
             A = len(grid)
             tab, codes, msk, g = exact_inputs(rng, B, S, grid, dev)
@@ -753,13 +780,20 @@ def main() -> int:
                    bound_ms=b_ms, bound_by=b_by)
             pargs = (t, g, gl, V, A, grid[0] == 0.0, grid.index(0.5),
                      tab.expand)
-            got = pair_exact(*pargs)
+            got = [x.clone() for x in pair_exact(*pargs)]
+            again = pair_exact(*pargs)
             torch.cuda.synchronize()
             want = pair_exact_plain(*pargs)
             aerr = max(abs_err(x, y) for x, y in zip(got, want))
             err = max(rel_err(x, y) for x, y in zip(got, want))
             if not (np.isfinite(aerr) and aerr <= EXACT_TOL):
                 fail(f"K3' {name}: max absolute error {aerr} > {EXACT_TOL}")
+            plane = got[0][..., grid.index(0.5)]
+            if not (all(torch.equal(x, y) for x, y in zip(got, again))
+                    and torch.equal(plane, plane.transpose(1, 2))):
+                fail(f"K3' {name}: two launches differ or the alpha == 0.5 "
+                     "plane is not symmetric")
+            del again, plane
             ms = median_ms(lambda: pair_exact(*pargs))
             plain_ms = median_ms(lambda: pair_exact_plain(*pargs))
             b_ms, b_by = bound(
@@ -769,11 +803,14 @@ def main() -> int:
                      + sum(x.numel() for x in got)), "f64")
             phase("k3_vs_plain", case=name, B=B, S=S, V=V, A=A,
                   C=t.shape[0], max_abs_err=aerr, max_rel_err=err,
-                  tol=EXACT_TOL, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                  bound_by=b_by)
+                  tol=EXACT_TOL, relaunch_bit_equal=True,
+                  sym_plane_exact=True, ms=ms, plain_ms=plain_ms,
+                  bound_ms=b_ms, bound_by=b_by,
+                  smem_bytes=k3.smem_bytes(V, A, t.shape[0], grid[0] == 0.0))
             record("k3", name == "main", aerr, err, ms=ms, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by)
-            del tab, codes, msk, g, t, gl, pt, pgl, got, want
+            # the argument tuples hold the inputs too
+            del tab, codes, msk, g, t, gl, pt, pgl, got, want, fargs, pargs
         torch.cuda.empty_cache()
 
         # ---- 7. the exact engine's main path, on the same pileup
@@ -790,7 +827,9 @@ def main() -> int:
 
     # ---- 9. K7' and K6' against their plain versions
     rng = np.random.default_rng(4)
-    for name, B, S, nv, grid in TILED_CASES:
+    # and the engine's deepest slot pad
+    for name, B, S, nv, grid in TILED_CASES + (
+            ("deep", 2048, 4096, V_LARGE, GRID_LARGE),):
         A = len(grid)
         a0_sep, sym_a = grid[0] == 0.0, grid.index(0.5)
         tab, codes, msk, g = exact_inputs(rng, B, S, grid, dev, nv)
@@ -800,6 +839,7 @@ def main() -> int:
         a7 = (t, g, nv, A, plan, tab.expand)
         a6 = (t, g, gl, nv, A, a0_sep, tab.expand)
         got7, got6 = PT.pair_tiled(*a7), PT.extras(*a6)
+        again7 = PT.pair_tiled(*a7)
         torch.cuda.synchronize()
         e7 = abs_err(got7, PT.pair_tiled_plain(*a7))
         e6 = abs_err(got6, PT.extras_plain(*a6))
@@ -808,8 +848,11 @@ def main() -> int:
             fail(f"K7'/K6' {name}: max absolute errors {e7}, {e6} > "
                  f"{EXACT_TOL}")
         plane = got7[..., sym_a]
-        if not torch.equal(plane, plane.transpose(1, 2)):
-            fail(f"K7' {name}: the alpha == 0.5 plane is not symmetric")
+        if not (torch.equal(plane, plane.transpose(1, 2))
+                and torch.equal(got7, again7)):
+            fail(f"K7' {name}: two launches differ or the alpha == 0.5 "
+                 "plane is not symmetric")
+        del again7
         big = B * S * nv * nv * A > 1 << 30  # the plain versions take ~1 s
         ms7 = median_ms(lambda: PT.pair_tiled(*a7))
         plain7 = median_ms(lambda: PT.pair_tiled_plain(*a7), n=3 if big else 10)
@@ -826,7 +869,9 @@ def main() -> int:
                    "f64")
         phase("k7_k6_vs_plain", case=name, B=B, S=S, V=nv, A=A, C=t.shape[0],
               tile=plan.tile, tile_items=len(plan.items), k7_max_abs_err=e7,
-              k6_max_abs_err=e6, tol=EXACT_TOL, k7_ms=ms7,
+              k6_max_abs_err=e6, tol=EXACT_TOL, k7_relaunch_bit_equal=True,
+              sym_plane_exact=True,
+              k7_smem_bytes=k7.smem_bytes(plan.tile), k7_ms=ms7,
               k7_plain_ms=plain7, k7_bound_ms=b7[0], k7_bound_by=b7[1],
               k6_ms=ms6, k6_plain_ms=plain6, k6_bound_ms=b6[0],
               k6_bound_by=b6[1])
@@ -834,7 +879,7 @@ def main() -> int:
                bound_ms=b7[0], bound_by=b7[1])
         record("k6", name == "main", e6, ms=ms6, plain_ms=plain6,
                bound_ms=b6[0], bound_by=b6[1])
-        del tab, g, t, gl, got7, got6, plane
+        del tab, g, t, gl, got7, got6, plane, a7, a6
     torch.cuda.empty_cache()
 
     # ---- 10. the exact engine on a large pool: the same pileup scored

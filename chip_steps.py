@@ -15,9 +15,11 @@ One JSON line per (shape, variant), ptxas's report per variant, then the
 card's name and power limit.
 
 Usage: python3 chip_steps.py [LABEL=DIR[:MACRO,MACRO...] ...]
-(no argument: this checkout's csrc alone). A variant built with a
-DMX_PROBE macro (csrc/stage.cuh: staging alone, or compute alone) is timed
-and its error printed, but not held to the limit.
+(no argument: this checkout's csrc alone). Earlier steps are other source
+trees (``git archive <commit> demuxlet_tpu_torch/csrc`` unpacked under
+``build/``). A variant built with a DMX_PROBE macro (csrc/stage.cuh:
+staging alone, or compute alone) is timed and its error printed, but not
+held to the limit.
 """
 
 from __future__ import annotations

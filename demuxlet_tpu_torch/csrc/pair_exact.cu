@@ -25,22 +25,34 @@
 // gl == (1, 0, 0), so its inner values are exactly 1 and leave the
 // products as they were.
 //
-// What limits it on this card: STEPS_NOTE
+// What limits it on this card: per slot the function reads 3V + 6 + C
+// doubles and spends a 3-term dot and a multiply per channel (V=8, A=5:
+// 259 channels with a0_sep and sym_a): bytes bound it (0.24 ms at B=2048,
+// S=1024). PR 4's kernel took an f64 log per channel per slot and each of
+// its (j, alpha) rows re-read 3V g_k values per slot through L1/L2. Step by
+// step at V=8, A=5, B=2048, S=1024 (chip_steps.py; H100 80GB HBM3, 700 W):
+// 6.48 ms; products in place of logs 5.06; slot chunks staged in shared
+// memory (1 x 8 patches) 1.71; 4 x 8 patches 1.61; 4 x 4 patches at 16
+// warps with the O(V) channels spread over the patch warps 1.23, 5.1x the
+// bound. What bounds it now is the arithmetic at the occupancy its
+// registers allow: staging alone takes 0.32 ms, the units alone 1.09
+// (chip_steps.py with DMX_PROBE).
 //
 // What the design does about it (stage.cuh): one block owns one cell and
-// streams its slots in chunks of CH (64; 16 on grids with hundreds of t
-// channels) through two shared-memory stages (cp.async; chunk c + 1 lands
+// streams its slots in chunks of CH (128; less on grids with hundreds of
+// t channels) through two shared-memory stages (cp.async; chunk c + 1 lands
 // while chunk c is computed): the 3V + 3 g rows, the 3 gl rows and the C t
 // rows, each read from HBM once. Its warps own units, each with its lanes
-// over slots and all of its accumulators in registers: a 4 x 8 patch of
-// (j, k) channels of one alpha (one g_k load serves 4 channels), up to 8
-// background channels, or the V + 1 columns of one kind (the separable
-// factors d or gsum, or the singlet row). Up to 12 warps (V=8, A=5: 8
-// patches and 4 other units, 259 channels); with more units than that the
-// block takes them in rounds, each a pass over the slots. The products end
-// in one log per lane and a fixed warp-shuffle butterfly: no atomics, so
-// runs give identical bits. Shapes, V, A, C, a0_sep, sym_a and expand are
-// runtime arguments; only MAXV (8 or 20) and CH are compile-time.
+// over slots: a 4 x 4 patch of (j, k) channels of one alpha (one g_k load
+// serves 4 channels; accumulators in registers), and up to 4 of the extra
+// channels (the separable factors d and gsum, the singlets, the background
+// pairs; accumulators in shared memory, which keeps a thread within the
+// 128 registers of 16 warps). V=8, A=5 is 16 units, one per warp; with
+// more units than 16 the block takes them in rounds, each a pass over the
+// slots. The products (logprod.cuh) end in one log per lane and a fixed
+// warp-shuffle butterfly: no atomics, so runs give identical bits. Shapes,
+// V, A, C, a0_sep, sym_a and expand are runtime arguments; only MAXV (8 or
+// 20) and CH are compile-time.
 //
 // Build without --use_fast_math: log must be the accurate f64 one.
 
@@ -55,10 +67,8 @@ using dmx::PJ;
 using dmx::PK;
 
 constexpr int kSmemMax = 190 * 1024;  // with ~31 KB of static shared memory
-// Warps per block: 16 for 16-channel patches (each thread up to 128
-// registers), 8 for 32-channel ones.
-constexpr int kMaxWarps = 32 * 8 / (PJ * PK);
-constexpr int kX = PJ * PK / 4;  // the most extra channels a unit carries
+constexpr int kMaxWarps = 16;  // each thread up to 128 registers
+constexpr int kX = 4;          // the most extra channels a unit carries
 
 // the extra channels' kinds: separable factor d, genotype sum gs, singlet,
 // background pair
@@ -304,11 +314,14 @@ int launch(Params p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The chunk a launch stages: 64 slots, or 16 where 64 would not fit.
+// The chunk a launch stages: 128 slots, or less where that does not fit
+// (V <= 8: 16, for grids of hundreds of alphas; V <= 20: 64); 0 if it
+// takes no launch.
 int chunk_for(const Params& p) {
-  if (smem_bytes(p, 64) <= kSmemMax) return 64;
-  if (smem_bytes(p, 16) <= kSmemMax) return 16;
-  return 0;
+  if (p.V > 20) return 0;
+  if (smem_bytes(p, 128) <= kSmemMax) return 128;
+  const int ch = p.V <= 8 ? 16 : 64;
+  return smem_bytes(p, ch) <= kSmemMax ? ch : 0;
 }
 
 bool aligned16(const void* ptr) {
@@ -367,10 +380,9 @@ int dmx_pair_exact(const double* t, const double* g, const double* gl,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (V <= 8) {
-    return ch == 64 ? launch<8, 64>(p, B, st) : launch<8, 16>(p, B, st);
+    return ch == 128 ? launch<8, 128>(p, B, st) : launch<8, 16>(p, B, st);
   }
-  if (V <= 20 && ch == 64) return launch<20, 64>(p, B, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return ch == 128 ? launch<20, 128>(p, B, st) : launch<20, 64>(p, B, st);
 }
 
 const char* dmx_cuda_error_string(int code) {

@@ -22,23 +22,37 @@
 // (1, 0, 0), so its inner value is exactly 1 and leaves the product as it
 // was.
 //
-// What limits it on this card: STEPS_NOTE
+// What limits it on this card: the function reads 3V + the used t channels
+// (doubles) per slot and spends a 3-term dot and a multiply per (j, k,
+// alpha) channel per slot: bytes bound it at V=32, A=2 (0.54 ms at B=2048,
+// S=1024) and f64 operations at A=5 (1.70 ms). PR 4's kernel took an f64
+// log per channel per slot and re-read the tile's g_k rows through L1/L2
+// from each of the tile's rows. Step by step at V=32, A=2, B=2048, S=1024
+// (chip_steps.py; H100 80GB HBM3, 700 W): 10.43 ms; products in place of
+// logs 8.04; slot chunks staged in shared memory (1 x 8 patches) 6.57;
+// 4 x 8 patches 3.95; the branch-free step 3.66; 4 x 4 patches at 16 warps
+// 2.70, 5.0x the bound. What bounds it now is the arithmetic at the
+// occupancy its registers allow: staging alone takes 0.89 ms, the patches
+// alone 2.36 (chip_steps.py with DMX_PROBE); a channel's step is a dot, a
+// multiply and ~7 integer operations, which run at half rate, on 16 warps
+// of 127 registers per SM.
 //
 // What the design does about it (stage.cuh): one block owns one (cell,
-// item) and streams the cell's slots in chunks of 64 through two
+// item) and streams the cell's slots in chunks of 128 through two
 // shared-memory stages (cp.async; chunk c + 1 lands while chunk c is
 // computed): the tile's j rows, its k rows (once, on diagonal tiles) and
-// the 9 t rows of the alphas in flight. Each warp owns one 4 x 8 patch of
-// (j, k) channels of one alpha, its lanes over slots; per slot a thread
-// loads 4 g_j rows, 9 t values and 8 g_k rows from shared memory for 32
-// channels (1.4 loads per channel, against ~3.7 through L1/L2 before). A
-// 16 x 16 tile is 8 patches per alpha: with more alphas than that, the
-// block takes them in rounds, each a pass over the slots. The products end
-// in one log per lane and a fixed warp-shuffle butterfly: no atomics, so
-// runs give identical bits. Blocks of one cell are adjacent in the grid, so
-// the cell's rows come from HBM about once and then from L2. Shapes, V, A,
-// the tile list and expand are runtime arguments; the tile extent KT (8 or
-// 16) is compile-time.
+// the 9 t rows of the alphas in flight, each read from L2 once per block.
+// Each warp owns one 4 x 4 patch of (j, k) channels of one alpha, its lanes
+// over slots; per slot a thread loads 4 g_j rows, 9 t values and 4 g_k rows
+// from shared memory for 16 channels (2.1 loads per channel, against ~3.7
+// through L1/L2 before). A 16 x 16 tile is 16 patches per alpha, one per
+// warp: with more alphas than that, the block takes them in rounds, each a
+// pass over the slots. The products (logprod.cuh) end in one log per lane
+// and a fixed warp-shuffle butterfly: no atomics, so runs give identical
+// bits. Blocks of one cell are adjacent in the grid, so the cell's rows come
+// from HBM about once and then from L2. Shapes, V, A, the tile list and
+// expand are runtime arguments; the tile extent KT (8 or 16) is
+// compile-time.
 //
 // Build without --use_fast_math: log must be the accurate f64 one.
 
@@ -52,11 +66,11 @@ namespace {
 using dmx::PJ;
 using dmx::PK;
 
-// Warps per block: one per patch of a 16 x 16 tile's alpha (16 patches
-// of 4 x 4, each thread up to 128 registers), at most 16.
-constexpr int kWarps = (16 / PJ) * (16 / PK) < 16 ? (16 / PJ) * (16 / PK) : 16;
+// Warps per block: one per patch of a 16 x 16 tile's alpha (each thread
+// up to 128 registers).
+constexpr int kWarps = (16 / PJ) * (16 / PK);
 constexpr int kItem = 5;  // ints per item: j0, k0, a_begin, a_count, sym
-constexpr int kChunk = 64;
+constexpr int kChunk = 128;  // 6% faster than 64 (PERF.md, PR 5)
 
 struct Params {
   const double* t;    // (C, B, S)
@@ -77,7 +91,12 @@ struct Tile {
   static_assert(KT % PJ == 0 && KT % PK == 0, "patches must tile KT");
   static constexpr int kNk = KT / PK;
   static constexpr int kPatches = (KT / PJ) * kNk;
-  static constexpr int kRoundAlphas = (kWarps + kPatches - 1) / kPatches + 1;
+  // a round's units are kWarps consecutive ones, alpha-major: it touches
+  // kWarps / kPatches alphas, or one
+  static_assert(kWarps % kPatches == 0 || kPatches % kWarps == 0,
+                "rounds must not straddle alphas unevenly");
+  static constexpr int kRoundAlphas =
+      kWarps > kPatches ? kWarps / kPatches : 1;
   static constexpr int kRows = 6 * KT + 9 * kRoundAlphas;
   static constexpr int kSmem =
       2 * kRows * kChunk * sizeof(double) + kRows * sizeof(const double*);

@@ -21,12 +21,6 @@
 
 #include "logprod.cuh"
 
-#ifndef DMX_PJ
-#define DMX_PJ 4
-#endif
-#ifndef DMX_PK
-#define DMX_PK 4
-#endif
 // Measurement probes (chip_steps.py), never in a build of the kernels'
 // results: 1 stages every chunk and computes nothing; 2 stages the first
 // chunk once and computes on it for every chunk.
@@ -36,11 +30,11 @@
 
 namespace dmx {
 
-// The patch of one thread: PJ j rows x PK k rows (at most 32 channels, one
-// bit each in a channel mask).
-constexpr int PJ = DMX_PJ;
-constexpr int PK = DMX_PK;
-static_assert(PJ * PK <= 32, "a patch has at most 32 channels");
+// The patch of one thread: PJ j rows x PK k rows, one bit each in a
+// channel mask. 4 x 4 at 16 warps (~128 registers a thread) beat 4 x 8 at
+// 8 warps (~190) by 26% on K7' (PERF.md, PR 5).
+constexpr int PJ = 4;
+constexpr int PK = 4;
 
 __host__ __device__ constexpr int cmax(int a, int b) {
   return a > b ? a : b;
@@ -126,8 +120,8 @@ __device__ __forceinline__ void stream_chunks(double* smem,
 // One chunk of a patch, n slots at `stage`: g_j rows at stage rows
 // gj + 3 dj + l, g_k rows at gk + 3 dk + l, the alpha's t rows at stage
 // element offsets to[0..8] ((l, m) order; in registers or in shared
-// memory). kGuard: only the channels whose
-// bit (dj * PK + dk) is set in act are updated (ragged edge, triangle).
+// memory). kGuard: only the channels whose bit (dj * PK + dk) is set in
+// act are updated (ragged edge, triangle).
 template <int CH, bool kGuard, int N>
 __device__ __forceinline__ void patch_chunk(const double* stage, int n,
                                             int gj, int gk,

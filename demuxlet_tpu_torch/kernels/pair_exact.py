@@ -1,16 +1,19 @@
 """ctypes wrapper of K3' (``csrc/pair_exact.cu``), the Hopper port of
 ``demuxlet_tpu/ops/pallas_pair_exact.py::_pair_kernel_df``.
 
-Cost on this card: per slot the kernel reads 3V + 6 + C doubles and
-spends about V*V*A f64 logs, on the f64 pipes; the function needs one log
-per channel per cell, so its bound is the bytes. Design: K1's
-(one block per cell looping over its slots, warps over (j, alpha) rows,
-lanes over slots, sums in registers and a fixed warp-shuffle reduction, so
-runs are bit-reproducible), in f64, with the singlet row as one more task.
-See the source for details.
+Cost on this card: per slot the function reads 3V + 6 + C doubles and
+spends a 3-term dot and a multiply per channel, so its bound is the bytes
+(0.24 ms at B=2048, S=1024, V=8, A=5). Design: one block per cell streams
+its slots through shared memory in chunks (``csrc/stage.cuh``); each warp
+owns a 4 x 4 patch of (j, k) channels of one alpha and up to 4 of the
+O(V) channels; each channel keeps a product with exponent tracking and
+takes one log per lane (``csrc/logprod.cuh``), then a fixed warp-shuffle
+reduction, so runs are bit-reproducible. 1.23 ms at that shape on an H100
+80GB HBM3 at 700 W (6.48 ms for PR 4's log-per-slot kernel; PERF.md). See
+the source for details.
 
-The wrapper validates its inputs, allocates the outputs with
-``torch.empty``, launches on the current stream without synchronising,
+The wrapper validates its inputs (including that the shared-memory stages
+fit: ``smem_bytes``), allocates the outputs with ``torch.empty``, launches on the current stream without synchronising,
 raises if ``cudaGetLastError`` is not 0, and counts launches in
 ``launches``.
 """

@@ -1,12 +1,18 @@
 """ctypes wrapper of K7' (``csrc/pair_tiled_exact.cu``), the Hopper port of
 ``demuxlet_tpu/ops/pallas_pair_exact.py::_pair_kernel_df_tiled``.
 
-Cost on this card: one f64 log per (j, k, alpha) channel per slot, on the
-SMs' f64 pipes; the function needs one log per channel per cell, so its
-bound is far lower (bytes at V=32, A=2). Design: K3''s layout over one (cell, tile) per block (warps
-over (j, alpha) rows, lanes over slots, the tile's k sums in registers and
-a fixed warp-shuffle reduction, so runs are bit-reproducible), the
-symmetric plane on upper-triangle tiles and mirrored. See the source.
+Cost on this card: per slot the function reads 3V + the used t channels
+and spends a 3-term dot and a multiply per (j, k, alpha) channel: bytes
+bound it at V=32, A=2, operations at A=5. Design: one block per (cell,
+tile) streams the cell's slots through shared memory in chunks
+(``csrc/stage.cuh``: the tile's j and k rows and its alphas' t rows); each
+warp owns a 4 x 4 patch of (j, k) channels of one alpha; each channel
+keeps a product with exponent tracking and takes one log per lane
+(``csrc/logprod.cuh``), then a fixed warp-shuffle reduction, so runs are
+bit-reproducible; the symmetric plane runs on upper-triangle tiles and is
+mirrored. 2.70 ms at B=2048, S=1024, V=32, A=2 on an H100 80GB HBM3 at
+700 W, 5.0x its bound (10.43 ms for PR 4's log-per-slot kernel; PERF.md).
+See the source.
 
 The wrapper validates its inputs, allocates the output with
 ``torch.zeros`` (the separable alpha == 0 plane, which no tile writes,
