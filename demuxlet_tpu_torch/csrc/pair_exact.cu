@@ -33,10 +33,10 @@
 // step at V=8, A=5, B=2048, S=1024 (chip_steps.py; H100 80GB HBM3, 700 W):
 // 6.48 ms; products in place of logs 5.06; slot chunks staged in shared
 // memory (1 x 8 patches) 1.71; 4 x 8 patches 1.61; 4 x 4 patches at 16
-// warps with the O(V) channels spread over the patch warps 1.23, 5.1x the
-// bound. What bounds it now is the arithmetic at the occupancy its
-// registers allow: staging alone takes 0.32 ms, the units alone 1.09
-// (chip_steps.py with DMX_PROBE).
+// warps with the O(V) channels spread over the patch warps 1.23; chunks of
+// 128 slots 1.19, 4.9x the bound. What bounds it now is the arithmetic at
+// the occupancy its registers allow: staging alone takes 0.37 ms, the units
+// alone 1.11 (chip_steps.py with DMX_PROBE).
 //
 // What the design does about it (stage.cuh): one block owns one cell and
 // streams its slots in chunks of CH (128; less on grids with hundreds of

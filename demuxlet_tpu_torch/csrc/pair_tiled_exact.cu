@@ -31,11 +31,11 @@
 // (chip_steps.py; H100 80GB HBM3, 700 W): 10.43 ms; products in place of
 // logs 8.04; slot chunks staged in shared memory (1 x 8 patches) 6.57;
 // 4 x 8 patches 3.95; the branch-free step 3.66; 4 x 4 patches at 16 warps
-// 2.70, 5.0x the bound. What bounds it now is the arithmetic at the
-// occupancy its registers allow: staging alone takes 0.89 ms, the patches
-// alone 2.36 (chip_steps.py with DMX_PROBE); a channel's step is a dot, a
-// multiply and ~7 integer operations, which run at half rate, on 16 warps
-// of 127 registers per SM.
+// 2.70; chunks of 128 slots 2.54, 4.7x the bound. What bounds it now is the
+// arithmetic at the occupancy its registers allow: staging alone takes
+// 0.80 ms, the patches alone 2.23 (chip_steps.py with DMX_PROBE); a
+// channel's step is a dot, a multiply and ~7 integer operations, which run
+// at half rate, on 16 warps of 127 registers per SM.
 //
 // What the design does about it (stage.cuh): one block owns one (cell,
 // item) and streams the cell's slots in chunks of 128 through two

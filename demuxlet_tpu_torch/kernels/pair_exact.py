@@ -8,7 +8,7 @@ its slots through shared memory in chunks (``csrc/stage.cuh``); each warp
 owns a 4 x 4 patch of (j, k) channels of one alpha and up to 4 of the
 O(V) channels; each channel keeps a product with exponent tracking and
 takes one log per lane (``csrc/logprod.cuh``), then a fixed warp-shuffle
-reduction, so runs are bit-reproducible. 1.23 ms at that shape on an H100
+reduction, so runs are bit-reproducible. 1.19 ms at that shape on an H100
 80GB HBM3 at 700 W (6.48 ms for PR 4's log-per-slot kernel; PERF.md). See
 the source for details.
 

@@ -10,8 +10,8 @@ warp owns a 4 x 4 patch of (j, k) channels of one alpha; each channel
 keeps a product with exponent tracking and takes one log per lane
 (``csrc/logprod.cuh``), then a fixed warp-shuffle reduction, so runs are
 bit-reproducible; the symmetric plane runs on upper-triangle tiles and is
-mirrored. 2.70 ms at B=2048, S=1024, V=32, A=2 on an H100 80GB HBM3 at
-700 W, 5.0x its bound (10.43 ms for PR 4's log-per-slot kernel; PERF.md).
+mirrored. 2.54 ms at B=2048, S=1024, V=32, A=2 on an H100 80GB HBM3 at
+700 W, 4.7x its bound (10.43 ms for PR 4's log-per-slot kernel; PERF.md).
 See the source.
 
 The wrapper validates its inputs, allocates the output with
