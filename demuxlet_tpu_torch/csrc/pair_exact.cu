@@ -228,7 +228,7 @@ pair_exact_kernel(Params p) {
                             xmasks + threadIdx.x, T};
     acc.init();
     xacc.init();
-    dmx::stream_chunks<CH>(
+    dmx::stream_chunks<CH, double>(
         smem, rows, R, S, p.vec, [&](const double* stage, int n) {
           // the alpha's t offsets are read from shared memory each slot
           dmx::patch_chunk_any<CH>(stage, n, 3 * jb, 3 * kb, erow + a * 9,

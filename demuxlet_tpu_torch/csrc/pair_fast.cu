@@ -42,6 +42,8 @@
 
 #include <cuda_runtime.h>
 
+#include "logprod.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -99,10 +101,10 @@ pair_fast_kernel(Params p) {
   const int n_tasks = n_pair + 2 * p.a0_sep;
 
   for (int task = warp; task < n_tasks; task += kWarps) {
-    float acc[MAXV];
-#pragma unroll
-    for (int i = 0; i < MAXV; ++i) acc[i] = 0.f;
-    float acc_bg = 0.f;
+    // accumulators 0..MAXV-1: the row's k (or j) channels; MAXV: the
+    // background channel
+    dmx::Acc<MAXV + 1, float> acc;
+    acc.init();
     if (task < n_pair) {
       const int j = task / nac;
       const int a = p.a0_sep + task % nac;
@@ -111,41 +113,60 @@ pair_fast_kernel(Params p) {
       int e[9];
 #pragma unroll
       for (int i = 0; i < 9; ++i) e[i] = p.expand[a * 9 + i];
-      for (int s = lane; s < S; s += 32) {
-        float gj[3];
-        if (bg) {
-          background_row<MAXV>(g + s, plane, V, inv_v, gj);
-        } else {
+      for (int s0 = 0; s0 < S; s0 += 32) {
+        const int s = s0 + lane;
+        const bool live = s < S;
+        float gj[3], u[3];
+        bool bad = false;
+        if (live) {
+          if (bg) {
+            background_row<MAXV>(g + s, plane, V, inv_v, gj);
+          } else {
 #pragma unroll
-          for (int l = 0; l < 3; ++l) gj[l] = g[(j * 3 + l) * plane + s];
+            for (int l = 0; l < 3; ++l) gj[l] = g[(j * 3 + l) * plane + s];
+          }
+#pragma unroll
+          for (int m = 0; m < 3; ++m) {
+            u[m] = gj[0] * t[e[m] * plane + s] +
+                   gj[1] * t[e[3 + m] * plane + s] +
+                   gj[2] * t[e[6 + m] * plane + s];
+          }
+          if (bg) {
+            bad = !acc.step(MAXV, gj[0] * u[0] + gj[1] * u[1] + gj[2] * u[2]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < MAXV; ++k) {
+              if (k < V && k >= k_lo) {
+                const float* gk = g + (k * 3) * plane + s;
+                bad |= !acc.step(k, gk[0] * u[0] + gk[plane] * u[1] +
+                                        gk[2 * plane] * u[2]);
+              }
+            }
+          }
         }
-        float u[3];
+        if (__any_sync(0xffffffffu, bad) && live) {
+          if (bg) {
+            acc.fix(MAXV, gj[0] * u[0] + gj[1] * u[1] + gj[2] * u[2]);
+          } else {
 #pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          u[m] = gj[0] * t[e[m] * plane + s] + gj[1] * t[e[3 + m] * plane + s] +
-                 gj[2] * t[e[6 + m] * plane + s];
-        }
-        if (bg) {
-          acc_bg += logf(gj[0] * u[0] + gj[1] * u[1] + gj[2] * u[2]);
-        } else {
-#pragma unroll
-          for (int k = 0; k < MAXV; ++k) {
-            if (k < V && k >= k_lo) {
-              const float* gk = g + (k * 3) * plane + s;
-              acc[k] += logf(gk[0] * u[0] + gk[plane] * u[1] +
-                             gk[2 * plane] * u[2]);
+            for (int k = 0; k < MAXV; ++k) {
+              if (k < V && k >= k_lo) {
+                const float* gk = g + (k * 3) * plane + s;
+                acc.fix(k, gk[0] * u[0] + gk[plane] * u[1] +
+                               gk[2 * plane] * u[2]);
+              }
             }
           }
         }
       }
       if (bg) {
-        const float v = warp_sum(acc_bg);
+        const float v = static_cast<float>(dmx::warp_sum(acc.log_sum(MAXV)));
         if (lane == 0) out_00[a] = v;
       } else {
 #pragma unroll
         for (int k = 0; k < MAXV; ++k) {
           if (k < V && k >= k_lo) {
-            const float v = warp_sum(acc[k]);
+            const float v = static_cast<float>(dmx::warp_sum(acc.log_sum(k)));
             if (lane == 0) {
               out_ab[(j * V + k) * A + a] = v;
               if (a == p.sym_a && k > j) out_ab[(k * V + j) * A + a] = v;
@@ -158,45 +179,65 @@ pair_fast_kernel(Params p) {
       // gsum[k] = g[k,0] + g[k,1] + g[k,2]; the background row rides along
       const bool is_d = task == n_pair;
       const int e0 = p.expand[0], e3 = p.expand[3], e6 = p.expand[6];
-      for (int s = lane; s < S; s += 32) {
+      for (int s0 = 0; s0 < S; s0 += 32) {
+        const int s = s0 + lane;
+        const bool live = s < S;
         float t0 = 0.f, t3 = 0.f, t6 = 0.f;
-        if (is_d) {
-          t0 = t[e0 * plane + s];
-          t3 = t[e3 * plane + s];
-          t6 = t[e6 * plane + s];
-        }
-        float sum0 = 0.f, sum1 = 0.f, sum2 = 0.f;
-#pragma unroll
-        for (int j = 0; j < MAXV; ++j) {
-          if (j < V) {
-            const float* gj = g + (j * 3) * plane + s;
-            const float g0v = gj[0], g1v = gj[plane], g2v = gj[2 * plane];
-            if (j == 0) {
-              sum0 = g0v;
-              sum1 = g1v;
-              sum2 = g2v;
-            } else {
-              sum0 = sum0 + g0v;
-              sum1 = sum1 + g1v;
-              sum2 = sum2 + g2v;
-            }
-            acc[j] += is_d ? logf(g0v * t0 + g1v * t3 + g2v * t6)
-                           : logf(g0v + g1v + g2v);
+        float b0 = 0.f, b1 = 0.f, b2 = 0.f;
+        bool bad = false;
+        if (live) {
+          if (is_d) {
+            t0 = t[e0 * plane + s];
+            t3 = t[e3 * plane + s];
+            t6 = t[e6 * plane + s];
           }
+          float sum0 = 0.f, sum1 = 0.f, sum2 = 0.f;
+#pragma unroll
+          for (int j = 0; j < MAXV; ++j) {
+            if (j < V) {
+              const float* gj = g + (j * 3) * plane + s;
+              const float g0v = gj[0], g1v = gj[plane], g2v = gj[2 * plane];
+              if (j == 0) {
+                sum0 = g0v;
+                sum1 = g1v;
+                sum2 = g2v;
+              } else {
+                sum0 = sum0 + g0v;
+                sum1 = sum1 + g1v;
+                sum2 = sum2 + g2v;
+              }
+              bad |= !acc.step(j, is_d ? g0v * t0 + g1v * t3 + g2v * t6
+                                       : g0v + g1v + g2v);
+            }
+          }
+          b0 = sum0 * inv_v;
+          b1 = sum1 * inv_v;
+          b2 = sum2 * inv_v;
+          bad |= !acc.step(MAXV, is_d ? b0 * t0 + b1 * t3 + b2 * t6
+                                      : b0 + b1 + b2);
         }
-        const float b0 = sum0 * inv_v, b1 = sum1 * inv_v, b2 = sum2 * inv_v;
-        acc_bg += is_d ? logf(b0 * t0 + b1 * t3 + b2 * t6)
-                       : logf(b0 + b1 + b2);
+        if (__any_sync(0xffffffffu, bad) && live) {
+#pragma unroll
+          for (int j = 0; j < MAXV; ++j) {
+            if (j < V) {
+              const float* gj = g + (j * 3) * plane + s;
+              const float g0v = gj[0], g1v = gj[plane], g2v = gj[2 * plane];
+              acc.fix(j, is_d ? g0v * t0 + g1v * t3 + g2v * t6
+                              : g0v + g1v + g2v);
+            }
+          }
+          acc.fix(MAXV, is_d ? b0 * t0 + b1 * t3 + b2 * t6 : b0 + b1 + b2);
+        }
       }
       const int r = is_d ? 0 : 1;
 #pragma unroll
       for (int j = 0; j < MAXV; ++j) {
         if (j < V) {
-          const float v = warp_sum(acc[j]);
+          const float v = static_cast<float>(dmx::warp_sum(acc.log_sum(j)));
           if (lane == 0) sep[r][j] = v;
         }
       }
-      const float v = warp_sum(acc_bg);
+      const float v = static_cast<float>(dmx::warp_sum(acc.log_sum(MAXV)));
       if (lane == 0) sep[r][MAXV] = v;
     }
   }

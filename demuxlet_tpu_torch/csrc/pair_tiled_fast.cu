@@ -44,6 +44,8 @@
 
 #include <cuda_runtime.h>
 
+#include "logprod.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -91,25 +93,40 @@ pair_tiled_fast_kernel(Params p) {
     int e[9];
 #pragma unroll
     for (int i = 0; i < 9; ++i) e[i] = p.expand[a * 9 + i];
-    float acc[KT];
-#pragma unroll
-    for (int i = 0; i < KT; ++i) acc[i] = 0.f;
+    dmx::Acc<KT, float> acc;
+    acc.init();
     const float* gj = g + (3LL * j) * plane;
-    for (int s = lane; s < S; s += 32) {
-      const float gj0 = gj[s], gj1 = gj[plane + s], gj2 = gj[2 * plane + s];
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      const int s = s0 + lane;
+      const bool live = s < S;
       float u[3];
+      bool bad = false;
+      if (live) {
+        const float gj0 = gj[s], gj1 = gj[plane + s], gj2 = gj[2 * plane + s];
 #pragma unroll
-      for (int m = 0; m < 3; ++m) {
-        u[m] = gj0 * t[e[m] * plane + s] + gj1 * t[e[3 + m] * plane + s] +
-               gj2 * t[e[6 + m] * plane + s];
+        for (int m = 0; m < 3; ++m) {
+          u[m] = gj0 * t[e[m] * plane + s] + gj1 * t[e[3 + m] * plane + s] +
+                 gj2 * t[e[6 + m] * plane + s];
+        }
+#pragma unroll
+        for (int dk = 0; dk < KT; ++dk) {
+          const int k = k0 + dk;
+          if (k < V && (!sym || k >= j)) {
+            const float* gk = gk0 + (3LL * dk) * plane + s;
+            bad |= !acc.step(dk, gk[0] * u[0] + gk[plane] * u[1] +
+                                     gk[2 * plane] * u[2]);
+          }
+        }
       }
+      if (__any_sync(0xffffffffu, bad) && live) {
 #pragma unroll
-      for (int dk = 0; dk < KT; ++dk) {
-        const int k = k0 + dk;
-        if (k < V && (!sym || k >= j)) {
-          const float* gk = gk0 + (3LL * dk) * plane + s;
-          acc[dk] += logf(gk[0] * u[0] + gk[plane] * u[1] +
-                          gk[2 * plane] * u[2]);
+        for (int dk = 0; dk < KT; ++dk) {
+          const int k = k0 + dk;
+          if (k < V && (!sym || k >= j)) {
+            const float* gk = gk0 + (3LL * dk) * plane + s;
+            acc.fix(dk, gk[0] * u[0] + gk[plane] * u[1] +
+                            gk[2 * plane] * u[2]);
+          }
         }
       }
     }
@@ -117,7 +134,7 @@ pair_tiled_fast_kernel(Params p) {
     for (int dk = 0; dk < KT; ++dk) {
       const int k = k0 + dk;
       if (k < V && (!sym || k >= j)) {
-        const float v = warp_sum(acc[dk]);
+        const float v = static_cast<float>(dmx::warp_sum(acc.log_sum(dk)));
         if (lane == 0) {
           out[(j * V + k) * A + a] = v;
           if (sym && k > j) out[(k * V + j) * A + a] = v;

@@ -1,13 +1,15 @@
 // Slot chunks staged in shared memory, and the (j, k) accumulator patch
-// that reads them: the common core of the exact pair kernels K3'
-// (pair_exact.cu) and K7' (pair_tiled_exact.cu).
+// that reads them: the common core of the pair kernels, in f64 (K3'
+// pair_exact.cu, K7' pair_tiled_exact.cu) and in f32 (K1 pair_fast.cu, K5'
+// pair_tiled_fast.cu).
 //
 // A block streams its cell's S slots through two shared-memory stages of
-// n_rows x CH doubles (row r of a stage: slots [s0, s0 + CH) of one global
-// row; rows of one cell are contiguous in the (rows, B, S) layout). The copy
-// of chunk c + 1 is in flight (cp.async, 16 bytes where the rows allow it)
-// while the block computes on chunk c. Each warp reads the stage with its
-// lanes over slots: 32 consecutive doubles per load, no bank conflict.
+// n_rows x CH values of the scalar type F (row r of a stage: slots
+// [s0, s0 + CH) of one global row; rows of one cell are contiguous in the
+// (rows, B, S) layout). The copy of chunk c + 1 is in flight (cp.async, 16
+// bytes where the rows allow it: 2 doubles or 4 floats) while the block
+// computes on chunk c. Each warp reads the stage with its lanes over slots:
+// 32 consecutive values per load, no bank conflict.
 //
 // A patch is PJ j rows x PK k rows of one alpha in one thread: per slot it
 // loads PJ g_j rows, the 9 t values of the alpha and PK g_k rows, forms
@@ -28,28 +30,36 @@
 #define DMX_PROBE 0
 #endif
 
+// The patch's k extent, 4 unless a measurement build (chip_steps.py) asks
+// for another.
+#ifndef DMX_PK
+#define DMX_PK 4
+#endif
+
 namespace dmx {
 
 // The patch of one thread: PJ j rows x PK k rows, one bit each in a
 // channel mask. 4 x 4 at 16 warps (~128 registers a thread) beat 4 x 8 at
 // 8 warps (~190) by 26% on K7' (PERF.md, PR 5).
 constexpr int PJ = 4;
-constexpr int PK = 4;
+constexpr int PK = DMX_PK;
 
 __host__ __device__ constexpr int cmax(int a, int b) {
   return a > b ? a : b;
 }
 
-__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+// cp.async of one value of BYTES (4 or 8; through L1) or of 16 bytes
+// (bypassing L1)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES));
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -62,39 +72,44 @@ __device__ __forceinline__ void cp_async_wait1() {
 
 // Copies slots [s0, s0 + n) of rows[0 .. n_rows) into buf (row r at
 // buf + r * CH); a null row is skipped. vec: every row pointer and s0 are
-// 16-byte aligned, so pairs of slots go as one 16-byte copy.
-template <int CH>
-__device__ __forceinline__ void stage_chunk(double* buf,
-                                            const double* const* rows,
+// 16-byte aligned, so runs of 16 / sizeof(F) slots go as one 16-byte copy.
+template <int CH, class F>
+__device__ __forceinline__ void stage_chunk(F* buf, const F* const* rows,
                                             int n_rows, int s0, int n,
                                             bool vec) {
   if (vec) {
-    constexpr int H = CH / 2;
+    constexpr int W = 16 / static_cast<int>(sizeof(F));
+    constexpr int H = CH / W;
+    static_assert(CH % W == 0, "whole 16-byte copies per chunk row");
     for (int i = threadIdx.x; i < n_rows * H; i += blockDim.x) {
-      const int r = i / H, c = 2 * (i % H);
-      const double* src = rows[r];
+      const int r = i / H, c = W * (i % H);
+      const F* src = rows[r];
       if (src == nullptr || c >= n) continue;
-      if (c + 1 < n) {
-        cp_async16(buf + r * CH + c, src + s0 + c);
+      if (c + W <= n) {
+        cp_async<16>(buf + r * CH + c, src + s0 + c);
       } else {
-        cp_async8(buf + r * CH + c, src + s0 + c);
+        for (int q = c; q < n; ++q) {
+          cp_async<sizeof(F)>(buf + r * CH + q, src + s0 + q);
+        }
       }
     }
   } else {
     for (int i = threadIdx.x; i < n_rows * CH; i += blockDim.x) {
       const int r = i / CH, c = i % CH;
-      const double* src = rows[r];
-      if (src != nullptr && c < n) cp_async8(buf + i, src + s0 + c);
+      const F* src = rows[r];
+      if (src != nullptr && c < n) {
+        cp_async<sizeof(F)>(buf + i, src + s0 + c);
+      }
     }
   }
 }
 
-// Streams S slots through the two stages at smem (2 x n_rows x CH doubles)
+// Streams S slots through the two stages at smem (2 x n_rows x CH values)
 // and calls body(stage, n) on every thread once per chunk, n its slots,
 // between barriers. Every thread of the block must call it.
-template <int CH, class Body>
-__device__ __forceinline__ void stream_chunks(double* smem,
-                                              const double* const* rows,
+template <int CH, class F, class Body>
+__device__ __forceinline__ void stream_chunks(F* smem,
+                                              const F* const* rows,
                                               int n_rows, int S, bool vec,
                                               Body body) {
   const int n_ch = (S + CH - 1) / CH;
@@ -122,23 +137,22 @@ __device__ __forceinline__ void stream_chunks(double* smem,
 // element offsets to[0..8] ((l, m) order; in registers or in shared
 // memory). kGuard: only the channels whose bit (dj * PK + dk) is set in
 // act are updated (ragged edge, triangle).
-template <int CH, bool kGuard, int N>
-__device__ __forceinline__ void patch_chunk(const double* stage, int n,
-                                            int gj, int gk,
-                                            const int* to, unsigned act,
-                                            Acc<N>& a) {
+template <int CH, bool kGuard, int N, class F>
+__device__ __forceinline__ void patch_chunk(const F* stage, int n, int gj,
+                                            int gk, const int* to,
+                                            unsigned act, Acc<N, F>& a) {
   static_assert(N >= PJ * PK, "the patch's accumulators");
-  const double* pj = stage + gj * CH;
-  const double* pk = stage + gk * CH;
+  const F* pj = stage + gj * CH;
+  const F* pk = stage + gk * CH;
 #pragma unroll 1
   for (int s0 = 0; s0 < n; s0 += 32) {
     const int s = s0 + (threadIdx.x & 31);
     const bool live = s < n;
-    double u[PJ][3];
+    F u[PJ][3];
     bool bad = false;
     if (live) {
       // U one column m at a time: 3 t values live, not 9
-      double gv[PJ][3];
+      F gv[PJ][3];
 #pragma unroll
       for (int dj = 0; dj < PJ; ++dj) {
 #pragma unroll
@@ -146,8 +160,8 @@ __device__ __forceinline__ void patch_chunk(const double* stage, int n,
       }
 #pragma unroll
       for (int m = 0; m < 3; ++m) {
-        const double t0 = stage[to[m] + s], t1 = stage[to[3 + m] + s],
-                     t2 = stage[to[6 + m] + s];
+        const F t0 = stage[to[m] + s], t1 = stage[to[3 + m] + s],
+                t2 = stage[to[6 + m] + s];
 #pragma unroll
         for (int dj = 0; dj < PJ; ++dj) {
           u[dj][m] = gv[dj][0] * t0 + gv[dj][1] * t1 + gv[dj][2] * t2;
@@ -155,9 +169,9 @@ __device__ __forceinline__ void patch_chunk(const double* stage, int n,
       }
 #pragma unroll
       for (int dk = 0; dk < PK; ++dk) {
-        const double k0 = pk[(3 * dk) * CH + s];
-        const double k1 = pk[(3 * dk + 1) * CH + s];
-        const double k2 = pk[(3 * dk + 2) * CH + s];
+        const F k0 = pk[(3 * dk) * CH + s];
+        const F k1 = pk[(3 * dk + 1) * CH + s];
+        const F k2 = pk[(3 * dk + 2) * CH + s];
 #pragma unroll
         for (int dj = 0; dj < PJ; ++dj) {
           if (!kGuard || ((act >> (dj * PK + dk)) & 1u)) {
@@ -171,9 +185,9 @@ __device__ __forceinline__ void patch_chunk(const double* stage, int n,
     if (__any_sync(0xffffffffu, bad) && live) {
 #pragma unroll
       for (int dk = 0; dk < PK; ++dk) {
-        const double k0 = pk[(3 * dk) * CH + s];
-        const double k1 = pk[(3 * dk + 1) * CH + s];
-        const double k2 = pk[(3 * dk + 2) * CH + s];
+        const F k0 = pk[(3 * dk) * CH + s];
+        const F k1 = pk[(3 * dk + 1) * CH + s];
+        const F k2 = pk[(3 * dk + 2) * CH + s];
 #pragma unroll
         for (int dj = 0; dj < PJ; ++dj) {
           if (!kGuard || ((act >> (dj * PK + dk)) & 1u)) {
@@ -205,11 +219,11 @@ constexpr unsigned kFullPatch =
     PJ * PK == 32 ? 0xffffffffu : (1u << (PJ * PK)) - 1u;
 
 // Runs patch_chunk with or without the guard, as the mask needs.
-template <int CH, int N>
-__device__ __forceinline__ void patch_chunk_any(const double* stage, int n,
+template <int CH, int N, class F>
+__device__ __forceinline__ void patch_chunk_any(const F* stage, int n,
                                                 int gj, int gk,
                                                 const int* to, unsigned act,
-                                                Acc<N>& a) {
+                                                Acc<N, F>& a) {
   if (act == kFullPatch) {
     patch_chunk<CH, false>(stage, n, gj, gk, to, act, a);
   } else if (act != 0) {

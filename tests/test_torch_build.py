@@ -47,13 +47,15 @@ def test_digest_follows_flags_and_is_stable(csrc):
 
 def test_repo_kernels_hash_their_headers():
     """Every csrc/*.cu of the port has a digest, and it covers the shared
-    header the exact pair kernels include."""
+    headers the pair kernels include."""
+    pair = ("pair_exact", "pair_tiled_exact", "pair_fast", "pair_tiled_fast")
     names = sorted(f[:-3] for f in os.listdir(kbuild.CSRC) if f.endswith(".cu"))
-    assert {"pair_exact", "pair_tiled_exact"} <= set(names)
-    assert os.path.exists(os.path.join(kbuild.CSRC, "logprod.cuh"))
+    assert set(pair) <= set(names)
+    for header in ("logprod.cuh", "stage.cuh", "tiled.cuh"):
+        assert os.path.exists(os.path.join(kbuild.CSRC, header))
     for name in names:
         with open(os.path.join(kbuild.CSRC, name + ".cu")) as fh:
             text = fh.read()
-        if '#include "logprod.cuh"' in text:
-            assert name in ("pair_exact", "pair_tiled_exact")
+        if '.cuh"' in text:
+            assert name in pair
         assert len(kbuild.source_digest(name)) == 64
