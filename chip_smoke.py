@@ -13,9 +13,12 @@ each against its plain PyTorch version on the card. Phases, one line each:
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. nvcc build of every csrc/*.cu, one nvcc each, all started together
      (seconds per kernel; ptxas's registers, stack and spills per
-     instantiation; a spill in K3' or K7' fails);
-  3. K1 against pair_llks_plain at the main-path shapes (max relative
-     error, scale max(1, |x|), limit 2e-5; median ms of 20 launches each);
+     instantiation; a spill or a stack frame in K1, K3', K5' or K7'
+     fails);
+  3. K1 against pair_llks_plain at the main-path shapes, a V=1 pool of
+     384 alphas and the engine's deepest slot pad S = 4096 (max relative
+     error, scale max(1, |x|), limit 2e-5; two launches bit-equal, the
+     alpha == 0.5 plane exactly symmetric; median ms of 20 launches each);
   4. fast run_compact on a synthetic 20,480-cell pileup (10 blocks of
      2048), wire v2: K1 launch count == blocks, barcodes/s and phase
      seconds, and the first 2 and the last (deepest) block, with their
@@ -27,6 +30,8 @@ each against its plain PyTorch version on the card. Phases, one line each:
      (K2': t and gl within 1e-12 relative; K3': LLKs within 1e-9
      absolute, two launches bit-equal, the alpha == 0.5 plane exactly
      symmetric, its dynamic shared memory; median ms of 20 launches each);
+     and pair_exact on a V=1 pool of 200 alphas, whose t channels K3''s
+     stages cannot hold: K7' and K6' launched, K3' not, within 1e-9;
   7. exact run_compact on the same pileup: K2' and K3' launched once per
      block, barcodes/s and phase seconds, the first 2 and the last
      (deepest) block again through the plain versions on the card (floats
@@ -50,8 +55,8 @@ each against its plain PyTorch version on the card. Phases, one line each:
      parity run's;
  12. K5' (pair_tiled_fast) and K4' (extras_fast) against their plain
      versions at the shapes of phase 9: within 2e-5 relative (scale
-     max(1, |x|)), the alpha == 0.5 plane exactly symmetric; kernel ms and
-     plain ms;
+     max(1, |x|)), K5' bit-equal over two launches, the alpha == 0.5
+     plane exactly symmetric; kernel ms and plain ms;
  13. fast run_compact on the same pileup with V=32 donors on the default
      grid: K5' and K4' launched once per block and K1 never, rate, phase
      seconds, peak device memory, and the first 2 and the deepest block
@@ -677,7 +682,8 @@ def main() -> int:
         entries = ptxas_summary(kbuild.ptxas_report(lib_path))
         phase("build", kernel=name, seconds=secs,
               library=os.path.relpath(lib_path, HERE), ptxas=entries)
-        if name in ("pair_exact", "pair_tiled_exact") and any(
+        if name in ("pair_exact", "pair_tiled_exact", "pair_fast",
+                    "pair_tiled_fast") and any(
                 e.get("spill_stores", 1) or e.get("stack", 1)
                 for e in entries):
             fail(f"{name}: ptxas reports spills or a stack frame: {entries}")
@@ -696,33 +702,45 @@ def main() -> int:
 
     # ---- 3. K1 against its plain version at the main path's shapes
     rng = np.random.default_rng(0)
-    for name, B, S, grid in (
-        ("main", 2048, 1024, GRID),
-        ("default_grid", 2048, 1024, [0.0, 0.5]),
-        ("ragged", 40, 384, GRID),
+    for name, B, S, nv, grid in (
+        ("main", 2048, 1024, V, GRID),
+        ("default_grid", 2048, 1024, V, [0.0, 0.5]),
+        ("ragged", 40, 384, V, GRID),
+        # 24 rounds of 16 alphas, 1601 t channels
+        ("v1_a384", 64, 512, 1, np.linspace(0.0, 0.5, 384).tolist()),
+        ("deep", 2048, 4096, V, GRID),  # the engine's deepest slot pad
     ):
         A = len(grid)
-        t, gps_t, _, expand = pair_inputs(rng, B, S, grid, dev)
-        args = (t, gps_t, V, A, grid[0] == 0.0, grid.index(0.5), expand)
-        ab, z0 = pair_llks(*args)
+        t, gps_t, _, expand = pair_inputs(rng, B, S, grid, dev, nv)
+        args = (t, gps_t, nv, A, grid[0] == 0.0, grid.index(0.5), expand)
+        ab, z0 = [x.clone() for x in pair_llks(*args)]
+        again = pair_llks(*args)
         torch.cuda.synchronize()
         pab, pz0 = pair_llks_plain(*args)
         err = max(rel_err(ab, pab), rel_err(z0, pz0))
-        aerr = float(max((ab - pab).abs().max(), (z0 - pz0).abs().max()))
+        aerr = max(abs_err(ab, pab), abs_err(z0, pz0))
         if not (np.isfinite(err) and err <= TOL):
             fail(f"K1 {name}: max relative error {err} > {TOL}")
+        plane = ab[..., grid.index(0.5)]
+        if not (torch.equal(ab, again[0]) and torch.equal(z0, again[1])
+                and torch.equal(plane, plane.transpose(1, 2))):
+            fail(f"K1 {name}: two launches differ or the alpha == 0.5 "
+                 "plane is not symmetric")
+        del again, plane
         ms = median_ms(lambda: pair_llks(*args))
         plain_ms = median_ms(lambda: pair_llks_plain(*args))
         b_ms, b_by = bound(channel_ops(B, S, *pair_work(
-                               V, A, True, grid.index(0.5), False)),
+                               nv, A, True, grid.index(0.5), False)),
                            4 * (t.numel() + gps_t.numel() + ab.numel()
                                 + z0.numel()), "f32")
-        phase("k1_vs_plain", case=name, B=B, S=S, V=V, A=A, C=t.shape[0],
-              max_rel_err=err, max_abs_err=aerr, tol=TOL, ms=ms,
-              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        phase("k1_vs_plain", case=name, B=B, S=S, V=nv, A=A, C=t.shape[0],
+              max_rel_err=err, max_abs_err=aerr, tol=TOL,
+              relaunch_bit_equal=True, sym_plane_exact=True, ms=ms,
+              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+              smem_bytes=pair_fast.smem_bytes(nv, A, grid[0] == 0.0))
         record("k1", name == "main", aerr, err, ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by)
-        del t, gps_t, ab, z0, pab, pz0
+        del t, gps_t, ab, z0, pab, pz0, args
     torch.cuda.empty_cache()
 
     # ---- 4. the fast engine's main path
@@ -811,6 +829,32 @@ def main() -> int:
                    bound_ms=b_ms, bound_by=b_by)
             # the argument tuples hold the inputs too
             del tab, codes, msk, g, t, gl, pt, pgl, got, want, fargs, pargs
+        torch.cuda.empty_cache()
+
+        # K3''s refused shapes: a V=1 pool of 200 alphas (C t channels
+        # beyond its stages) takes K7' + K6'
+        grid = np.linspace(0.0, 0.5, 200).tolist()
+        tab, codes, msk, g = exact_inputs(rng, 2048, 512, grid, dev, 1)
+        t, gl = front_exact(codes, tab.lut, msk, tab.cmask, tab.gsel)
+        pargs = (t, g, gl, 1, 200, True, 199, tab.expand)
+        if k3.k3_fits(1, 200, t.shape[0], True):
+            fail(f"K3' takes V=1, A=200, C={t.shape[0]}: no routed case")
+        for k in (k3, k7, k6):
+            k.reset_launches()
+        got = pair_exact(*pargs)
+        torch.cuda.synchronize()
+        counts = {k.__name__.rsplit(".", 1)[1]: k.launches
+                  for k in (k3, k7, k6)}
+        aerr = max(abs_err(x, y)
+                   for x, y in zip(got, pair_exact_plain(*pargs)))
+        if not (np.isfinite(aerr) and aerr <= EXACT_TOL) or list(
+                counts.values()) != [0, 1, 1]:
+            fail(f"K3' refused shape: max absolute error {aerr}, launches "
+                 f"{counts}")
+        phase("k3_route", B=2048, S=512, V=1, A=200, C=t.shape[0],
+              k3_fits=False, launches=counts, max_abs_err=aerr,
+              tol=EXACT_TOL)
+        del tab, codes, msk, g, t, gl, got, pargs
         torch.cuda.empty_cache()
 
         # ---- 7. the exact engine's main path, on the same pileup
@@ -910,7 +954,9 @@ def main() -> int:
 
     # ---- 12. K5' and K4' against their plain versions
     rng = np.random.default_rng(6)
-    for name, B, S, nv, grid in TILED_CASES:
+    # and the engine's deepest slot pad
+    for name, B, S, nv, grid in TILED_CASES + (
+            ("deep", 2048, 4096, V_LARGE, GRID_LARGE),):
         A = len(grid)
         a0_sep, sym_a = grid[0] == 0.0, grid.index(0.5)
         t, gps_t, gp0_t, expand = pair_inputs(rng, B, S, grid, dev, nv)
@@ -918,6 +964,7 @@ def main() -> int:
         a5 = (t, gps_t, nv, A, plan, expand)
         a4 = (t, gps_t, gp0_t, nv, A, a0_sep, expand)
         got5, got4 = PT.pair_tiled_fast(*a5), PT.extras_fast(*a4)
+        again5 = PT.pair_tiled_fast(*a5)
         torch.cuda.synchronize()
         want5, want4 = PT.pair_tiled_plain(*a5), PT.extras_fast_plain(*a4)
         e5, e4 = rel_err(got5, want5), rel_err(got4, want4)
@@ -927,8 +974,11 @@ def main() -> int:
                 and e4 <= TOL):
             fail(f"K5'/K4' {name}: max relative errors {e5}, {e4} > {TOL}")
         plane = got5[..., sym_a]
-        if not torch.equal(plane, plane.transpose(1, 2)):
-            fail(f"K5' {name}: the alpha == 0.5 plane is not symmetric")
+        if not (torch.equal(plane, plane.transpose(1, 2))
+                and torch.equal(got5, again5)):
+            fail(f"K5' {name}: two launches differ or the alpha == 0.5 "
+                 "plane is not symmetric")
+        del again5
         big = B * S * nv * nv * A > 1 << 30  # the plain versions take ~1 s
         ms5 = median_ms(lambda: PT.pair_tiled_fast(*a5))
         plain5 = median_ms(lambda: PT.pair_tiled_plain(*a5),
@@ -948,7 +998,8 @@ def main() -> int:
         phase("k5_k4_vs_plain", case=name, B=B, S=S, V=nv, A=A,
               C=t.shape[0], tile=plan.tile, tile_items=len(plan.items),
               k5_max_rel_err=e5, k5_max_abs_err=a5err, k4_max_rel_err=e4,
-              k4_max_abs_err=a4err, tol=TOL, sym_plane_exact=True,
+              k4_max_abs_err=a4err, tol=TOL, k5_relaunch_bit_equal=True,
+              sym_plane_exact=True, k5_smem_bytes=k5.smem_bytes(plan.tile),
               k5_ms=ms5, k5_plain_ms=plain5, k5_bound_ms=b5[0],
               k5_bound_by=b5[1], k4_ms=ms4, k4_plain_ms=plain4,
               k4_bound_ms=b4[0], k4_bound_by=b4[1])
@@ -956,7 +1007,7 @@ def main() -> int:
                bound_ms=b5[0], bound_by=b5[1])
         record("k4", name == "main", a4err, e4, ms=ms4, plain_ms=plain4,
                bound_ms=b4[0], bound_by=b4[1])
-        del t, gps_t, gp0_t, got5, got4, plane
+        del t, gps_t, gp0_t, got5, got4, plane, a5, a4
     torch.cuda.empty_cache()
 
     # ---- 13. the fast engine on the large pool (K5', K4'; never K1)

@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
-"""Times the exact pair kernels K3' (csrc/pair_exact.cu) and K7'
-(csrc/pair_tiled_exact.cu) of several source trees side by side on one
-CUDA card, at the shapes of ``chip_smoke.py``'s phases 6 and 9 and at the
-engine's deepest slot pad (S = 4096).
+"""Times the pair kernels K3' (csrc/pair_exact.cu), K7'
+(csrc/pair_tiled_exact.cu), K1 (csrc/pair_fast.cu) and K5'
+(csrc/pair_tiled_fast.cu) of several source trees side by side on one
+CUDA card, at the shapes of ``chip_smoke.py``'s phases 3, 6, 9 and 12 and
+at the engine's deepest slot pad (S = 4096).
 
-Each variant is a csrc directory and optional -D macros; every variant's
-library is built with nvcc (``kernels/build.py``, in parallel) and called
-through its C entry point, so variants with the same entry points compare
-on the same inputs in one process. Per shape: each variant's max absolute
-error against the plain PyTorch version (limit 1e-9), whether two launches
-give identical bits, and its median ms over CUDA-event timed launches,
-taken in turns (first to last, then last to first; both medians printed).
-One JSON line per (shape, variant), ptxas's report per variant, then the
-card's name and power limit.
+Each variant is a csrc directory, optional -D macros and optionally the
+kernels it is built for (default: all four); every variant's library is
+built with nvcc (``kernels/build.py``, in parallel) and called through its
+C entry point, so variants with the same entry points compare on the same
+inputs in one process. Per shape: each variant's error against the plain
+PyTorch version (exact kernels: absolute, limit 1e-9; fast kernels:
+relative with scale max(1, |x|), limit 2e-5), whether two launches give
+identical bits, whether its outputs equal the first variant's bit for bit
+(required of the exact kernels: a change that leaves them as they were
+shows it here), and its median ms over CUDA-event timed launches, taken in
+turns (first to last, then last to first; both medians printed). One JSON
+line per (shape, variant), ptxas's report per variant, then the card's
+name and power limit.
 
-Usage: python3 chip_steps.py [LABEL=DIR[:MACRO,MACRO...] ...]
+Usage: python3 chip_steps.py [LABEL=DIR[:MACRO,MACRO...][@KERNEL,...] ...]
 (no argument: this checkout's csrc alone). Earlier steps are other source
 trees (``git archive <commit> demuxlet_tpu_torch/csrc`` unpacked under
 ``build/``). A variant built with a DMX_PROBE macro (csrc/stage.cuh:
 staging alone, or compute alone) is timed and its error printed, but not
-held to the limit.
+held to the limits.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ import torch
 
 import chip_smoke as cs
 
-KERNELS = ("pair_exact", "pair_tiled_exact")
+KERNELS = ("pair_exact", "pair_tiled_exact", "pair_fast", "pair_tiled_fast")
+EXACT = ("pair_exact", "pair_tiled_exact")
 # (name, kernel, B, S, V, grid)
 SHAPES = (
     ("k3_main", "pair_exact", 2048, 1024, 8, cs.GRID),
@@ -44,20 +50,30 @@ SHAPES = (
     ("k7_main", "pair_tiled_exact", 2048, 1024, 32, [0.0, 0.5]),
     ("k7_a5", "pair_tiled_exact", 2048, 1024, 32, cs.GRID),
     ("k7_deep", "pair_tiled_exact", 2048, 4096, 32, [0.0, 0.5]),
+    ("k1_main", "pair_fast", 2048, 1024, 8, cs.GRID),
+    ("k1_deep", "pair_fast", 2048, 4096, 8, cs.GRID),
+    ("k5_main", "pair_tiled_fast", 2048, 1024, 32, [0.0, 0.5]),
+    ("k5_a5", "pair_tiled_fast", 2048, 1024, 32, cs.GRID),
+    ("k5_deep", "pair_tiled_fast", 2048, 4096, 32, [0.0, 0.5]),
 )
 
 
 def parse_variants(argv):
+    """[(label, csrc dir, macros, kernels)] from the command line."""
     from demuxlet_tpu_torch.kernels import build as kbuild
 
     if not argv:
-        return [("this", kbuild.CSRC, ())]
+        return [("this", kbuild.CSRC, (), KERNELS)]
     out = []
     for arg in argv:
         label, _, spec = arg.partition("=")
+        spec, _, only = spec.partition("@")
         path, _, macros = spec.partition(":")
+        kernels = tuple(k for k in only.split(",") if k) or KERNELS
+        if not set(kernels) <= set(KERNELS):
+            cs.fail(f"unknown kernels in {arg}")
         out.append((label, os.path.abspath(path),
-                    tuple(m for m in macros.split(",") if m)))
+                    tuple(m for m in macros.split(",") if m), kernels))
     return out
 
 
@@ -65,22 +81,30 @@ def load_all(variants):
     """{(label, kernel): (CDLL, library path)}, built in parallel."""
     from demuxlet_tpu_torch.kernels import build as kbuild
 
-    jobs = [(v, k) for v in variants for k in KERNELS]
+    jobs = [(v, k) for v in variants for k in v[3]]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         paths = list(pool.map(
             lambda vk: kbuild.build(vk[1], vk[0][1], vk[0][2]), jobs))
     libs = {}
     P, I = ctypes.c_void_p, ctypes.c_int
-    for ((label, _, _), kernel), path in zip(jobs, paths):
+    for ((label, _, _, _), kernel), path in zip(jobs, paths):
         lib = ctypes.CDLL(path)
+        fn = getattr(lib, "dmx_" + kernel)
         if kernel == "pair_exact":
             # the staged K3' takes C (t's rows) after A; PR 4's did not
-            lib.dmx_pair_exact.argtypes = [P] * 8 + [I] * (
+            fn.argtypes = [P] * 8 + [I] * (
                 7 if hasattr(lib, "dmx_pair_exact_smem") else 6) + [P]
+        elif kernel == "pair_fast":
+            fn.argtypes = [P] * 5 + [I] * 6 + [P]
         else:
-            lib.dmx_pair_tiled_exact.argtypes = [P] * 6 + [I] * 6 + [P]
+            fn.argtypes = [P] * 6 + [I] * 6 + [P]
         libs[label, kernel] = (lib, path)
     return libs
+
+
+def _check(name, rc):
+    if rc:
+        cs.fail(f"{name} returned {rc}")
 
 
 def k3_call(lib, t, g, gl, V, A, a0_sep, sym_a, exp_dev):
@@ -93,38 +117,86 @@ def k3_call(lib, t, g, gl, V, A, a0_sep, sym_a, exp_dev):
         B, S, V, A)
 
     def run():
-        rc = lib.dmx_pair_exact(
+        _check("dmx_pair_exact", lib.dmx_pair_exact(
             t.data_ptr(), g.data_ptr(), gl.data_ptr(), exp_dev.data_ptr(),
             *(o.data_ptr() for o in outs), *shape, int(a0_sep), sym_a,
-            torch.cuda.current_stream().cuda_stream)
-        if rc:
-            cs.fail(f"dmx_pair_exact returned {rc}")
+            torch.cuda.current_stream().cuda_stream))
         return outs
     return run
 
 
-def k7_call(lib, t, g, V, A, plan, exp_dev, items, alist):
-    C, B, S = t.shape
-    out = torch.zeros((B, V, V, A), dtype=torch.float64, device=t.device)
+def k1_call(lib, t, g, V, A, a0_sep, sym_a, exp_dev):
+    _, B, S = t.shape
+    kw = dict(dtype=torch.float32, device=t.device)
+    outs = (torch.empty((B, V * V * A), **kw), torch.empty((B, A), **kw))
 
     def run():
-        rc = lib.dmx_pair_tiled_exact(
+        _check("dmx_pair_fast", lib.dmx_pair_fast(
+            t.data_ptr(), g.data_ptr(), exp_dev.data_ptr(),
+            *(o.data_ptr() for o in outs), B, S, V, A, int(a0_sep), sym_a,
+            torch.cuda.current_stream().cuda_stream))
+        return outs
+    return run
+
+
+def tiled_call(fn, t, g, V, A, plan, exp_dev, items, alist):
+    """K7' or K5' (fn: the library's entry point) on the plan's items."""
+    C, B, S = t.shape
+    out = torch.zeros((B, V, V, A), dtype=t.dtype, device=t.device)
+
+    def run():
+        _check(fn.__name__, fn(
             t.data_ptr(), g.data_ptr(), exp_dev.data_ptr(), items.data_ptr(),
             alist.data_ptr(), out.data_ptr(), B, S, V, A, len(plan.items),
-            plan.tile, torch.cuda.current_stream().cuda_stream)
-        if rc:
-            cs.fail(f"dmx_pair_tiled_exact returned {rc}")
+            plan.tile, torch.cuda.current_stream().cuda_stream))
         return (out,)
     return run
+
+
+def shape_runs(kernel, B, S, V, grid, dev, rng, variants, libs):
+    """The plain version's outputs and, per variant that builds the
+    kernel, a function that launches it once on this shape's inputs."""
+    from demuxlet_tpu_torch.kernels import build as kbuild
+    from demuxlet_tpu_torch.ops import pair_tiled as PT
+    from demuxlet_tpu_torch.ops.front_exact import front_exact
+    from demuxlet_tpu_torch.ops.pair import pair_llks_plain
+    from demuxlet_tpu_torch.ops.pair_exact import pair_exact_plain
+
+    A = len(grid)
+    a0_sep, sym_a = grid[0] == 0.0, grid.index(0.5)
+    fast = kernel not in EXACT
+    if fast:
+        t, g, _, expand = cs.pair_inputs(rng, B, S, grid, dev, V)
+    else:
+        tab, codes, msk, g = cs.exact_inputs(rng, B, S, grid, dev, V)
+        t, gl = front_exact(codes, tab.lut, msk, tab.cmask, tab.gsel)
+        expand = tab.expand
+        del codes, msk
+    exp_dev = kbuild.int_table(dev, expand)
+    labels = [v[0] for v in variants if kernel in v[3]]
+    lib = {label: libs[label, kernel][0] for label in labels}
+    if kernel == "pair_exact":
+        want = pair_exact_plain(t, g, gl, V, A, a0_sep, sym_a, expand)
+        runs = {k: k3_call(lib[k], t, g, gl, V, A, a0_sep, sym_a, exp_dev)
+                for k in labels}
+    elif kernel == "pair_fast":
+        want = pair_llks_plain(t, g, V, A, a0_sep, sym_a, expand)
+        runs = {k: k1_call(lib[k], t, g, V, A, a0_sep, sym_a, exp_dev)
+                for k in labels}
+    else:
+        plan = PT.plan_tiles(V, A, a0_sep, sym_a)
+        want = (PT.pair_tiled_plain(t, g, V, A, plan, expand),)
+        items = kbuild.int_table(dev, [v for it in plan.items for v in it])
+        alist = kbuild.int_table(dev, plan.alist)
+        runs = {k: tiled_call(getattr(lib[k], "dmx_" + kernel), t, g, V, A,
+                              plan, exp_dev, items, alist) for k in labels}
+    return tuple(w.reshape(w.shape[0], -1) for w in want), runs
 
 
 def main(argv) -> int:
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this needs a CUDA card")
     from demuxlet_tpu_torch.kernels import build as kbuild
-    from demuxlet_tpu_torch.ops import pair_tiled as PT
-    from demuxlet_tpu_torch.ops.front_exact import front_exact
-    from demuxlet_tpu_torch.ops.pair_exact import pair_exact_plain
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -138,53 +210,50 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(11)
     for name, kernel, B, S, V, grid in SHAPES:
-        A = len(grid)
-        a0_sep, sym_a = grid[0] == 0.0, grid.index(0.5)
-        tab, codes, msk, g = cs.exact_inputs(rng, B, S, grid, dev, V)
-        t, gl = front_exact(codes, tab.lut, msk, tab.cmask, tab.gsel)
-        del codes, msk
-        exp_dev = kbuild.int_table(dev, tab.expand)
-        runs = {}
-        if kernel == "pair_exact":
-            want = pair_exact_plain(t, g, gl, V, A, a0_sep, sym_a,
-                                    tab.expand)
-            for label, _, _ in variants:
-                runs[label] = k3_call(libs[label, kernel][0], t, g, gl, V, A,
-                                      a0_sep, sym_a, exp_dev)
-            want = tuple(w.reshape(w.shape[0], -1) for w in want)
-        else:
-            plan = PT.plan_tiles(V, A, a0_sep, sym_a)
-            want = (PT.pair_tiled_plain(t, g, V, A, plan, tab.expand),)
-            items = kbuild.int_table(dev, [v for it in plan.items
-                                           for v in it])
-            alist = kbuild.int_table(dev, plan.alist)
-            for label, _, _ in variants:
-                runs[label] = k7_call(libs[label, kernel][0], t, g, V, A,
-                                      plan, exp_dev, items, alist)
-        res = {}
+        if not any(kernel in v[3] for v in variants):
+            continue
+        want, runs = shape_runs(kernel, B, S, V, grid, dev, rng, variants,
+                                libs)
+        exact = kernel in EXACT
+        res, first = {}, None
         for label, run in runs.items():
-            first = [x.clone() for x in run()]
+            got = [x.clone().reshape(w.shape) for x, w in zip(run(), want)]
             again = run()
             torch.cuda.synchronize()
-            err = max(float((x.reshape(w.shape) - w).abs().max())
-                      for x, w in zip(first, want))
-            same = all(torch.equal(x, y) for x, y in zip(first, again))
-            res[label] = dict(max_abs_err=err, relaunch_bit_equal=same,
-                              ms=[])
+            err = max((cs.abs_err if exact else cs.rel_err)(x, w)
+                      for x, w in zip(got, want))
+            first = got if first is None else first
+            res[label] = dict(
+                max_abs_err=err if exact else max(
+                    cs.abs_err(x, w) for x, w in zip(got, want)),
+                max_rel_err=None if exact else err,
+                relaunch_bit_equal=all(
+                    torch.equal(x, y.reshape(x.shape))
+                    for x, y in zip(got, again)),
+                bit_equal_first=all(torch.equal(x, y)
+                                    for x, y in zip(got, first)),
+                ms=[])
+            del got, again
         order = list(runs) + list(runs)[::-1]
         for label in order:
             res[label]["ms"].append(cs.median_ms(runs[label], n=10))
-        for label, _, macros in variants:
+        for label, _, macros, _ in variants:
+            if label not in res:
+                continue
             r = res[label]
             probe = any(m.startswith("DMX_PROBE") for m in macros)
-            ok = probe or np.isfinite(r["max_abs_err"]) and \
-                r["max_abs_err"] <= cs.EXACT_TOL and r["relaunch_bit_equal"]
+            err = r["max_abs_err"] if exact else r["max_rel_err"]
+            ok = probe or (np.isfinite(err)
+                           and err <= (cs.EXACT_TOL if exact else cs.TOL)
+                           and r["relaunch_bit_equal"]
+                           and (r["bit_equal_first"] or not exact))
             print(json.dumps({"shape": name, "kernel": kernel, "B": B, "S": S,
-                              "V": V, "A": A, "variant": label, "ok": bool(ok),
-                              **r, "card": card}), flush=True)
+                              "V": V, "A": len(grid), "variant": label,
+                              "ok": bool(ok), **r, "card": card}),
+                  flush=True)
             if not ok:
                 cs.fail(f"{label} {name}: {r}")
-        del tab, g, t, gl, want, runs
+        del want, runs, first
         torch.cuda.empty_cache()
     print(card, flush=True)
     return 0

@@ -2,9 +2,10 @@
 //
 // Replaces the TPU kernel demuxlet_tpu/ops/pallas_pair.py::_pair_kernel_tiled
 // (launched by _call_pair_kernel_tiled) on pools with V*V*A > 384, where the
-// unrolled K1 (pair_fast.cu) would need more accumulators than a thread
+// unrolled K1 (pair_fast.cu) would need more accumulators than a block
 // holds. The TPU kernel took up to 4 slot products per log (`halves`); this
-// kernel takes one accurate logf per slot, as K1 does.
+// kernel multiplies every slot's inner value into a product with exponent
+// tracking and takes one log per lane and channel (logprod.cuh).
 //
 // What it computes, per cell b and slot s (t: the front's mixture table, C
 // deduplicated channels that expand maps onto the A*9 logical (a, l, m)
@@ -18,137 +19,66 @@
 // alpha == 0.5 plane's upper-triangle tiles: channels with k < j are
 // skipped and those with k > j are also written at (k, j), so the mirrored
 // channel is an exact copy. A masked slot carries t == 1 and neutral rows
-// (1, 0, 0), so it adds log 1 == 0 exactly.
+// (1, 0, 0), so its inner value is exactly 1 and leaves the product as it
+// was.
 //
-// What limits it on this card: per slot it reads 3V + the used t channels
-// (floats) and spends one f32 log per (j, k, alpha) channel (V=32, A=2:
-// 528), about 20 FP32 instructions each, so it runs on the SMs' FP32 pipes,
-// not at HBM speed. The function needs no per-slot log (products with
-// exponent renormalisation, one log per channel per cell): its bound is the
-// bytes at V=32, A=2, well below this kernel's time.
+// What limits it on this card: the function reads 3V + the used t channels
+// (floats) per slot and spends a 3-term dot and a multiply per (j, k,
+// alpha) channel per slot: bytes bound it at V=32, A=2 (0.26 ms at B=2048,
+// S=1024) and f32 operations at A=5 (0.86 ms). PR 4's kernel took one
+// accurate logf per channel per slot (about 20 FP32 instructions) and each
+// of the tile's (j, alpha) rows re-read the tile's g_k rows through L1/L2;
+// it ran at 22x the bound (5.72 ms), and at twice the time of the f64 K7'.
 //
-// What the design does about it: K7''s layout (pair_tiled_exact.cu) in f32.
-// One block owns one (cell, item) and loops over all of the cell's slots;
-// each warp takes whole rows (one (j, alpha) of the tile, accumulators over
-// the tile's k); lanes stride over slots, so loads are coalesced along s.
-// The KT sums of a row live in registers (the k loop unrolled to the
-// compile-time tile extent KT, 8 or 16, with uniform guards for the ragged
-// edge k < V and the triangle k >= j) and end in a fixed warp-shuffle
-// butterfly: no atomics, so runs give identical bits. Blocks of one cell are
-// adjacent in the grid, so the cell's t and g rows are read from HBM about
-// once and then from L2. Shapes, V, A, the tile list and expand are runtime
-// arguments; only the tile extent is compile-time.
+// What the design does about it: K7''s design (tiled.cuh over stage.cuh)
+// instantiated in f32. One block owns one (cell, item) and streams the
+// cell's slots in chunks of 128 through two shared-memory stages (cp.async,
+// 16 bytes = 4 slots a copy when S % 4 == 0 and the tensors are aligned;
+// chunk c + 1 lands while chunk c is computed): the tile's j rows, its k
+// rows (once, on diagonal tiles) and the 9 t rows of the alphas in flight,
+// each read from L2 once per block. 128 floats are 512 bytes a row, so a
+// warp's load is 128 consecutive bytes with no bank conflict. Each warp
+// owns one 4 x 4 patch of (j, k) channels of one alpha, its lanes over
+// slots: per slot a thread loads 4 g_j rows, 9 t values and 4 g_k rows from
+// shared memory for 16 channels, and each channel's step is a dot, a
+// multiply and a few integer operations on the f32 exponent field (no
+// log). An f32 accumulator takes 2 registers (mantissa, exponent), not 3 as
+// in f64. The lane's log(m) + e ln 2 and the warp-shuffle butterfly are f64,
+// rounded to f32 once per channel: no atomics, so runs give identical bits.
+// Blocks of one cell are adjacent in the grid, so the cell's rows come from
+// HBM about once and then from L2. Shapes, V, A, the tile list and expand
+// are runtime arguments; the tile extent KT (8 or 16), the patch and the
+// chunk are compile-time.
 //
-// Build without --use_fast_math: the fast-mode contract (2e-5 relative)
-// needs the accurate logf (1 ulp), not __logf.
+// Build without --use_fast_math: the lane's log must be the accurate one.
 
 #include <cuda_runtime.h>
 
-#include "logprod.cuh"
+#include "tiled.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kItem = 5;  // ints per item: j0, k0, a_begin, a_count, sym
-
-struct Params {
-  const float* t;     // (C, B, S)
-  const float* g;     // (3V, B, S)
-  const int* expand;  // (A*9,) rows of t
-  const int* items;   // (n_items, kItem)
-  const int* alist;   // the alpha indices the items' slices index
-  float* out;         // (B, V*V*A)
-  long long plane;    // B*S: stride between channels
-  int S, V, A, n_items;
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 template <int KT>
-__global__ void __launch_bounds__(kWarps * 32)
-pair_tiled_fast_kernel(Params p) {
-  const int item = blockIdx.x % p.n_items;
-  const long long b = blockIdx.x / p.n_items;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int* it = p.items + item * kItem;
-  const int j0 = it[0], k0 = it[1], a_begin = it[2], a_count = it[3];
-  const bool sym = it[4] != 0;
-  const int S = p.S, V = p.V, A = p.A;
-  const long long plane = p.plane;
-  const float* t = p.t + b * S;
-  const float* g = p.g + b * S;
-  const float* gk0 = g + (3LL * k0) * plane;
-  float* out = p.out + b * V * V * A;
-  const int n_rows = KT * a_count;
-
-  for (int r = warp; r < n_rows; r += kWarps) {
-    const int j = j0 + r / a_count;
-    if (j >= V) continue;  // the ragged edge; uniform across the warp
-    const int a = p.alist[a_begin + r % a_count];
-    int e[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) e[i] = p.expand[a * 9 + i];
-    dmx::Acc<KT, float> acc;
-    acc.init();
-    const float* gj = g + (3LL * j) * plane;
-    for (int s0 = 0; s0 < S; s0 += 32) {
-      const int s = s0 + lane;
-      const bool live = s < S;
-      float u[3];
-      bool bad = false;
-      if (live) {
-        const float gj0 = gj[s], gj1 = gj[plane + s], gj2 = gj[2 * plane + s];
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          u[m] = gj0 * t[e[m] * plane + s] + gj1 * t[e[3 + m] * plane + s] +
-                 gj2 * t[e[6 + m] * plane + s];
-        }
-#pragma unroll
-        for (int dk = 0; dk < KT; ++dk) {
-          const int k = k0 + dk;
-          if (k < V && (!sym || k >= j)) {
-            const float* gk = gk0 + (3LL * dk) * plane + s;
-            bad |= !acc.step(dk, gk[0] * u[0] + gk[plane] * u[1] +
-                                     gk[2 * plane] * u[2]);
-          }
-        }
-      }
-      if (__any_sync(0xffffffffu, bad) && live) {
-#pragma unroll
-        for (int dk = 0; dk < KT; ++dk) {
-          const int k = k0 + dk;
-          if (k < V && (!sym || k >= j)) {
-            const float* gk = gk0 + (3LL * dk) * plane + s;
-            acc.fix(dk, gk[0] * u[0] + gk[plane] * u[1] +
-                            gk[2 * plane] * u[2]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int dk = 0; dk < KT; ++dk) {
-      const int k = k0 + dk;
-      if (k < V && (!sym || k >= j)) {
-        const float v = static_cast<float>(dmx::warp_sum(acc.log_sum(dk)));
-        if (lane == 0) {
-          out[(j * V + k) * A + a] = v;
-          if (sym && k > j) out[(k * V + j) * A + a] = v;
-        }
-      }
-    }
-  }
+__global__ void __launch_bounds__(dmx::kTiledWarps * 32,
+                                  16 / dmx::kTiledWarps)
+pair_tiled_fast_kernel(dmx::TiledParams<float> p) {
+  extern __shared__ __align__(16) float smem[];  // 2 stages, row pointers
+  dmx::pair_tiled_body<KT>(p, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K5' on `stream` and returns cudaGetLastError() (0 on success).
+// The dynamic shared memory K5' takes with tile extent `tile` (bytes), or 0
+// for an extent it does not take.
+int dmx_pair_tiled_fast_smem(int tile) {
+  return tile == 8    ? dmx::Tile<8, float>::kSmem
+         : tile == 16 ? dmx::Tile<16, float>::kSmem
+                      : 0;
+}
+
+// Launches K5' on `stream` and returns the first CUDA error (0 on success).
 // t (C, B, S), g (3V, B, S), expand (A*9), items (n_items, 5) and alist on
 // the device; out (B, V*V*A) allocated by the caller, which also fills the
 // channels no item writes. tile: the items' extent, 8 or 16.
@@ -156,32 +86,16 @@ int dmx_pair_tiled_fast(const float* t, const float* g, const int* expand,
                         const int* items, const int* alist, float* out, int B,
                         int S, int V, int A, int n_items, int tile,
                         void* stream) {
-  Params p;
-  p.t = t;
-  p.g = g;
-  p.expand = expand;
-  p.items = items;
-  p.alist = alist;
-  p.out = out;
-  p.plane = (long long)B * S;
-  p.S = S;
-  p.V = V;
-  p.A = A;
-  p.n_items = n_items;
-  const long long n_blocks = (long long)B * n_items;
-  if (n_blocks < 1 || n_blocks > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const dmx::TiledParams<float> p = dmx::tiled_params(
+      t, g, expand, items, alist, out, B, S, V, A, n_items);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(n_blocks));
   if (tile == 8) {
-    pair_tiled_fast_kernel<8><<<grid, kWarps * 32, 0, st>>>(p);
-  } else if (tile == 16) {
-    pair_tiled_fast_kernel<16><<<grid, kWarps * 32, 0, st>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return dmx::launch_tiled<8>(pair_tiled_fast_kernel<8>, p, B, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (tile == 16) {
+    return dmx::launch_tiled<16>(pair_tiled_fast_kernel<16>, p, B, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* dmx_cuda_error_string(int code) {

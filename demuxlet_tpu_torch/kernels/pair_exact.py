@@ -12,10 +12,14 @@ reduction, so runs are bit-reproducible. 1.19 ms at that shape on an H100
 80GB HBM3 at 700 W (6.48 ms for PR 4's log-per-slot kernel; PERF.md). See
 the source for details.
 
+Its stages hold all C rows of t, so V=1 grids of 162 alphas or more do
+not fit; ``k3_fits`` says so without the library, and
+``ops/pair_exact.pair_exact`` sends those pools to the tiled K7' + K6'.
+
 The wrapper validates its inputs (including that the shared-memory stages
-fit: ``smem_bytes``), allocates the outputs with ``torch.empty``, launches on the current stream without synchronising,
-raises if ``cudaGetLastError`` is not 0, and counts launches in
-``launches``.
+fit: ``smem_bytes``), allocates the outputs with ``torch.empty``, launches
+on the current stream without synchronising, raises if
+``cudaGetLastError`` is not 0, and counts launches in ``launches``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,10 @@ import torch
 from demuxlet_tpu_torch.kernels import build as kbuild
 
 launches = 0  # kernel launches since import or the last reset_launches()
+
+# csrc/pair_exact.cu's kSmemMax and csrc/stage.cuh's patch (PJ x PK)
+SMEM_MAX = 190 * 1024
+_PJ = _PK = 4
 
 
 def reset_launches() -> None:
@@ -53,6 +61,24 @@ def smem_bytes(V, A, C, a0_sep) -> int:
     """The dynamic shared memory K3' takes at this shape (0: its stages do
     not fit)."""
     return _lib().dmx_pair_exact_smem(V, A, C, int(bool(a0_sep)))
+
+
+def k3_fits(V, A, C, a0_sep) -> bool:
+    """Whether K3''s two shared-memory stages fit at this shape (V samples,
+    A alphas, C rows of t): ``smem_bytes(...) != 0`` without the library,
+    mirroring ``shape_params``, ``smem_bytes`` and ``chunk_for`` of
+    ``csrc/pair_exact.cu`` (a chunk of 128 slots, else 16 at V <= 8 and 64
+    at V <= 20). a0_sep does not change the stages."""
+    del a0_sep
+    if not 1 <= V <= 20:
+        return False
+    nk = -(-V // _PK)
+    rows = 3 * max(V + 1, -(-V // _PJ) * _PJ, nk * _PK) + 3 + C
+
+    def smem(ch):
+        return 2 * rows * ch * 8 + rows * 8 + 9 * A * 4
+
+    return smem(128) <= SMEM_MAX or smem(16 if V <= 8 else 64) <= SMEM_MAX
 
 
 def pair_exact(t, g, gl, V, A, a0_sep, sym_a, expand):

@@ -1,17 +1,24 @@
 """ctypes wrapper of K1 (``csrc/pair_fast.cu``), the Hopper port of
 ``demuxlet_tpu/ops/pallas_pair.py::_pair_kernel``.
 
-Cost on this card: per slot the kernel reads 3V + C floats and spends
-about V*V*A logs and 3*V*V*A FMAs, on the FP32 pipes and the log; the
-function needs one log per channel per cell, so its bound is the bytes. Design: one block per cell looping over
-all its slots, warps over (j, alpha) accumulator rows, lanes over slots
-(coalesced along s), sums in registers and a fixed warp-shuffle reduction
-(no atomics, so runs are bit-reproducible). See the source for details.
+Cost on this card: per slot the function reads 3V + C floats and spends a
+3-term dot and a multiply per channel, so its bound is the bytes (0.10 ms
+at B=2048, S=1024, V=8, A=5). Design: K3''s (``kernels/pair_exact.py``)
+in f32, without singlets. One block per cell streams its slots through
+shared memory in chunks of 128 (``csrc/stage.cuh``), with the background
+rows g0 (the f32 sample mean in j order) computed into each chunk; each
+warp owns a 4 x 4 patch of (j, k) channels of one alpha and up to 4 of
+the O(V) channels; each channel keeps an f32 product with exponent
+tracking and takes one f64 log per lane (``csrc/logprod.cuh``), then a
+fixed f64 warp-shuffle reduction rounded to f32 once, so runs are
+bit-reproducible. A round of warps stages only its own alphas' t rows, so
+shared memory does not grow with A: every V*V*A <= 384 shape launches.
+See the source for details.
 
 The wrapper validates its inputs, allocates the outputs with
-``torch.empty``, launches on the current stream without synchronising,
-raises if ``cudaGetLastError`` is not 0, and counts launches in
-``launches``.
+``torch.empty`` (``torch.zeros`` when S == 0: every sum is empty),
+launches on the current stream without synchronising, raises if
+``cudaGetLastError`` is not 0, and counts launches in ``launches``.
 """
 
 from __future__ import annotations
@@ -38,9 +45,16 @@ def _lib():
         I = ctypes.c_int
         fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
         fn.restype = I
+        lib.dmx_pair_fast_smem.argtypes = [I, I, I]
+        lib.dmx_pair_fast_smem.restype = I
         lib.dmx_cuda_error_string.argtypes = [I]
         lib.dmx_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def smem_bytes(V, A, a0_sep) -> int:
+    """The dynamic shared memory K1 takes at this shape (bytes)."""
+    return _lib().dmx_pair_fast_smem(V, A, int(bool(a0_sep)))
 
 
 def pair_fast(t, gps_t, V, A, a0_sep, sym_a, expand):
@@ -70,9 +84,9 @@ def pair_fast(t, gps_t, V, A, a0_sep, sym_a, expand):
     if min(expand) < 0 or max(expand) >= C:
         raise ValueError(f"pair_fast: expand indexes outside the {C} "
                          "channels of t")
-    out_ab = torch.empty((B, V * V * A), dtype=torch.float32,
-                         device=t.device)
-    out_00 = torch.empty((B, A), dtype=torch.float32, device=t.device)
+    new = torch.empty if S else torch.zeros
+    out_ab = new((B, V * V * A), dtype=torch.float32, device=t.device)
+    out_00 = new((B, A), dtype=torch.float32, device=t.device)
     if B and S:
         lib = _lib()
         exp_dev = kbuild.int_table(t.device, expand)

@@ -1,13 +1,17 @@
 """ctypes wrapper of K5' (``csrc/pair_tiled_fast.cu``), the Hopper port of
 ``demuxlet_tpu/ops/pallas_pair.py::_pair_kernel_tiled``.
 
-Cost on this card: one f32 log per (j, k, alpha) channel per slot, on the
-SMs' FP32 pipes; the function needs one log per channel per cell, so its
-bound is far lower (bytes at V=32, A=2). Design: K7''s layout in f32, one
-(cell, tile) per block (warps over (j, alpha) rows, lanes over slots, the
-tile's k sums in registers and a fixed warp-shuffle reduction, so runs are
-bit-reproducible), the symmetric plane on upper-triangle tiles and
-mirrored. See the source.
+Cost on this card: per slot the function reads 3V + the used t channels
+(floats) and spends a 3-term dot and a multiply per (j, k, alpha)
+channel, so bytes bound it at V=32, A=2 (0.26 ms at B=2048, S=1024) and
+f32 operations at A=5. Design: K7''s (``csrc/tiled.cuh``, the body both
+share) in f32. One (cell, tile) per block streams the cell's slots
+through shared memory in chunks of 128 (``csrc/stage.cuh``); each warp
+owns a 4 x 4 patch of (j, k) channels of one alpha; each channel keeps an
+f32 product with exponent tracking and takes one f64 log per lane
+(``csrc/logprod.cuh``), then a fixed f64 warp-shuffle reduction rounded
+to f32 once, so runs are bit-reproducible; the symmetric plane runs on
+upper-triangle tiles and is mirrored. See the source.
 
 The wrapper validates its inputs, allocates the output with
 ``torch.zeros`` (the separable alpha == 0 plane, which no tile writes,
@@ -40,9 +44,16 @@ def _lib():
         I = ctypes.c_int
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
         fn.restype = I
+        lib.dmx_pair_tiled_fast_smem.argtypes = [I]
+        lib.dmx_pair_tiled_fast_smem.restype = I
         lib.dmx_cuda_error_string.argtypes = [I]
         lib.dmx_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def smem_bytes(tile) -> int:
+    """The dynamic shared memory K5' takes with tile extent ``tile``."""
+    return _lib().dmx_pair_tiled_fast_smem(tile)
 
 
 def pair_tiled_fast(t, gps_t, V, A, plan, expand):

@@ -183,14 +183,16 @@ def pack_rows(out, llk, llk0):
 def compact_step_body(
     codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext, dbl_w, dbl_msk,
     n_alpha, n_samples, doublet_prior, a0_sep=False, sym_a=None,
-    expand=None, wire=None, pair_fn=pair_llks,
+    expand=None, wire=None, pair_fn=pair_llks, g_table=None,
 ):
     """Fused fast block step + decision pass, packed into ONE (B, 2V+A+11)
-    f64 tensor on the block's device."""
+    f64 tensor on the block's device. g_table: the engine's
+    ``ops/front.fast_g_table`` of gps_table and gp0_table (None: built per
+    call)."""
     llk, llk0, llk_ab, llk_00 = fast_front(
         codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext,
         n_alpha, n_samples, a0_sep=a0_sep, sym_a=sym_a, expand=expand,
-        wire=wire, pair_fn=pair_fn,
+        wire=wire, pair_fn=pair_fn, g_table=g_table,
     )
     out = decide(llk_ab.to(torch.float64), llk_00.to(torch.float64),
                  dbl_w, dbl_msk, doublet_prior)

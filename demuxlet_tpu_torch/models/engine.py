@@ -40,6 +40,7 @@ from demuxlet_tpu_torch.models.outputs import CellStats
 from demuxlet_tpu_torch.ops import luts
 from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 from demuxlet_tpu_torch.models import decision as D
+from demuxlet_tpu_torch.ops.front import fast_g_table
 from demuxlet_tpu_torch.ops.pair import dedup_channels, extend_luts
 
 MODES = ("exact", "fast")
@@ -112,6 +113,7 @@ class DeviceTables:
     w_ext: torch.Tensor  # (R, C) f32 deduplicated pair LUT + none row
     logf_ext: torch.Tensor  # (R, 3) f32 singlet LUT + none row
     expand: tuple  # A*9 logical channels -> rows of the deduplicated LUT
+    g_table: torch.Tensor  # (3V+3, NS+1) f32: ops/front.fast_g_table
 
 
 def _pad_gps(gps: np.ndarray) -> np.ndarray:
@@ -142,7 +144,9 @@ def tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
     def dev(x):
         return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
 
-    return DeviceTables(dev(gps), dev(gp0), dev(w_ext), dev(logf_ext), expand)
+    gps_d, gp0_d = dev(gps), dev(gp0)
+    return DeviceTables(gps_d, gp0_d, dev(w_ext), dev(logf_ext), expand,
+                        fast_g_table(gps_d, gp0_d))
 
 
 @dataclass
@@ -571,6 +575,7 @@ class DemuxEngine:
                 *blk, tab.gps, tab.gp0, tab.w_ext, tab.logf_ext, dbl_w,
                 dbl_msk, self.n_alpha, self.nv, doublet_prior, a0_sep=a0_sep,
                 sym_a=sym_a, expand=tab.expand, wire=wire,
+                g_table=tab.g_table,
             )
 
         # defer all device->host readback to ONE transfer at the end

@@ -14,8 +14,10 @@ to XLA:
   off (``utils/device.py``), channel-leading like the JAX front; the
   matmul may sum the R rows in another order than XLA (last-bit
   differences in lograw, well inside the 1e-5 relative front tolerance);
-* ``norm_t``, the pass-1 GL table, the neutral-row gps/gp0 gather, the
-  pair search (``ops/pair.pair_llks``: K1, or K5' + K4' with the gathered
+* ``norm_t``, the pass-1 GL table, the gps/gp0 gather (channel-leading
+  rows of the (3V+3, NS+1) table ``fast_g_table``, whose neutral column NS
+  masked slots read; the engine builds the table once per table set),
+  the pair search (``ops/pair.pair_llks``: K1, or K5' + K4' with the gathered
   gp0 rows on pools with V*V*A > 384) and the singlet contraction.
 """
 
@@ -39,14 +41,32 @@ def _counts(c, R):
     return cnt
 
 
+def fast_g_table(gps_table, gp0_table):
+    """(3V+3, NS+1) f32, channel-leading: the gps (j, l) rows, the three
+    gp0 rows, and the neutral column NS ((1, 0, 0) for every sample and
+    gp0) that masked slots gather. gps_table (NS, V, 3), gp0_table (NS,
+    3)."""
+    NS, V, _ = gps_table.shape
+    neutral = torch.zeros((1, V * 3 + 3), dtype=torch.float32,
+                          device=gps_table.device)
+    neutral[0, 0 : V * 3 : 3] = 1.0
+    neutral[0, V * 3] = 1.0
+    return torch.cat(
+        [torch.cat([gps_table.reshape(NS, V * 3), gp0_table], dim=1),
+         neutral], dim=0,
+    ).T.contiguous()
+
+
 def fast_front(codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext,
                n_alpha, n_samples, a0_sep=False, sym_a=None, expand=None,
-               wire=None, pair_fn=pair_llks):
+               wire=None, pair_fn=pair_llks, g_table=None):
     """codes/idx/msk/wire: any shipped block form (``ops/wire.py``).
     gps_table (NS, V, 3) f32, gp0_table (NS, 3) f32; w_ext (R, C) the
     deduplicated pair LUT and logf_ext (R, 3) the singlet LUT, each with
     the zero none row last. pair_fn is the pair search; the engine always
-    uses ``pair_llks``, a check may pass ``pair_llks_plain``.
+    uses ``pair_llks``, a check may pass ``pair_llks_plain``. g_table:
+    ``fast_g_table(gps_table, gp0_table)`` (the engine's, built once per
+    table set), None to build it here.
 
     Returns (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A))
     f32."""
@@ -91,19 +111,14 @@ def fast_front(codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext,
     neutral3[0] = 1.0
     gl = torch.where(msk[None], gl, neutral3)  # masked slots: exact log 0
 
-    # per-slot genotype posteriors + gp0 in one gather; masked slots read
-    # the neutral row appended at index NS
-    NS = gps_table.shape[0]
-    neutral_g = torch.zeros((1, V * 3 + 3), dtype=torch.float32,
-                            device=gps_table.device)
-    neutral_g[0, 0 : V * 3 : 3] = 1.0
-    neutral_g[0, V * 3] = 1.0
-    gps_all = torch.cat(
-        [torch.cat([gps_table.reshape(NS, V * 3), gp0_table], dim=1),
-         neutral_g], dim=0,
-    )
-    idx_n = torch.where(msk, idx, NS)
-    g_all = gps_all[idx_n].permute(2, 0, 1).contiguous()  # (3V+3, B, S)
+    # per-slot genotype posteriors + gp0 in one gather, straight into the
+    # channel-leading layout the kernels read; masked slots read the
+    # neutral column NS
+    if g_table is None:
+        g_table = fast_g_table(gps_table, gp0_table)
+    NS = g_table.shape[1] - 1
+    idx_n = torch.where(msk, idx, NS).reshape(-1)
+    g_all = g_table.index_select(1, idx_n).view(-1, B, S)  # (3V+3, B, S)
     gps_t = g_all[: V * 3]
     gp0_t = g_all[V * 3 :]
 

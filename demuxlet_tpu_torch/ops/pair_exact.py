@@ -2,7 +2,9 @@
 K3' and its plain PyTorch version (port of
 ``demuxlet_tpu/ops/pallas_pair_exact.py::_call_pair_kernel_df`` :445 on
 the unrolled path, ``V*V*A <= 384``, computed in f64 instead of df32);
-larger pools go to the tiled K7' + K6' (``ops/pair_tiled.py``).
+larger pools, and the few smaller ones whose t channels K3''s
+shared-memory stages cannot hold (V=1 with 162 alphas or more), go to the
+tiled K7' + K6' (``ops/pair_tiled.py``).
 
 Per (cell, slot), with g the genotype posteriors (V, 3), g0 the host f64
 background row (3,), t the mixture table (A, 3, 3) and gl the pass-1 GL
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from demuxlet_tpu_torch.kernels.pair_exact import k3_fits
 from demuxlet_tpu_torch.ops.pair import (
     _PLAIN_CHUNK_ELEMS,
     UNROLL_CAP,
@@ -38,12 +41,15 @@ def pair_exact(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None):
 
     A CUDA tensor launches K3' (``kernels/pair_exact.py``); a CPU tensor
     runs ``pair_exact_plain``. Nothing falls back from one to the other.
-    Pools with V*V*A > 384 take ``pair_tiled.pair_exact_tiled`` (K7' and
-    K6', or their plain versions) with the same contract."""
+    Pools with V*V*A > 384, and those whose C channels K3''s stages cannot
+    hold (``k3_fits``), take ``pair_tiled.pair_exact_tiled`` (K7' and K6',
+    or their plain versions) with the same contract, on either device."""
     if expand is None:
         expand = tuple(range(A * 9))
-    if V * V * A > UNROLL_CAP:
-        return pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, expand)
+    unrolled = V * V * A <= UNROLL_CAP
+    if not (unrolled and k3_fits(V, A, t.shape[0], a0_sep)):
+        return pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, expand,
+                                force=unrolled)
     if t.device.type == "cuda":
         from demuxlet_tpu_torch.kernels import pair_exact as kernel
 

@@ -65,10 +65,12 @@ class TilePlan:
     items: tuple
 
 
-def plan_tiles(V, A, a0_sep, sym_a) -> Optional[TilePlan]:
+def plan_tiles(V, A, a0_sep, sym_a, force=False) -> Optional[TilePlan]:
     """The tile plan of a pool, or None when the unrolled K3' takes it
-    (V*V*A <= 384). The tile extent is 16 for V > 8, else 8."""
-    if V * V * A <= UNROLL_CAP:
+    (V*V*A <= 384) and ``force`` is not set. force: plan such a pool all
+    the same (the shapes K3''s stages refuse, ``ops/pair_exact.py``). The
+    tile extent is 16 for V > 8, else 8."""
+    if V * V * A <= UNROLL_CAP and not force:
         return None
     tile = 16 if V > 8 else 8
     n_t = -(-V // tile)
@@ -236,8 +238,8 @@ def _reassemble(llk_ab, ex, V, a0_sep):
     return llk_ab, torch.cat([z00[:, None], ex[:, 2 * V + 2 :]], dim=1)
 
 
-def _tiled_plan(V, A, a0_sep, sym_a, first):
-    plan = plan_tiles(V, A, a0_sep, sym_a)
+def _tiled_plan(V, A, a0_sep, sym_a, first, force=False):
+    plan = plan_tiles(V, A, a0_sep, sym_a, force)
     if plan is None:
         raise ValueError(f"V*V*A = {V * V * A} <= {UNROLL_CAP}: the "
                          f"unrolled {first} takes this pool")
@@ -245,16 +247,17 @@ def _tiled_plan(V, A, a0_sep, sym_a, first):
 
 
 def pair_exact_tiled(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None,
-                     pair_fn=pair_tiled, extras_fn=extras):
+                     pair_fn=pair_tiled, extras_fn=extras, force=False):
     """The tiled exact pair search and singlet term, with
     ``pair_exact``'s contract: (llk_ab (B, V, V, A), llk_00 (B, A), llk
     (B, V), llk0 (B,)) f64. K7' (when some alpha is not separable) and K6'
     on a CUDA tensor, their plain versions on a CPU tensor (pair_fn and
     extras_fn: for a check, the plain versions on any device); then the
-    reassembly (``_reassemble``)."""
+    reassembly (``_reassemble``). force: take a pool of V*V*A <= 384 too
+    (``plan_tiles``)."""
     if expand is None:
         expand = tuple(range(A * 9))
-    plan = _tiled_plan(V, A, a0_sep, sym_a, "K3'")
+    plan = _tiled_plan(V, A, a0_sep, sym_a, "K3'", force)
     _, B, _ = t.shape
     if plan.items:
         llk_ab = pair_fn(t, g, V, A, plan, expand)

@@ -386,6 +386,73 @@ def test_cli_default_mode_matches_jax_cli_exact(tmp_path):
     assert canonicalize_best(best) == canonicalize_best(read("j", ".best"))
 
 
+def _k3_inputs(B, S, V, grid, device, seed=3):
+    """K3''s inputs for a card or CPU test: t and gl from the plain front
+    on random codes (~20% masked slots), flat-Dirichlet g rows for V
+    samples and the background with neutral rows on masked slots; and the
+    tables' expand."""
+    rng = np.random.default_rng(seed)
+    tab = TE.exact_tables_from_numpy(np.full((4, V, 3), 1 / 3), grid, 40,
+                                     None, device)
+    codes = rng.integers(0, 82, size=(B, S, 2)).astype(np.int32)
+    codes[rng.random((B, S, 2)) < 0.3] = 255
+    msk = rng.random((B, S)) < 0.8
+    t, gl = TF.front_exact_plain(torch.from_numpy(codes).to(device),
+                                 tab.lut, torch.from_numpy(msk).to(device),
+                                 tab.cmask, tab.gsel)
+    g = rng.dirichlet(np.ones(3), size=(V + 1, B, S))
+    g[:, ~msk] = np.array([1.0, 0.0, 0.0])
+    g = torch.from_numpy(np.ascontiguousarray(
+        g.transpose(0, 3, 1, 2).reshape(3 * V + 3, B, S))).to(device)
+    return t, g, gl, tab.expand
+
+
+def test_k3_fits_refuses_exactly_the_large_v1_grids():
+    """k3_fits over every (V, A) with V*V*A <= 384 on linspace(0, 0.5, A)
+    grids (C the deduplicated t channels): K3''s stages refuse 220 grids,
+    all at V=1, the first at A=162 (C=716), the last V=1/A=384 (C=1601);
+    every other pool fits."""
+    from demuxlet_tpu_torch.kernels.pair_exact import k3_fits
+    from demuxlet_tpu_torch.ops.pair import dedup_channels
+
+    refused = []
+    for V in range(1, 21):
+        for A in range(1, 384 // (V * V) + 1):
+            C = len(dedup_channels(np.linspace(0, 0.5, A).tolist())[0])
+            for a0_sep in (True, False):
+                if not k3_fits(V, A, C, a0_sep):
+                    refused.append((V, A, C, a0_sep))
+    assert len(refused) == 2 * 220
+    assert {r[0] for r in refused} == {1}
+    assert min(refused)[:3] == (1, 162, 716)
+    assert max(refused)[:3] == (1, 384, 1601)
+    assert not k3_fits(21, 1, 30, True)
+
+
+def test_refused_k3_shape_takes_the_tiled_route(monkeypatch):
+    """pair_exact at V=1, A=200 (stages K3' refuses) goes to
+    pair_exact_tiled with a forced plan (K7' + K6', here their plain
+    versions): within 1e-12 absolute of pair_exact_plain; a pool that fits
+    stays on K3''s route."""
+    grid = np.linspace(0, 0.5, 200).tolist()
+    t, g, gl, expand = _k3_inputs(3, 64, 1, grid, CPU, seed=4)
+    args = (t, g, gl, 1, 200, True, 199, expand)
+    calls = []
+    tiled = TP.pair_exact_tiled
+    monkeypatch.setattr(TP, "pair_exact_tiled", lambda *a, **k: (
+        calls.append(k.get("force")), tiled(*a, **k))[1])
+    got = TP.pair_exact(*args)
+    assert calls == [True]
+    want = TP.pair_exact_plain(*args)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape
+        assert float((x - y).abs().max()) < 1e-12
+    grid = np.linspace(0, 0.5, 161).tolist()
+    t, g, gl, expand = _k3_inputs(2, 32, 1, grid, CPU)
+    TP.pair_exact(t, g, gl, 1, 161, True, 160, expand)
+    assert calls == [True]
+
+
 # ---------------------------------------------------------------- card
 
 @pytest.fixture
@@ -432,32 +499,38 @@ def test_k2_matches_plain_on_card(cuda_device, B, S, U, grid, cap, lut_kb):
     assert torch.equal(t, t2) and torch.equal(gl, gl2)
 
 
-def edge_inputs(edge, t, g, gl, V, expand, rng):
-    """Rewrite a card test's f64 inputs t (C, B, S), g (3V+3, B, S) and
-    gl (3, B, S) in place for an edge case of the product accumulators:
-    "floor", every t at the +1e-6 smoothing floor (inner values ~1e-6, so
-    the exponents run far); "special", cell 0 with an all-zero g row of
-    sample 1 at one slot (exact-zero inner values: -inf) and cell 1 with a
-    NaN t value of the last alpha at one slot; "padding", every slot
+def edge_inputs(edge, t, g, gl, expand, rng):
+    """Rewrite a card test's inputs t (C, B, S), g (3n, B, S) and gl (3, B,
+    S) or None in place for an edge case of the product accumulators (f64
+    or f32): "floor", every t at the +1e-6 smoothing floor (inner values
+    ~1e-6, so the exponents run far); "special", cell 0 with an all-zero g
+    row of sample 1 at one slot (exact-zero inner values: -inf) and cell 1
+    with a NaN t value of the last alpha at one slot; "padding", every slot
     masked (t == 1, neutral rows): every LLK exactly 0."""
     if edge == "floor":
         t.copy_(1e-6 * (1.0 + torch.from_numpy(
-            rng.random(tuple(t.shape))).to(t.device)))
+            rng.random(tuple(t.shape))).to(t)))
     elif edge == "special":
         g[3:6, 0, 5] = 0.0
         t[expand[-1], 1, 7] = float("nan")
     elif edge == "padding":
         t.fill_(1.0)
-        g.view(V + 1, 3, *g.shape[1:])[:, 0] = 1.0
-        g.view(V + 1, 3, *g.shape[1:])[:, 1:] = 0.0
-        gl[0], gl[1:] = 1.0, 0.0
+        g.view(-1, 3, *g.shape[1:])[:, 0] = 1.0
+        g.view(-1, 3, *g.shape[1:])[:, 1:] = 0.0
+        if gl is not None:
+            gl[0], gl[1:] = 1.0, 0.0
 
 
-def assert_close_on_card(got, want, tol=1e-9):
-    """got within tol absolute of want, where equal infinities and NaN
-    against NaN count as equal (the plain version's log of 0 or NaN)."""
+def assert_close_on_card(got, want, tol=1e-9, relative=False):
+    """got within tol of want, absolute or (relative) with scale
+    max(1, |want|), where equal infinities and NaN against NaN count as
+    equal (the plain version's log of 0 or NaN)."""
+    got, want = got.double(), want.double()
     same = (got == want) | (torch.isnan(got) & torch.isnan(want))
-    err = torch.where(same, torch.zeros_like(got), (got - want).abs())
+    err = (got - want).abs()
+    if relative:
+        err = err / want.abs().clamp(min=1.0)
+    err = torch.where(same, torch.zeros_like(got), err)
     assert not bool(torch.isnan(err).any())
     assert float(err.max()) < tol
 
@@ -486,29 +559,17 @@ def test_k3_matches_plain_on_card(cuda_device, B, S, V, grid, edge):
     symmetric; an all-padding block gives exact zeros."""
     from demuxlet_tpu_torch.kernels import pair_exact as kernel
 
-    rng = np.random.default_rng(3)
     A = len(grid)
-    tab = TE.exact_tables_from_numpy(np.full((4, V, 3), 1 / 3), grid, 40,
-                                     None, cuda_device)
-    codes = rng.integers(0, 82, size=(B, S, 2)).astype(np.int32)
-    codes[rng.random((B, S, 2)) < 0.3] = 255
-    msk = rng.random((B, S)) < 0.8
-    t, gl = TF.front_exact_plain(torch.from_numpy(codes).to(cuda_device),
-                                 tab.lut, torch.from_numpy(msk).to(cuda_device),
-                                 tab.cmask, tab.gsel)
-    g = rng.dirichlet(np.ones(3), size=(V + 1, B, S))
-    g[:, ~msk] = np.array([1.0, 0.0, 0.0])
-    g = torch.from_numpy(np.ascontiguousarray(
-        g.transpose(0, 3, 1, 2).reshape(3 * V + 3, B, S))).to(cuda_device)
-    edge_inputs(edge, t, g, gl, V, tab.expand, rng)
+    t, g, gl, expand = _k3_inputs(B, S, V, grid, cuda_device)
+    edge_inputs(edge, t, g, gl, expand, np.random.default_rng(S))
     a0_sep = grid[0] == 0.0
     sym_a = grid.index(0.5) if 0.5 in grid else None
     before = kernel.launches
-    got = TP.pair_exact(t, g, gl, V, A, a0_sep, sym_a, tab.expand)
-    again = TP.pair_exact(t, g, gl, V, A, a0_sep, sym_a, tab.expand)
+    got = TP.pair_exact(t, g, gl, V, A, a0_sep, sym_a, expand)
+    again = TP.pair_exact(t, g, gl, V, A, a0_sep, sym_a, expand)
     torch.cuda.synchronize()
     assert kernel.launches == before + 2
-    want = TP.pair_exact_plain(t, g, gl, V, A, a0_sep, sym_a, tab.expand)
+    want = TP.pair_exact_plain(t, g, gl, V, A, a0_sep, sym_a, expand)
     for x, y, z in zip(got, want, again):
         assert_close_on_card(x, y)
         assert torch.equal(x.nan_to_num(), z.nan_to_num())
@@ -520,6 +581,44 @@ def test_k3_matches_plain_on_card(cuda_device, B, S, V, grid, edge):
     if edge == "special":
         assert bool(torch.isneginf(got[2][0, 1])) and bool(
             torch.isnan(got[0][1, :, :, A - 1]).all())
+
+
+@pytest.mark.cuda
+def test_k3_fits_matches_the_library_on_card(cuda_device):
+    """k3_fits (pure Python) equals K3''s own answer,
+    dmx_pair_exact_smem != 0, over a sweep of V, A and C that crosses the
+    boundary of every chunk size."""
+    from demuxlet_tpu_torch.kernels import pair_exact as kernel
+
+    for V in (1, 2, 3, 4, 5, 8, 9, 13, 16, 17, 20, 21):
+        for A in (1, 2, 5, 96, 161, 162, 200, 384):
+            for C in range(1, 2002, 5):
+                a0_sep = C % 2 == 0
+                assert kernel.k3_fits(V, A, C, a0_sep) == (
+                    kernel.smem_bytes(V, A, C, a0_sep) != 0), (V, A, C)
+
+
+@pytest.mark.cuda
+def test_refused_k3_shape_runs_on_k7_k6_on_card(cuda_device):
+    """pair_exact at V=1, A=200, a shape K3''s stages refuse, runs on K7'
+    and K6' (one launch each, none of K3') within 1e-9 absolute of
+    pair_exact_plain."""
+    from demuxlet_tpu_torch.kernels import extras_exact as k6
+    from demuxlet_tpu_torch.kernels import pair_exact as k3
+    from demuxlet_tpu_torch.kernels import pair_tiled_exact as k7
+
+    grid = np.linspace(0, 0.5, 200).tolist()
+    t, g, gl, expand = _k3_inputs(8, 256, 1, grid, cuda_device)
+    args = (t, g, gl, 1, 200, True, 199, expand)
+    assert not k3.k3_fits(1, 200, t.shape[0], True)
+    before = (k3.launches, k7.launches, k6.launches)
+    got = TP.pair_exact(*args)
+    torch.cuda.synchronize()
+    assert (k3.launches, k7.launches, k6.launches) == (
+        before[0], before[1] + 1, before[2] + 1)
+    for x, y in zip(got, TP.pair_exact_plain(*args)):
+        assert x.shape == y.shape
+        assert_close_on_card(x, y)
 
 
 @pytest.mark.cuda

@@ -141,3 +141,40 @@ def test_front_matches_jax(form, grid):
     assert bool((seen["t"][:, torch.from_numpy(empty)] == 1.0).all())
     g = seen["g"].view(V, 3, B, S)[:, :, torch.from_numpy(empty)]
     assert bool((g[:, 0] == 1.0).all()) and bool((g[:, 1:] == 0.0).all())
+
+
+@pytest.mark.parametrize("form", ["explicit", "v2_wire"])
+def test_gather_channel_leading_equals_row_major(form):
+    """The genotype rows the pair search receives, gathered channel-leading
+    from the engine's (3V+3, NS+1) table (``fast_g_table``), equal bit for
+    bit the row-major (B, S, 3V+3) gather and relayout the fast front took
+    before; with the table given or built in the call."""
+    from demuxlet_tpu_torch.ops.wire import unpack_wire_v2
+
+    csr, gps = _pileup()
+    grid = [0.0, 0.5]
+    codes, idx, msk, wire, cfg = _block(form, csr, grid)
+    tab = tables_from_numpy(gps, grid, 40, cfg, torch.device("cpu"))
+    assert tab.g_table.shape == (3 * V + 3, NS + 1)
+    if wire is not None:
+        _, _, idx_t, msk_t = unpack_wire_v2(_tx(codes), wire, parts=True)
+    else:
+        idx_t, msk_t = _tx(idx), _tx(msk)
+    neutral = torch.zeros((1, 3 * V + 3))
+    neutral[0, 0 : 3 * V : 3] = 1.0
+    neutral[0, 3 * V] = 1.0
+    rows = torch.cat([torch.cat([tab.gps.reshape(NS, 3 * V), tab.gp0], 1),
+                      neutral])
+    want = rows[torch.where(msk_t, idx_t, NS)].permute(2, 0, 1)
+    for g_table in (tab.g_table, None):
+        seen = {}
+
+        def spy(t, gps_t, V_, A, a0_sep, sym_a, expand, gp0_t):
+            seen["g"] = torch.cat([gps_t, gp0_t])
+            return pair_llks(t, gps_t, V_, A, a0_sep, sym_a, expand, gp0_t)
+
+        TF.fast_front(_tx(codes), _tx(idx), _tx(msk), tab.gps, tab.gp0,
+                      tab.w_ext, tab.logf_ext, 2, V, a0_sep=True, sym_a=1,
+                      expand=tab.expand, wire=wire, pair_fn=spy,
+                      g_table=g_table)
+        assert torch.equal(seen["g"], want)

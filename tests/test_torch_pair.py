@@ -116,39 +116,73 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,V,grid", [
-    (64, 256, 8, np.linspace(0, 0.5, 5).tolist()),
-    (40, 384, 8, [0.0, 0.5]),
-    (33, 200, 13, [0.0, 0.5]),
-    (32, 128, 3, [0.1, 0.3, 0.5]),
-    (16, 130, 2, [0.0]),  # separable plane only; S not a warp multiple
-    (8, 160, 19, [0.5]),  # the V <= 20 instantiation, symmetric plane
-    (8, 128, 1, [0.0, 0.25, 0.5]),
-    (4, 128, 2, np.linspace(0, 0.5, 96).tolist()),  # V*V*A == 384
-])
-def test_k1_matches_plain_on_card(cuda_device, B, S, V, grid):
-    """K1 against pair_llks_plain on the card: 2e-5 relative, and two
-    launches give identical bits (no atomics)."""
-    from demuxlet_tpu_torch.kernels import pair_fast
+def card_inputs(B, S, V, grid, device, edge=None, seed=3):
+    """Fast pair-search inputs for a card test: t from random lograw with
+    ~20% padded slots (t == 1), flat-Dirichlet g rows (3V, B, S) with
+    neutral rows on padded slots, f32; then ``edge_inputs``' edge case in
+    f32. Returns (t, g, expand, a0_sep, sym_a)."""
+    from test_torch_exact import edge_inputs
 
-    rng = np.random.default_rng(3)
-    A = len(grid)
+    rng = np.random.default_rng(seed)
     cols, expand = TP.dedup_channels(grid)
-    lograw = torch.from_numpy(
-        rng.normal(size=(len(cols), B, S)).astype(np.float32))
-    t = TP.norm_t(lograw.to(cuda_device), 0).contiguous()
+    pad = rng.random((B, S)) < 0.2
+    lograw = rng.normal(size=(len(cols), B, S)).astype(np.float32)
+    lograw[:, pad] = 0.0
+    t = TP.norm_t(torch.from_numpy(lograw).to(device), 0).contiguous()
     g = rng.dirichlet(np.ones(3), size=(V, B, S)).astype(np.float32)
+    g[:, pad] = np.array([1.0, 0.0, 0.0], np.float32)
     g = torch.from_numpy(np.ascontiguousarray(
-        g.transpose(0, 3, 1, 2).reshape(3 * V, B, S))).to(cuda_device)
-    a0_sep = grid[0] == 0.0
+        g.transpose(0, 3, 1, 2).reshape(3 * V, B, S))).to(device)
+    edge_inputs(edge, t, g, None, expand, rng)
     sym_a = grid.index(0.5) if 0.5 in grid else None
+    return t, g, expand, grid[0] == 0.0, sym_a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,V,grid,edge", [
+    (64, 256, 8, np.linspace(0, 0.5, 5).tolist(), None),
+    (40, 384, 8, [0.0, 0.5], None),
+    (33, 200, 13, [0.0, 0.5], None),
+    (32, 128, 3, [0.1, 0.3, 0.5], None),
+    (16, 130, 2, [0.0], None),  # separable plane only; S not a warp multiple
+    (8, 160, 19, [0.5], None),  # the V <= 20 instantiation, symmetric plane
+    (8, 128, 1, [0.0, 0.25, 0.5], None),
+    (4, 128, 2, np.linspace(0, 0.5, 96).tolist(), None),  # V*V*A == 384
+    (2, 96, 1, np.linspace(0, 0.5, 384).tolist(), None),  # 24 rounds
+    (4, 8192, 8, np.linspace(0, 0.5, 5).tolist(), None),  # deep
+    # S neither a multiple of the 128-slot chunk nor of 4 (4-byte copies)
+    (8, 1001, 8, np.linspace(0, 0.5, 5).tolist(), "floor"),
+    (6, 200, 13, [0.0, 0.5], "floor"),
+    (4, 256, 8, np.linspace(0, 0.5, 5).tolist(), "special"),
+    (4, 130, 13, [0.0, 0.5], "special"),
+    (4, 200, 8, np.linspace(0, 0.5, 5).tolist(), "padding"),
+])
+def test_k1_matches_plain_on_card(cuda_device, B, S, V, grid, edge):
+    """K1 against pair_llks_plain on the card: 2e-5 relative (scale
+    max(1, |x|); equal infinities and NaNs match), two launches give
+    identical bits (no atomics), the alpha == 0.5 plane equals its
+    transpose; exact-zero and NaN inner values give -inf and NaN, an
+    all-padding block exact zeros."""
+    from demuxlet_tpu_torch.kernels import pair_fast
+    from test_torch_exact import assert_close_on_card
+
+    A = len(grid)
+    t, g, expand, a0_sep, sym_a = card_inputs(B, S, V, grid, cuda_device,
+                                              edge)
     before = pair_fast.launches
     ab, z0 = TP.pair_llks(t, g, V, A, a0_sep, sym_a, expand)
-    ab2, _ = TP.pair_llks(t, g, V, A, a0_sep, sym_a, expand)
+    ab2, z02 = TP.pair_llks(t, g, V, A, a0_sep, sym_a, expand)
     torch.cuda.synchronize()
     assert pair_fast.launches == before + 2
     pab, pz0 = TP.pair_llks_plain(t, g, V, A, a0_sep, sym_a, expand)
-    assert _rel(ab.cpu(), pab.cpu()) < 2e-5
-    assert _rel(z0.cpu(), pz0.cpu()) < 2e-5
-    assert torch.equal(ab, ab2)
+    for x, y, z in ((ab, pab, ab2), (z0, pz0, z02)):
+        assert_close_on_card(x, y, 2e-5, relative=True)
+        assert torch.equal(x.nan_to_num(), z.nan_to_num())
+        if edge == "padding":
+            assert bool((x == 0).all())
+    if sym_a is not None:
+        plane = ab[..., sym_a].nan_to_num()
+        assert torch.equal(plane, plane.transpose(1, 2))
+    if edge == "special":
+        assert bool(torch.isneginf(ab[0, 1, 1]).all()) and bool(
+            torch.isnan(ab[1, :, :, A - 1]).all())

@@ -308,7 +308,7 @@ def test_k7_k6_match_likelihood_on_card(cuda_device, B, S, V, grid, edge):
     idx_n = torch.where(dev(msk), dev(idx).long(), NS).reshape(-1)
     g = tab.g_table.index_select(1, idx_n).view(-1, B, S)
     g = g.clone()
-    edge_inputs(edge, t, g, gl, V, tab.expand, np.random.default_rng(S))
+    edge_inputs(edge, t, g, gl, tab.expand, np.random.default_rng(S))
     plan = PT.plan_tiles(V, A, a0_sep, sym_a)
     before = (k7.launches, k6.launches)
     got = PT.pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, tab.expand)

@@ -290,3 +290,48 @@ def test_k5_k4_match_plain_and_likelihood_on_card(cuda_device, B, S, V,
     ab32, z032 = TL.pair_llks(*t32, A, dtype=torch.float32)
     assert _rel(got[2].cpu(), ab32.cpu()) < 1e-4
     assert _rel(got[3].cpu(), z032.cpu()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,V,grid,edge", [
+    (6, 384, 7, _grid(8), None),  # ragged edge, 8-tiles
+    (6, 384, 17, _grid(3), None),  # ragged edge, 16-tiles
+    (2, 8192, 32, [0.0, 0.5], None),  # deep: the exponents run far
+    # S neither a multiple of the 128-slot chunk nor of 4 (4-byte copies)
+    (8, 1001, 17, _grid(3), "floor"),
+    (4, 200, 7, _grid(8), "floor"),
+    (4, 256, 32, _grid(5), "special"),
+    (4, 130, 20, [0.5, 0.1], "special"),
+    (4, 200, 20, [0.0, 0.5], "padding"),
+])
+def test_k5_matches_plain_on_card(cuda_device, B, S, V, grid, edge):
+    """K5' alone against pair_tiled_plain on the card, on inputs with the
+    edge cases of ``edge_inputs`` in f32: within 2e-5 relative (scale
+    max(1, |x|); equal infinities and NaNs match), two launches give
+    identical bits, the alpha == 0.5 plane equals its transpose;
+    exact-zero and NaN inner values give -inf and NaN, an all-padding
+    block exact zeros."""
+    from demuxlet_tpu_torch.kernels import pair_tiled_fast as k5
+    from test_torch_exact import assert_close_on_card
+    from test_torch_pair import card_inputs
+
+    A = len(grid)
+    t, g, expand, a0_sep, sym_a = card_inputs(B, S, V, grid, cuda_device,
+                                              edge)
+    plan = PT.plan_tiles(V, A, a0_sep, sym_a)
+    before = k5.launches
+    got = PT.pair_tiled_fast(t, g, V, A, plan, expand)
+    again = PT.pair_tiled_fast(t, g, V, A, plan, expand)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 2
+    assert_close_on_card(got, PT.pair_tiled_plain(t, g, V, A, plan, expand),
+                         TOL, relative=True)
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+    if edge == "padding":
+        assert bool((got == 0).all())
+    if sym_a is not None:
+        plane = got[..., sym_a].nan_to_num()
+        assert torch.equal(plane, plane.transpose(1, 2))
+    if edge == "special":
+        assert bool(torch.isneginf(got[0, 1, 1, list(plan.alist)]).all())
+        assert bool(torch.isnan(got[1, :, :, A - 1]).all())
