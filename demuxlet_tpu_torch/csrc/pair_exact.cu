@@ -178,7 +178,7 @@ pair_exact_kernel(Params p) {
       a = p.a0_sep + u / per_a;
       jb = (u % per_a) / p.nk * PJ;
       kb = (u % per_a) % p.nk * PK;
-      act = dmx::patch_mask(jb, kb, V, a == p.sym_a);
+      act = dmx::patch_mask<PK>(jb, kb, V, a == p.sym_a);
     }
     // the extra channels' descriptors live in shared memory, read each
     // slot, which keeps the thread within its registers
@@ -231,7 +231,7 @@ pair_exact_kernel(Params p) {
     dmx::stream_chunks<CH, double>(
         smem, rows, R, S, p.vec, [&](const double* stage, int n) {
           // the alpha's t offsets are read from shared memory each slot
-          dmx::patch_chunk_any<CH>(stage, n, 3 * jb, 3 * kb, erow + a * 9,
+          dmx::patch_chunk_any<CH, PK>(stage, n, 3 * jb, 3 * kb, erow + a * 9,
                                    act, acc);
           if (n_x == 0) return;
 #pragma unroll 1

@@ -24,7 +24,14 @@
 // channels with a0_sep and sym_a), so bytes bound it (0.10 ms at B=2048,
 // S=1024). PR 1's kernel took one accurate logf per channel per slot and
 // each of its (j, alpha) rows re-read 3V g_k values per slot through
-// L1/L2: 2.11 ms, 20x the bound.
+// L1/L2. Step by step at V=8, A=5, B=2048, S=1024 (chip_steps.py; H100
+// 80GB HBM3, 700 W): 2.09 ms; products in place of logf in that layout
+// 2.74 (slower: the re-reads stay, and a product's integer work on the
+// exponent field runs at half the FP32 rate); K3''s design below with
+// 4 x 4 patches 0.98; 4 x 8 patches 0.83, 8x the bound. What bounds it now
+// is that arithmetic: a channel's step is a dot, a multiply and ~5 integer
+// operations, at 16 warps of 128 registers an SM; staging alone takes a
+// quarter of the time (DMX_PROBE, PERF.md).
 //
 // What the design does about it: K3''s design (pair_exact.cu) in f32,
 // without singlets (fast mode's come from the front, ops/front.py). One
@@ -35,18 +42,19 @@
 // alpha the current round touches, each read from HBM once per round. The
 // block computes the background rows g0 of a chunk into the stage (the sum
 // in j order times f32(1/V), the bits of _background_rows). Its warps own
-// units, each with its lanes over slots: a 4 x 4 patch of (j, k) channels
-// of one alpha (one g_k load serves 4 channels; accumulators in registers)
-// and up to 4 of the O(V) channels (the separable factors d and gsum, g0's
-// included, dealt round-robin, and the background pair of its alpha on the
-// alpha's first patch; accumulators in shared memory). A round is up to 16
-// units, each a pass over the slots; it stages only its own alphas' t rows,
-// so shared memory does not grow with A (V=1, A=384 takes 24 rounds of 16
-// alphas). The products (logprod.cuh) end in one f64 log per lane and a
-// fixed f64 warp-shuffle butterfly, rounded to f32 once per channel: no
-// atomics, so runs give identical bits. Shapes, V, A, C, a0_sep, sym_a and
-// expand are runtime arguments; MAXV (8 or 20, the separable sums and the
-// unrolled g0 sum), the patch and the chunk are compile-time.
+// units, each with its lanes over slots: a 4 x 8 patch of (j, k) channels
+// of one alpha (one g_k load serves 4 channels; 32 accumulators of 2
+// registers each) and up to 4 of the O(V) channels (the separable factors
+// d and gsum, g0's included, dealt round-robin, and the background pair of
+// its alpha on the alpha's first patch; accumulators in shared memory). A
+// round is up to 16 units, each a pass over the slots; it stages only its
+// own alphas' t rows, so shared memory does not grow with A (V=1, A=384
+// takes 24 rounds of 16 alphas). The products (logprod.cuh) end in one f64
+// log per lane and a fixed f64 warp-shuffle butterfly, rounded to f32 once
+// per channel: no atomics, so runs give identical bits. Shapes, V, A, C,
+// a0_sep, sym_a and expand are runtime arguments; MAXV (8 or 20, the
+// separable sums and the unrolled g0 sum), the patch and the chunk are
+// compile-time.
 //
 // Build without --use_fast_math: the lane's log must be the accurate one.
 
@@ -58,8 +66,9 @@
 namespace {
 
 using dmx::PJ;
-using dmx::PK;
 
+// 4 x 8 patches (4 x 4 took 17% longer: PERF.md, PR 6)
+constexpr int kNK = 8;
 constexpr int kMaxWarps = 16;  // each thread up to 128 registers
 constexpr int kX = 4;          // the most O(V) channels a unit carries
 constexpr int kChunk = 128;
@@ -76,7 +85,7 @@ struct Params {
   float* out_00;        // (B, A)
   long long plane;      // B*S: stride between channels
   int S, V, A, a0_sep, sym_a;
-  int nk;     // k groups of PK per alpha
+  int nk;     // k groups of kNK per alpha
   int per_a;  // patches per alpha
   int gr;     // stage rows of g and g0: 3V + 3, padded to whole patches
   int n_pair, n_sep, n_units;  // patch units, separable channels, units
@@ -89,10 +98,10 @@ struct Params {
 // j, k = 0..V, V the background row), dealt round-robin, kX - 1 at most a
 // unit, beside the background pair each alpha's first patch carries.
 void plan_units(Params& p) {
-  p.nk = (p.V + PK - 1) / PK;
+  p.nk = (p.V + kNK - 1) / kNK;
   p.per_a = (p.V + PJ - 1) / PJ * p.nk;
   p.gr = 3 * dmx::cmax(p.V + 1, dmx::cmax((p.V + PJ - 1) / PJ * PJ,
-                                          p.nk * PK));
+                                          p.nk * kNK));
   p.n_pair = (p.A - p.a0_sep) * p.per_a;
   p.n_sep = p.a0_sep ? 2 * (p.V + 1) : 0;
   const int for_sep = (p.n_sep + kX - 2) / (kX - 1);
@@ -114,7 +123,7 @@ __host__ __device__ int stage_rows(const Params& p, int n_ra) {
 
 // Dynamic shared memory: two stages of R x kChunk floats and R row
 // pointers, R for the round that stages the most alphas (at most 16, so at
-// most 170 KB, whatever A is).
+// most 177 KB, whatever A is).
 int smem_bytes(const Params& p) {
   const int R = stage_rows(p, p.n_ra);
   return 2 * R * kChunk * static_cast<int>(sizeof(float)) +
@@ -180,8 +189,8 @@ pair_fast_kernel(Params p) {
       a = p.a0_sep + ai;
       const int q = u % p.per_a;
       jb = q / p.nk * PJ;
-      kb = q % p.nk * PK;
-      act = dmx::patch_mask(jb, kb, V, a == p.sym_a);
+      kb = q % p.nk * kNK;
+      act = dmx::patch_mask<kNK>(jb, kb, V, a == p.sym_a);
     }
     int to[9];
 #pragma unroll
@@ -235,7 +244,7 @@ pair_fast_kernel(Params p) {
       const float* gj = stage + 3 * idx * kChunk;
       return gj[s] * w0 + gj[kChunk + s] * w1 + gj[2 * kChunk + s] * w2;
     };
-    dmx::Acc<PJ * PK, float> acc;
+    dmx::Acc<PJ * kNK, float> acc;
     dmx::SharedAcc<kX, float> xacc{xm + threadIdx.x, xe + threadIdx.x,
                                    xmasks + threadIdx.x, T};
     acc.init();
@@ -254,8 +263,8 @@ pair_fast_kernel(Params p) {
             stage[(g0_row + l) * kChunk + s] = sum * inv_v;
           }
           __syncthreads();
-          dmx::patch_chunk_any<kChunk>(stage, n, 3 * jb, 3 * kb, to, act,
-                                       acc);
+          dmx::patch_chunk_any<kChunk, kNK>(stage, n, 3 * jb, 3 * kb, to,
+                                            act, acc);
           if (n_x == 0) return;
 #pragma unroll 1
           for (int s0 = 0; s0 < n; s0 += 32) {
@@ -281,10 +290,10 @@ pair_fast_kernel(Params p) {
 #pragma unroll
       for (int dj = 0; dj < PJ; ++dj) {
 #pragma unroll
-        for (int dk = 0; dk < PK; ++dk) {
-          if ((act >> (dj * PK + dk)) & 1u) {
+        for (int dk = 0; dk < kNK; ++dk) {
+          if ((act >> (dj * kNK + dk)) & 1u) {
             const float v =
-                static_cast<float>(dmx::warp_sum(acc.log_sum(dj * PK + dk)));
+                static_cast<float>(dmx::warp_sum(acc.log_sum(dj * kNK + dk)));
             const int j = jb + dj, k = kb + dk;
             if (lane == 0) {
               out_ab[(j * V + k) * A + a] = v;

@@ -63,11 +63,10 @@
 namespace {
 
 template <int KT>
-__global__ void __launch_bounds__(dmx::kTiledWarps * 32,
-                                  16 / dmx::kTiledWarps)
+__global__ void __launch_bounds__(dmx::kTiledWarps<dmx::PK> * 32, 1)
 pair_tiled_exact_kernel(dmx::TiledParams<double> p) {
   extern __shared__ double smem[];  // 2 stages, then the row pointers
-  dmx::pair_tiled_body<KT>(p, smem);
+  dmx::pair_tiled_body<KT, dmx::PK>(p, smem);
 }
 
 }  // namespace
@@ -77,8 +76,8 @@ extern "C" {
 // The dynamic shared memory K7' takes with tile extent `tile` (bytes), or 0
 // for an extent it does not take.
 int dmx_pair_tiled_exact_smem(int tile) {
-  return tile == 8    ? dmx::Tile<8, double>::kSmem
-         : tile == 16 ? dmx::Tile<16, double>::kSmem
+  return tile == 8    ? dmx::Tile<8, dmx::PK, double>::kSmem
+         : tile == 16 ? dmx::Tile<16, dmx::PK, double>::kSmem
                       : 0;
 }
 
@@ -94,10 +93,12 @@ int dmx_pair_tiled_exact(const double* t, const double* g, const int* expand,
       t, g, expand, items, alist, out, B, S, V, A, n_items);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tile == 8) {
-    return dmx::launch_tiled<8>(pair_tiled_exact_kernel<8>, p, B, st);
+    return dmx::launch_tiled<8, dmx::PK>(pair_tiled_exact_kernel<8>, p, B,
+                                         st);
   }
   if (tile == 16) {
-    return dmx::launch_tiled<16>(pair_tiled_exact_kernel<16>, p, B, st);
+    return dmx::launch_tiled<16, dmx::PK>(pair_tiled_exact_kernel<16>, p, B,
+                                          st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

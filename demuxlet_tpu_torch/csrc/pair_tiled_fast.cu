@@ -26,9 +26,16 @@
 // (floats) per slot and spends a 3-term dot and a multiply per (j, k,
 // alpha) channel per slot: bytes bound it at V=32, A=2 (0.26 ms at B=2048,
 // S=1024) and f32 operations at A=5 (0.86 ms). PR 4's kernel took one
-// accurate logf per channel per slot (about 20 FP32 instructions) and each
-// of the tile's (j, alpha) rows re-read the tile's g_k rows through L1/L2;
-// it ran at 22x the bound (5.72 ms), and at twice the time of the f64 K7'.
+// accurate logf per channel per slot and each of the tile's (j, alpha)
+// rows re-read the tile's g_k rows through L1/L2. Step by step at V=32,
+// A=2, B=2048, S=1024 (chip_steps.py; H100 80GB HBM3, 700 W): 5.74 ms;
+// products in place of logf in that layout 7.31 (slower: the re-reads
+// stay, and a product's integer work on the exponent field runs at half
+// the FP32 rate); K7''s design below with 4 x 4 patches at 16 warps 2.03;
+// 4 x 8 patches at 8 warps, two blocks an SM, 1.75, 7x the bound. What
+// bounds it now is that arithmetic: a channel's step is a dot, a multiply
+// and ~5 integer operations; staging alone takes a fifth of the time
+// (DMX_PROBE, PERF.md).
 //
 // What the design does about it: K7''s design (tiled.cuh over stage.cuh)
 // instantiated in f32. One block owns one (cell, item) and streams the
@@ -38,12 +45,13 @@
 // rows (once, on diagonal tiles) and the 9 t rows of the alphas in flight,
 // each read from L2 once per block. 128 floats are 512 bytes a row, so a
 // warp's load is 128 consecutive bytes with no bank conflict. Each warp
-// owns one 4 x 4 patch of (j, k) channels of one alpha, its lanes over
-// slots: per slot a thread loads 4 g_j rows, 9 t values and 4 g_k rows from
-// shared memory for 16 channels, and each channel's step is a dot, a
+// owns one 4 x 8 patch of (j, k) channels of one alpha, its lanes over
+// slots: per slot a thread loads 4 g_j rows, 9 t values and 8 g_k rows from
+// shared memory for 32 channels, and each channel's step is a dot, a
 // multiply and a few integer operations on the f32 exponent field (no
 // log). An f32 accumulator takes 2 registers (mantissa, exponent), not 3 as
-// in f64. The lane's log(m) + e ln 2 and the warp-shuffle butterfly are f64,
+// in f64, so the 32 fit in 128 registers at 8 warps a block and two blocks
+// an SM. The lane's log(m) + e ln 2 and the warp-shuffle butterfly are f64,
 // rounded to f32 once per channel: no atomics, so runs give identical bits.
 // Blocks of one cell are adjacent in the grid, so the cell's rows come from
 // HBM about once and then from L2. Shapes, V, A, the tile list and expand
@@ -58,12 +66,15 @@
 
 namespace {
 
+// 4 x 8 patches: 8 warps of up to 128 registers, two blocks an SM (4 x 4
+// at 16 warps took 13-16% longer: PERF.md, PR 6)
+constexpr int kNK = 8;
+
 template <int KT>
-__global__ void __launch_bounds__(dmx::kTiledWarps * 32,
-                                  16 / dmx::kTiledWarps)
+__global__ void __launch_bounds__(dmx::kTiledWarps<kNK> * 32, 2)
 pair_tiled_fast_kernel(dmx::TiledParams<float> p) {
   extern __shared__ __align__(16) float smem[];  // 2 stages, row pointers
-  dmx::pair_tiled_body<KT>(p, smem);
+  dmx::pair_tiled_body<KT, kNK>(p, smem);
 }
 
 }  // namespace
@@ -73,8 +84,8 @@ extern "C" {
 // The dynamic shared memory K5' takes with tile extent `tile` (bytes), or 0
 // for an extent it does not take.
 int dmx_pair_tiled_fast_smem(int tile) {
-  return tile == 8    ? dmx::Tile<8, float>::kSmem
-         : tile == 16 ? dmx::Tile<16, float>::kSmem
+  return tile == 8    ? dmx::Tile<8, kNK, float>::kSmem
+         : tile == 16 ? dmx::Tile<16, kNK, float>::kSmem
                       : 0;
 }
 
@@ -90,10 +101,10 @@ int dmx_pair_tiled_fast(const float* t, const float* g, const int* expand,
       t, g, expand, items, alist, out, B, S, V, A, n_items);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tile == 8) {
-    return dmx::launch_tiled<8>(pair_tiled_fast_kernel<8>, p, B, st);
+    return dmx::launch_tiled<8, kNK>(pair_tiled_fast_kernel<8>, p, B, st);
   }
   if (tile == 16) {
-    return dmx::launch_tiled<16>(pair_tiled_fast_kernel<16>, p, B, st);
+    return dmx::launch_tiled<16, kNK>(pair_tiled_fast_kernel<16>, p, B, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

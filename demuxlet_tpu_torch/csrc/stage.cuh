@@ -11,8 +11,8 @@
 // computes on chunk c. Each warp reads the stage with its lanes over slots:
 // 32 consecutive values per load, no bank conflict.
 //
-// A patch is PJ j rows x PK k rows of one alpha in one thread: per slot it
-// loads PJ g_j rows, the 9 t values of the alpha and PK g_k rows, forms
+// A patch is PJ j rows x NK k rows of one alpha in one thread: per slot it
+// loads PJ g_j rows, the 9 t values of the alpha and NK g_k rows, forms
 // U[j, m] = sum_l g[j,l] t[l,m] once per j, and each g_k load then serves
 // PJ channels. The accumulators are logprod.cuh's products; a warp whose
 // lanes met no unsafe inner value in a slot (the rule) never branches.
@@ -30,19 +30,16 @@
 #define DMX_PROBE 0
 #endif
 
-// The patch's k extent, 4 unless a measurement build (chip_steps.py) asks
-// for another.
-#ifndef DMX_PK
-#define DMX_PK 4
-#endif
-
 namespace dmx {
 
-// The patch of one thread: PJ j rows x PK k rows, one bit each in a
-// channel mask. 4 x 4 at 16 warps (~128 registers a thread) beat 4 x 8 at
-// 8 warps (~190) by 26% on K7' (PERF.md, PR 5).
+// The patch of one thread: PJ j rows x NK k rows, one bit each in a
+// channel mask. In f64, 4 x 4 at 16 warps (~128 registers a thread) beat
+// 4 x 8 at 8 warps (~190) by 26% on K7' (PERF.md, PR 5): PK, the extent of
+// K3' and K7'. In f32 an accumulator takes 2 registers, not 3, so 4 x 8
+// fits in 128 registers at 16 warps an SM: 13-17% faster than 4 x 4 on K1
+// and K5' (PERF.md, PR 6), which take NK = 8.
 constexpr int PJ = 4;
-constexpr int PK = DMX_PK;
+constexpr int PK = 4;
 
 __host__ __device__ constexpr int cmax(int a, int b) {
   return a > b ? a : b;
@@ -87,9 +84,15 @@ __device__ __forceinline__ void stage_chunk(F* buf, const F* const* rows,
       if (src == nullptr || c >= n) continue;
       if (c + W <= n) {
         cp_async<16>(buf + r * CH + c, src + s0 + c);
+      } else if constexpr (W == 2) {
+        // the one slot left (a loop here cost K7' 3-10%: PERF.md, PR 6)
+        cp_async<sizeof(F)>(buf + r * CH + c, src + s0 + c);
       } else {
-        for (int q = c; q < n; ++q) {
-          cp_async<sizeof(F)>(buf + r * CH + q, src + s0 + q);
+#pragma unroll
+        for (int q = 0; q < W - 1; ++q) {  // at most W - 1 slots left
+          if (c + q < n) {
+            cp_async<sizeof(F)>(buf + r * CH + c + q, src + s0 + c + q);
+          }
         }
       }
     }
@@ -132,16 +135,16 @@ __device__ __forceinline__ void stream_chunks(F* smem,
   }
 }
 
-// One chunk of a patch, n slots at `stage`: g_j rows at stage rows
+// One chunk of a PJ x NK patch, n slots at `stage`: g_j rows at stage rows
 // gj + 3 dj + l, g_k rows at gk + 3 dk + l, the alpha's t rows at stage
 // element offsets to[0..8] ((l, m) order; in registers or in shared
-// memory). kGuard: only the channels whose bit (dj * PK + dk) is set in
+// memory). kGuard: only the channels whose bit (dj * NK + dk) is set in
 // act are updated (ragged edge, triangle).
-template <int CH, bool kGuard, int N, class F>
+template <int CH, int NK, bool kGuard, int N, class F>
 __device__ __forceinline__ void patch_chunk(const F* stage, int n, int gj,
                                             int gk, const int* to,
                                             unsigned act, Acc<N, F>& a) {
-  static_assert(N >= PJ * PK, "the patch's accumulators");
+  static_assert(N >= PJ * NK, "the patch's accumulators");
   const F* pj = stage + gj * CH;
   const F* pk = stage + gk * CH;
 #pragma unroll 1
@@ -168,14 +171,14 @@ __device__ __forceinline__ void patch_chunk(const F* stage, int n, int gj,
         }
       }
 #pragma unroll
-      for (int dk = 0; dk < PK; ++dk) {
+      for (int dk = 0; dk < NK; ++dk) {
         const F k0 = pk[(3 * dk) * CH + s];
         const F k1 = pk[(3 * dk + 1) * CH + s];
         const F k2 = pk[(3 * dk + 2) * CH + s];
 #pragma unroll
         for (int dj = 0; dj < PJ; ++dj) {
-          if (!kGuard || ((act >> (dj * PK + dk)) & 1u)) {
-            bad |= !a.step(dj * PK + dk,
+          if (!kGuard || ((act >> (dj * NK + dk)) & 1u)) {
+            bad |= !a.step(dj * NK + dk,
                            k0 * u[dj][0] + k1 * u[dj][1] + k2 * u[dj][2]);
           }
         }
@@ -184,14 +187,14 @@ __device__ __forceinline__ void patch_chunk(const F* stage, int n, int gj,
     // the rare path, taken by the whole warp: the same inner values again
     if (__any_sync(0xffffffffu, bad) && live) {
 #pragma unroll
-      for (int dk = 0; dk < PK; ++dk) {
+      for (int dk = 0; dk < NK; ++dk) {
         const F k0 = pk[(3 * dk) * CH + s];
         const F k1 = pk[(3 * dk + 1) * CH + s];
         const F k2 = pk[(3 * dk + 2) * CH + s];
 #pragma unroll
         for (int dj = 0; dj < PJ; ++dj) {
-          if (!kGuard || ((act >> (dj * PK + dk)) & 1u)) {
-            a.fix(dj * PK + dk, k0 * u[dj][0] + k1 * u[dj][1] + k2 * u[dj][2]);
+          if (!kGuard || ((act >> (dj * NK + dk)) & 1u)) {
+            a.fix(dj * NK + dk, k0 * u[dj][0] + k1 * u[dj][1] + k2 * u[dj][2]);
           }
         }
       }
@@ -199,35 +202,35 @@ __device__ __forceinline__ void patch_chunk(const F* stage, int n, int gj,
   }
 }
 
-// The channel mask of a patch at (j, k) = (jb + dj, kb + dk): k < V,
-// j < V, and k >= j on the symmetric plane.
+// The channel mask of a PJ x NK patch at (j, k) = (jb + dj, kb + dk):
+// k < V, j < V, and k >= j on the symmetric plane.
+template <int NK>
 __device__ __forceinline__ unsigned patch_mask(int jb, int kb, int V,
                                                bool sym) {
   unsigned act = 0;
 #pragma unroll
   for (int dj = 0; dj < PJ; ++dj) {
 #pragma unroll
-    for (int dk = 0; dk < PK; ++dk) {
+    for (int dk = 0; dk < NK; ++dk) {
       const int j = jb + dj, k = kb + dk;
-      if (j < V && k < V && (!sym || k >= j)) act |= 1u << (dj * PK + dk);
+      if (j < V && k < V && (!sym || k >= j)) act |= 1u << (dj * NK + dk);
     }
   }
   return act;
 }
 
-constexpr unsigned kFullPatch =
-    PJ * PK == 32 ? 0xffffffffu : (1u << (PJ * PK)) - 1u;
-
 // Runs patch_chunk with or without the guard, as the mask needs.
-template <int CH, int N, class F>
+template <int CH, int NK, int N, class F>
 __device__ __forceinline__ void patch_chunk_any(const F* stage, int n,
                                                 int gj, int gk,
                                                 const int* to, unsigned act,
                                                 Acc<N, F>& a) {
-  if (act == kFullPatch) {
-    patch_chunk<CH, false>(stage, n, gj, gk, to, act, a);
+  constexpr unsigned kFull =
+      PJ * NK == 32 ? 0xffffffffu : (1u << (PJ * NK)) - 1u;
+  if (act == kFull) {
+    patch_chunk<CH, NK, false>(stage, n, gj, gk, to, act, a);
   } else if (act != 0) {
-    patch_chunk<CH, true>(stage, n, gj, gk, to, act, a);
+    patch_chunk<CH, NK, true>(stage, n, gj, gk, to, act, a);
   }
 }
 

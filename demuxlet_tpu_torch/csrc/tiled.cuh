@@ -5,11 +5,12 @@
 // One block owns one (cell, item) and streams the cell's slots in chunks of
 // kTiledChunk through two shared-memory stages (stage.cuh): the tile's j
 // rows, its k rows (once, on diagonal tiles) and the 9 t rows of the alphas
-// of the current round. Each warp owns one PJ x PK patch of (j, k) channels
-// of one alpha; a KT x KT tile is (KT / PJ) * (KT / PK) patches per alpha,
-// and a block of kTiledWarps warps takes the item's patches in rounds, each
-// a pass over the slots. Products (logprod.cuh) end in one log per lane and
-// a fixed warp-shuffle butterfly in f64, rounded to F once per channel.
+// of the current round. Each warp owns one PJ x NK patch of (j, k) channels
+// of one alpha (NK: 4 in K7', 8 in K5'); a KT x KT tile is
+// (KT / PJ) * (KT / NK) patches per alpha, and a block of kTiledWarps<NK>
+// warps takes the item's patches in rounds, each a pass over the slots.
+// Products (logprod.cuh) end in one log per lane and a fixed warp-shuffle
+// butterfly in f64, rounded to F once per channel.
 
 #pragma once
 
@@ -23,7 +24,8 @@ namespace dmx {
 // Warps per block: one per patch of a 16 x 16 tile's alpha (4 x 4 patches:
 // 16 warps of up to 128 registers a thread; 4 x 8 patches: 8 warps, two
 // blocks an SM).
-constexpr int kTiledWarps = (16 / PJ) * (16 / PK);
+template <int NK>
+constexpr int kTiledWarps = (16 / PJ) * (16 / NK);
 constexpr int kItem = 5;  // ints per item: j0, k0, a_begin, a_count, sym
 constexpr int kTiledChunk = 128;  // 6% faster than 64 on K7' (PERF.md, PR 5)
 
@@ -37,32 +39,33 @@ struct TiledParams {
   F* out;             // (B, V*V*A)
   long long plane;    // B*S: stride between channels
   int S, V, A, n_items;
-  bool vec;  // 16-byte copies: S a multiple of 16 / sizeof(F), tensors aligned
+  bool vec;  // 16-byte copies: S % (16 / sizeof(F)) == 0, tensors aligned
 };
 
 // A KT tile's patches and the most rows a round stages: j rows, k rows,
 // and the 9 t rows of each alpha its warps' patches can touch.
-template <int KT, class F>
+template <int KT, int NK, class F>
 struct Tile {
-  static_assert(KT % PJ == 0 && KT % PK == 0, "patches must tile KT");
-  static constexpr int kNk = KT / PK;
+  static_assert(KT % PJ == 0 && KT % NK == 0, "patches must tile KT");
+  static constexpr int kWarps = kTiledWarps<NK>;
+  static constexpr int kNk = KT / NK;
   static constexpr int kPatches = (KT / PJ) * kNk;
-  // a round's units are kTiledWarps consecutive ones, alpha-major: it
-  // touches kTiledWarps / kPatches alphas, or one
-  static_assert(kTiledWarps % kPatches == 0 || kPatches % kTiledWarps == 0,
+  // a round's units are kWarps consecutive ones, alpha-major: it touches
+  // kWarps / kPatches alphas, or one
+  static_assert(kWarps % kPatches == 0 || kPatches % kWarps == 0,
                 "rounds must not straddle alphas unevenly");
   static constexpr int kRoundAlphas =
-      kTiledWarps > kPatches ? kTiledWarps / kPatches : 1;
+      kWarps > kPatches ? kWarps / kPatches : 1;
   static constexpr int kRows = 6 * KT + 9 * kRoundAlphas;
   static constexpr int kSmem = 2 * kRows * kTiledChunk * sizeof(F) +
                                kRows * sizeof(const F*);
 };
 
 // The kernel body; smem: the block's dynamic shared memory (Tile::kSmem).
-template <int KT, class F>
+template <int KT, int NK, class F>
 __device__ __forceinline__ void pair_tiled_body(const TiledParams<F>& p,
                                                 F* smem) {
-  using T = Tile<KT, F>;
+  using T = Tile<KT, NK, F>;
   constexpr int CH = kTiledChunk;
   const F** rows = reinterpret_cast<const F**>(smem + 2 * T::kRows * CH);
   const int item = blockIdx.x % p.n_items;
@@ -84,10 +87,10 @@ __device__ __forceinline__ void pair_tiled_body(const TiledParams<F>& p,
   const int trow = diag ? 3 * KT : 6 * KT;
   const int n_units = a_count * T::kPatches;
 
-  for (int u0 = 0; u0 < n_units; u0 += kTiledWarps) {
+  for (int u0 = 0; u0 < n_units; u0 += T::kWarps) {
     const int a_lo = u0 / T::kPatches;
     const int n_ra =
-        (min(u0 + kTiledWarps, n_units) - 1) / T::kPatches - a_lo + 1;
+        (min(u0 + T::kWarps, n_units) - 1) / T::kPatches - a_lo + 1;
     const int n_rows = trow + 9 * n_ra;
     for (int r = threadIdx.x; r < n_rows; r += blockDim.x) {
       const F* src = nullptr;
@@ -108,27 +111,27 @@ __device__ __forceinline__ void pair_tiled_body(const TiledParams<F>& p,
     const int u = u0 + warp;
     const int ai = u / T::kPatches, patch = u % T::kPatches;
     const int jb = j0 + (patch / T::kNk) * PJ;
-    const int kb = k0 + (patch % T::kNk) * PK;
-    const unsigned act = u < n_units ? patch_mask(jb, kb, V, sym) : 0u;
+    const int kb = k0 + (patch % T::kNk) * NK;
+    const unsigned act = u < n_units ? patch_mask<NK>(jb, kb, V, sym) : 0u;
     const int gj = 3 * (jb - j0), gk = krow + 3 * (kb - k0);
     int to[9];
 #pragma unroll
     for (int c = 0; c < 9; ++c) to[c] = (trow + 9 * (ai - a_lo) + c) * CH;
-    Acc<PJ * PK, F> acc;
+    Acc<PJ * NK, F> acc;
     acc.init();
     stream_chunks<CH, F>(smem, rows, n_rows, S, p.vec,
                          [&](const F* stage, int n) {
-                           patch_chunk_any<CH>(stage, n, gj, gk, to, act,
-                                               acc);
+                           patch_chunk_any<CH, NK>(stage, n, gj, gk, to,
+                                                   act, acc);
                          });
     if (act != 0) {
       const int a = p.alist[a_begin + ai];
 #pragma unroll
       for (int dj = 0; dj < PJ; ++dj) {
 #pragma unroll
-        for (int dk = 0; dk < PK; ++dk) {
-          if ((act >> (dj * PK + dk)) & 1u) {
-            const F v = static_cast<F>(warp_sum(acc.log_sum(dj * PK + dk)));
+        for (int dk = 0; dk < NK; ++dk) {
+          if ((act >> (dj * NK + dk)) & 1u) {
+            const F v = static_cast<F>(warp_sum(acc.log_sum(dj * NK + dk)));
             const int j = jb + dj, k = kb + dk;
             if (lane == 0) {
               out[(j * V + k) * A + a] = v;
@@ -145,10 +148,10 @@ __device__ __forceinline__ void pair_tiled_body(const TiledParams<F>& p,
 
 // Sets the kernel's dynamic shared memory and launches it on B * n_items
 // blocks; returns the first CUDA error (0 on success).
-template <int KT, class F>
+template <int KT, int NK, class F>
 int launch_tiled(void (*kernel)(TiledParams<F>), const TiledParams<F>& p,
                  int B, cudaStream_t stream) {
-  constexpr int bytes = Tile<KT, F>::kSmem;
+  constexpr int bytes = Tile<KT, NK, F>::kSmem;
   const long long n_blocks = static_cast<long long>(B) * p.n_items;
   if (n_blocks < 1 || n_blocks > 0x7fffffffLL ||
       p.S > 32LL * kMaxSteps) {
@@ -157,7 +160,7 @@ int launch_tiled(void (*kernel)(TiledParams<F>), const TiledParams<F>& p,
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(n_blocks), kTiledWarps * 32, bytes,
+  kernel<<<static_cast<unsigned>(n_blocks), kTiledWarps<NK> * 32, bytes,
            stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

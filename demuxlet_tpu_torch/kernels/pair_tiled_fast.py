@@ -7,11 +7,13 @@ channel, so bytes bound it at V=32, A=2 (0.26 ms at B=2048, S=1024) and
 f32 operations at A=5. Design: K7''s (``csrc/tiled.cuh``, the body both
 share) in f32. One (cell, tile) per block streams the cell's slots
 through shared memory in chunks of 128 (``csrc/stage.cuh``); each warp
-owns a 4 x 4 patch of (j, k) channels of one alpha; each channel keeps an
+owns a 4 x 8 patch of (j, k) channels of one alpha; each channel keeps an
 f32 product with exponent tracking and takes one f64 log per lane
 (``csrc/logprod.cuh``), then a fixed f64 warp-shuffle reduction rounded
 to f32 once, so runs are bit-reproducible; the symmetric plane runs on
-upper-triangle tiles and is mirrored. See the source.
+upper-triangle tiles and is mirrored. 1.75 ms at that shape on an H100
+80GB HBM3 at 700 W (5.74 ms for PR 4's logf-per-slot kernel; PERF.md).
+See the source.
 
 The wrapper validates its inputs, allocates the output with
 ``torch.zeros`` (the separable alpha == 0 plane, which no tile writes,
