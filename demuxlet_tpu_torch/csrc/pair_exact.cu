@@ -324,10 +324,6 @@ int chunk_for(const Params& p) {
   return smem_bytes(p, ch) <= kSmemMax ? ch : 0;
 }
 
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<unsigned long long>(ptr) & 15) == 0;
-}
-
 Params shape_params(int B, int S, int V, int A, int C, int a0_sep,
                     int sym_a) {
   Params p = {};
@@ -372,7 +368,8 @@ int dmx_pair_exact(const double* t, const double* g, const double* gl,
   p.out_00 = out_00;
   p.out_s = out_s;
   p.out_s0 = out_s0;
-  p.vec = S % 2 == 0 && aligned16(t) && aligned16(g) && aligned16(gl);
+  p.vec = S % 2 == 0 && dmx::aligned16(t) && dmx::aligned16(g) &&
+          dmx::aligned16(gl);
   const int ch = chunk_for(p);
   if (B < 1 || V < 1 || A < 1 || C < 1 || ch == 0 ||
       S > 32LL * dmx::kMaxSteps) {

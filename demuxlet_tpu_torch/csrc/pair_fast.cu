@@ -341,10 +341,6 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<unsigned long long>(ptr) & 15) == 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -378,7 +374,7 @@ int dmx_pair_fast(const float* t, const float* g, const int* expand,
   p.A = A;
   p.a0_sep = a0_sep ? 1 : 0;
   p.sym_a = sym_a;
-  p.vec = S % 4 == 0 && aligned16(t) && aligned16(g);
+  p.vec = S % 4 == 0 && dmx::aligned16(t) && dmx::aligned16(g);
   if (B < 1 || V < 1 || V > 20 || A < 1 || S > 32LL * dmx::kMaxSteps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

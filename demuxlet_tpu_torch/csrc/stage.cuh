@@ -45,6 +45,11 @@ __host__ __device__ constexpr int cmax(int a, int b) {
   return a > b ? a : b;
 }
 
+// Whether a tensor's base allows the stages' 16-byte copies.
+inline bool aligned16(const void* ptr) {
+  return (reinterpret_cast<unsigned long long>(ptr) & 15) == 0;
+}
+
 // cp.async of one value of BYTES (4 or 8; through L1) or of 16 bytes
 // (bypassing L1)
 template <int BYTES>

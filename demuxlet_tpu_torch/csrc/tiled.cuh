@@ -165,10 +165,6 @@ int launch_tiled(void (*kernel)(TiledParams<F>), const TiledParams<F>& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-inline bool aligned16(const void* ptr) {
-  return (reinterpret_cast<unsigned long long>(ptr) & 15) == 0;
-}
-
 // The launch parameters of the tiled kernels' C entry points.
 template <class F>
 TiledParams<F> tiled_params(const F* t, const F* g, const int* expand,
