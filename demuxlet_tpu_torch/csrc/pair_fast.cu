@@ -22,9 +22,9 @@
 // What limits it on this card: per slot the function reads 3V + C floats
 // and spends a 3-term dot and a multiply per channel (V=8, A=5: 259
 // channels with a0_sep and sym_a), so bytes bound it (0.10 ms at B=2048,
-// S=1024). PR 1's kernel took one accurate logf per channel per slot and
-// each of its (j, alpha) rows re-read 3V g_k values per slot through
-// L1/L2. Step by step at V=8, A=5, B=2048, S=1024 (chip_steps.py; H100
+// S=1024). The first port of it took one accurate logf per channel per
+// slot and each of its (j, alpha) rows re-read 3V g_k values per slot
+// through L1/L2. Step by step at V=8, A=5, B=2048, S=1024 (chip_steps.py; H100
 // 80GB HBM3, 700 W): 2.09 ms; products in place of logf in that layout
 // 2.74 (slower: the re-reads stay, and a product's integer work on the
 // exponent field runs at half the FP32 rate); K3''s design below with
@@ -67,7 +67,7 @@ namespace {
 
 using dmx::PJ;
 
-// 4 x 8 patches (4 x 4 took 17% longer: PERF.md, PR 6)
+// 4 x 8 patches (4 x 4 took 17% longer: PERF.md)
 constexpr int kNK = 8;
 constexpr int kMaxWarps = 16;  // each thread up to 128 registers
 constexpr int kX = 4;          // the most O(V) channels a unit carries

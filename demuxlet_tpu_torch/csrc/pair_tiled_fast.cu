@@ -25,8 +25,8 @@
 // What limits it on this card: the function reads 3V + the used t channels
 // (floats) per slot and spends a 3-term dot and a multiply per (j, k,
 // alpha) channel per slot: bytes bound it at V=32, A=2 (0.26 ms at B=2048,
-// S=1024) and f32 operations at A=5 (0.86 ms). PR 4's kernel took one
-// accurate logf per channel per slot and each of the tile's (j, alpha)
+// S=1024) and f32 operations at A=5 (0.86 ms). The first port of it took
+// one accurate logf per channel per slot and each of the tile's (j, alpha)
 // rows re-read the tile's g_k rows through L1/L2. Step by step at V=32,
 // A=2, B=2048, S=1024 (chip_steps.py; H100 80GB HBM3, 700 W): 5.74 ms;
 // products in place of logf in that layout 7.31 (slower: the re-reads
@@ -67,7 +67,7 @@
 namespace {
 
 // 4 x 8 patches: 8 warps of up to 128 registers, two blocks an SM (4 x 4
-// at 16 warps took 13-16% longer: PERF.md, PR 6)
+// at 16 warps took 13-16% longer: PERF.md)
 constexpr int kNK = 8;
 
 template <int KT>

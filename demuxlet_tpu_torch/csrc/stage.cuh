@@ -34,10 +34,10 @@ namespace dmx {
 
 // The patch of one thread: PJ j rows x NK k rows, one bit each in a
 // channel mask. In f64, 4 x 4 at 16 warps (~128 registers a thread) beat
-// 4 x 8 at 8 warps (~190) by 26% on K7' (PERF.md, PR 5): PK, the extent of
+// 4 x 8 at 8 warps (~190) by 26% on K7' (PERF.md): PK, the extent of
 // K3' and K7'. In f32 an accumulator takes 2 registers, not 3, so 4 x 8
 // fits in 128 registers at 16 warps an SM: 13-17% faster than 4 x 4 on K1
-// and K5' (PERF.md, PR 6), which take NK = 8.
+// and K5' (PERF.md), which take NK = 8.
 constexpr int PJ = 4;
 constexpr int PK = 4;
 
@@ -90,7 +90,7 @@ __device__ __forceinline__ void stage_chunk(F* buf, const F* const* rows,
       if (c + W <= n) {
         cp_async<16>(buf + r * CH + c, src + s0 + c);
       } else if constexpr (W == 2) {
-        // the one slot left (a loop here cost K7' 3-10%: PERF.md, PR 6)
+        // the one slot left (a loop here cost K7' 3-10%: PERF.md)
         cp_async<sizeof(F)>(buf + r * CH + c, src + s0 + c);
       } else {
 #pragma unroll

@@ -27,7 +27,7 @@ namespace dmx {
 template <int NK>
 constexpr int kTiledWarps = (16 / PJ) * (16 / NK);
 constexpr int kItem = 5;  // ints per item: j0, k0, a_begin, a_count, sym
-constexpr int kTiledChunk = 128;  // 6% faster than 64 on K7' (PERF.md, PR 5)
+constexpr int kTiledChunk = 128;  // 6% faster than 64 on K7' (PERF.md)
 
 template <class F>
 struct TiledParams {

@@ -13,8 +13,8 @@ tracking and takes one f64 log per lane (``csrc/logprod.cuh``), then a
 fixed f64 warp-shuffle reduction rounded to f32 once, so runs are
 bit-reproducible. A round of warps stages only its own alphas' t rows, so
 shared memory does not grow with A: every V*V*A <= 384 shape launches.
-0.83 ms at that shape on an H100 80GB HBM3 at 700 W (2.09 ms for PR 1's
-logf-per-slot kernel; PERF.md). See the source for details.
+0.83 ms at that shape on an H100 80GB HBM3 at 700 W (2.09 ms for the
+first, logf-per-slot kernel; PERF.md). See the source for details.
 
 The wrapper validates its inputs, allocates the outputs with
 ``torch.empty`` (``torch.zeros`` when S == 0: every sum is empty),

@@ -12,7 +12,8 @@ f32 product with exponent tracking and takes one f64 log per lane
 (``csrc/logprod.cuh``), then a fixed f64 warp-shuffle reduction rounded
 to f32 once, so runs are bit-reproducible; the symmetric plane runs on
 upper-triangle tiles and is mirrored. 1.75 ms at that shape on an H100
-80GB HBM3 at 700 W (5.74 ms for PR 4's logf-per-slot kernel; PERF.md).
+80GB HBM3 at 700 W (5.74 ms for the first, logf-per-slot kernel;
+PERF.md).
 See the source.
 
 The wrapper validates its inputs, allocates the output with
