@@ -78,7 +78,9 @@ def build(name: str, csrc: str = CSRC, defines=()) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
+    # one temporary file per build: threads of one process may build the
+    # same library at once (chip_steps.py's variants can share a digest)
+    tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
     cmd = [nvcc_path(), *flags, "-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

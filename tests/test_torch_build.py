@@ -59,3 +59,32 @@ def test_repo_kernels_hash_their_headers():
         if '.cuh"' in text:
             assert name in pair
         assert len(kbuild.source_digest(name)) == 64
+
+
+def test_concurrent_builds_of_one_library(csrc, tmp_path, monkeypatch):
+    """Two threads of one process building the same library (the same
+    digest) both return its path; neither finds its temporary file taken
+    by the other. nvcc is replaced by a stand-in that returns only when
+    both builds have written their -o files."""
+    import subprocess
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    both = threading.Barrier(2, timeout=10)
+
+    def fake_nvcc(cmd, **kwargs):
+        with open(cmd[cmd.index("-o") + 1], "w") as fh:
+            fh.write("lib")
+        both.wait()
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path / "out"))
+    monkeypatch.setattr(kbuild, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(kbuild.subprocess, "run", fake_nvcc)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        paths = list(pool.map(lambda _: kbuild.build("k", str(csrc)),
+                              range(2)))
+    assert paths[0] == paths[1] and os.path.exists(paths[0])
+    assert sorted(os.listdir(tmp_path / "out")) == sorted(
+        [os.path.basename(paths[0]), os.path.basename(paths[0]) +
+         ".ptxas.txt"])
