@@ -13,7 +13,7 @@ each against its plain PyTorch version on the card. Phases, one line each:
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. nvcc build of every csrc/*.cu, one nvcc each, all started together
      (seconds per kernel; ptxas's registers, stack and spills per
-     instantiation; a spill or a stack frame in K1, K3', K5' or K7'
+     instantiation; a spill or a stack frame in K1, K3', K5', K6' or K7'
      fails);
   3. K1 against pair_llks_plain at the main-path shapes, a V=1 pool of
      384 alphas and the engine's deepest slot pad S = 4096 (max relative
@@ -26,14 +26,17 @@ each against its plain PyTorch version on the card. Phases, one line each:
   5. the CLI (--mode fast) on a BAM/VCF from tests/fixtures.py (150 cells,
      V=8): its .best calls equal the host-oracle --mode parity calls;
   6. K2' (front_exact) and K3' (pair_exact) against their plain versions
-     at the main-path shapes and the engine's deepest slot pad S = 4096
-     (K2': t and gl within 1e-12 relative; K3': LLKs within 1e-9
+     at the main-path shapes, the engine's deepest slot pad S = 4096 and,
+     for K2', the engine's lane profile (U = 64 lanes as wire-v2 parts:
+     U0 dense lanes and a sorted tail of K2p entries a cell; U, U0 and K2p
+     printed) (K2': t and gl within 1e-12 relative; K3': LLKs within 1e-9
      absolute, two launches bit-equal, the alpha == 0.5 plane exactly
      symmetric, its dynamic shared memory; median ms of 20 launches each);
      and pair_exact on a V=1 pool of 200 alphas, whose t channels K3''s
      stages cannot hold: K7' and K6' launched, K3' not, within 1e-9;
   7. exact run_compact on the same pileup: K2' and K3' launched once per
-     block, barcodes/s and phase seconds, the first 2 and the last
+     block and no deep lanes rebuilt (``ops/wire.rebuilds``: K2' reads the
+     wire-v2 parts), barcodes/s and phase seconds, the first 2 and the last
      (deepest) block again through the plain versions on the card (floats
      within 1e-9 absolute, integer fields equal except counted near ties);
   8. the CLI with no --mode (exact) on the same BAM/VCF: .single and
@@ -42,11 +45,13 @@ each against its plain PyTorch version on the card. Phases, one line each:
   9. K7' (pair_tiled_exact) and K6' (extras_exact) against their plain
      versions at B=2048, S=1024 for (V, A) = (32, 5), (32, 2), (20, 2),
      (17, 3), a ragged B=40/S=384 case (V=7, A=8: one 8-tile) and the
-     deepest pad (V=32, A=2, S=4096): within 1e-9 absolute, K7' bit-equal
-     over two launches, the plane exactly symmetric; kernel ms (median of
-     CUDA-event timed launches), plain ms and K7''s dynamic shared memory;
+     deepest pad (V=32, A=2, S=4096): within 1e-9 absolute, K7' and K6'
+     bit-equal over two launches, the plane exactly symmetric; kernel ms
+     (median of CUDA-event timed launches), plain ms and K7''s and K6''s
+     dynamic shared memory;
  10. exact run_compact on the same pileup with V=32 donors on the default
-     grid: K2', K7' and K6' launched once per block and K3' never, rate,
+     grid: K2', K7' and K6' launched once per block, K3' never and no
+     deep lanes rebuilt, rate,
      phase seconds, peak device memory, and the first 2 and the deepest
      block through the plain versions (1e-9 absolute, near ties counted);
  11. the CLI with no --mode on a V=16 default-grid BAM/VCF (100 cells,
@@ -64,8 +69,8 @@ each against its plain PyTorch version on the card. Phases, one line each:
  14. per run (exact and fast at V=8, exact and fast at V=32), one more
      run_compact on the pileup (rate, phase seconds, peak device memory)
      and one under torch.profiler: the device's busy ms and idle share, the
-     top ops by device ms, and the port's kernels' ms per block slot
-     pad.
+     top ops by device ms, the port's kernels' ms per block slot pad, and
+     (exact runs: none) the lane rebuilds.
 
 Then a JSON line of per-kernel numbers (with each kernel's bound: the
 larger of its operations over the card's peak rate for their type and its
@@ -362,6 +367,65 @@ def exact_inputs(rng, B, S, grid, dev, nv=V):
     return tab, codes, torch.from_numpy(~pad).to(dev), g
 
 
+def lane_profile_inputs(rng, B, S, dev, grid=GRID, nv=V, U=64):
+    """K2' inputs at the engine's lane profile, as the exact path reads
+    them: a block of 1 + Poisson(0.15) UMIs per slot, ~1% PCR-hot slots of
+    32-64 UMIs and ~20% padded slots on a 4-code wire-v2 dictionary (a
+    5-row exact LUT), split into U0 dense lanes and a sorted tail by the
+    packer's own rule (``host/wire._split_tail``, U0 from its cost model).
+    Returns (tab, dense (B,S,U0), (tpos, tcode) (B,K2p) or None, U - U0,
+    msk, g, info) on dev: msk derived from the dense lanes as the unpacker
+    does, g as ``exact_inputs`` draws it; info: U, U0, K2p, the tail width
+    and its real entries."""
+    from demuxlet_tpu_torch.host import wire as W
+    from demuxlet_tpu_torch.models.engine import exact_tables_from_numpy
+
+    cfg = W.WireCfg((23, 37, 41 + 23, 41 + 37), 4, 8)
+    n = 1 + rng.poisson(0.15, size=(B, S))
+    hot = rng.random((B, S)) < 0.01
+    n[hot] = rng.integers(32, U + 1, size=int(hot.sum()))
+    n[rng.random((B, S)) < 0.2] = 0
+    wc = np.full((B, S, U), cfg.none, np.uint8)
+    occ = np.arange(U) < n[..., None]
+    wc[occ] = rng.integers(0, cfg.n_real, size=int(occ.sum()))
+    del occ
+    dense, U0, K2p, tw, tpos, tcode = W._split_tail(wc, cfg)
+    del wc
+    D = U - U0
+    tail, real = None, 0
+    if K2p:
+        if tw == 24:
+            tpos = tpos[0].astype(np.int64) * D + tpos[1]
+        tpos = tpos.astype(np.int32)
+        real = int((tpos < S * D).sum())
+        tail = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(
+            torch.int32).to(dev) for x in (tpos, tcode))
+    dense = torch.from_numpy(dense.astype(np.int32)).to(dev)
+    msk = (dense != cfg.none).any(dim=-1)
+    tab = exact_tables_from_numpy(np.full((1, nv, 3), 1 / 3), grid, 40, cfg,
+                                  dev)
+    g = flat_dirichlet(rng, (nv, 3, B, S), dev)
+    g = neutral_on((~msk).cpu().numpy(),
+                   torch.cat([g, g.mean(dim=0, keepdim=True)]))
+    return tab, dense, tail, D, msk, g, dict(U=U, U0=U0, K2p=K2p, tw=tw,
+                                             tail_entries=real)
+
+
+def k2_bound(B, S, tab, dense, tail, real, msk, t, gl):
+    """K2''s bound from the parts it reads: per slot its U0 dense codes,
+    its C-wide LUT row adds for the dense lanes and the real tail entries,
+    and the exps of the mixture and singlet channels; bytes: dense, tail,
+    mask, LUT and the outputs."""
+    C = tab.lut.shape[1]
+    ops = (dense.numel() + real) * C \
+        + B * S * (sum(tab.cmask) + 3) * (LOG_OPS + 3)
+    nbytes = 4 * dense.numel() + msk.numel() + 8 * (
+        tab.lut.numel() + t.numel() + gl.numel())
+    if tail is not None:
+        nbytes += 8 * tail[0].numel()
+    return bound(ops, nbytes, "f64")
+
+
 def cli_case(tmp, n_samples, n_cells, reads_per_cell):
     """A BAM/VCF from tests/fixtures.py (200 SNPs) in tmp."""
     import random
@@ -519,6 +583,7 @@ def drive_engine(csr, gps, mode, dev, kernels, grid=GRID, absent=()):
     the plain versions. Returns (phase fields, {kernel module:
     launches})."""
     from demuxlet_tpu_torch.models.engine import DemuxEngine
+    from demuxlet_tpu_torch.ops import wire
 
     nv = gps.shape[1]
     # warm-up on another pileup: builds the native packer, inits cuBLAS
@@ -529,12 +594,17 @@ def drive_engine(csr, gps, mode, dev, kernels, grid=GRID, absent=()):
     eng = DemuxEngine(gps, grid, cell_block=CELL_BLOCK, mode=mode, device=dev)
     for k in (*kernels, *absent):
         k.reset_launches()
+    wire.rebuilds = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     llks, llk0s, comp = eng.run_compact(csr, 0.5)
     wall = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = {k: k.launches for k in (*kernels, *absent)}
+    rebuilds = wire.rebuilds
+    if mode == "exact" and rebuilds:
+        fail(f"exact engine rebuilt deep lanes {rebuilds} times: K2' reads "
+             "the wire-v2 parts")
     blocks, pads = eng._blocks(csr.nbcs, csr)
     if len(blocks) != N_CELLS // CELL_BLOCK or any(
             launches[k] != len(blocks) for k in kernels) or any(
@@ -558,7 +628,7 @@ def drive_engine(csr, gps, mode, dev, kernels, grid=GRID, absent=()):
                   barcodes_per_s=N_CELLS / wall, seconds=wall,
                   phase_s=eng.phase_s, h2d_bytes=eng.h2d_bytes,
                   peak_device_gb=peak / 1e9, plain_check_blocks=checked,
-                  near_tie_cells=ties)
+                  near_tie_cells=ties, lane_rebuilds=rebuilds)
     fields["plain_max_abs_err" if exact else "plain_max_rel_err"] = err
     return fields, launches
 
@@ -618,9 +688,11 @@ def profile_engine(csr, gps, mode, dev, grid=GRID):
     from torch.profiler import ProfilerActivity, profile
 
     from demuxlet_tpu_torch.models.engine import DemuxEngine
+    from demuxlet_tpu_torch.ops import wire
 
     eng = DemuxEngine(gps, grid, cell_block=CELL_BLOCK, mode=mode, device=dev)
     eng.run_compact(csr, 0.5)  # the engine's tables
+    wire.rebuilds = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -632,6 +704,9 @@ def profile_engine(csr, gps, mode, dev, grid=GRID):
                              ProfilerActivity.CUDA]) as prof:
         eng.run_compact(csr, 0.5)
         torch.cuda.synchronize()
+    rebuilds = wire.rebuilds
+    if mode == "exact" and rebuilds:
+        fail(f"traced exact runs rebuilt deep lanes {rebuilds} times")
     blocks, pads = eng._blocks(csr.nbcs, csr)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -642,7 +717,7 @@ def profile_engine(csr, gps, mode, dev, grid=GRID):
                 barcodes_per_s=csr.nbcs / wall, phase_s=phase_s,
                 peak_device_gb=peak / 1e9, device_busy_ms=busy,
                 idle_share=1.0 - busy / 1e3 / wall, top_device_ms=top,
-                kernel_ms_by_S=by_s)
+                kernel_ms_by_S=by_s, lane_rebuilds=rebuilds)
 
 
 def main() -> int:
@@ -683,7 +758,7 @@ def main() -> int:
         phase("build", kernel=name, seconds=secs,
               library=os.path.relpath(lib_path, HERE), ptxas=entries)
         if name in ("pair_exact", "pair_tiled_exact", "pair_fast",
-                    "pair_tiled_fast") and any(
+                    "pair_tiled_fast", "extras_exact") and any(
                 e.get("spill_stores", 1) or e.get("stack", 1)
                 for e in entries):
             fail(f"{name}: ptxas reports spills or a stack frame: {entries}")
@@ -770,10 +845,19 @@ def main() -> int:
             ("default_grid", 2048, 1024, [0.0, 0.5]),
             ("ragged", 40, 384, GRID),
             ("deep", 2048, 4096, GRID),  # the engine's deepest slot pad
+            # the engine's lane profile as the exact path reads it
+            ("lanes", 2048, 1024, GRID),
         ):
             A = len(grid)
-            tab, codes, msk, g = exact_inputs(rng, B, S, grid, dev)
-            fargs = (codes, tab.lut, msk, tab.cmask, tab.gsel)
+            if name == "lanes":
+                tab, codes, tail, n_deep, msk, g, lanes = \
+                    lane_profile_inputs(rng, B, S, dev, grid)
+            else:
+                tab, codes, msk, g = exact_inputs(rng, B, S, grid, dev)
+                tail, n_deep = None, 0
+                lanes = dict(U=codes.shape[2], U0=codes.shape[2], K2p=0,
+                             tail_entries=0)
+            fargs = (codes, tab.lut, msk, tab.cmask, tab.gsel, tail, n_deep)
             t, gl = front_exact(*fargs)
             torch.cuda.synchronize()
             pt, pgl = front_exact_plain(*fargs)
@@ -785,17 +869,15 @@ def main() -> int:
                 fail(f"K2' {name}: max relative error {err} > {FRONT_TOL}")
             ms = median_ms(lambda: front_exact(*fargs))
             plain_ms = median_ms(lambda: front_exact_plain(*fargs))
-            C, U = tab.lut.shape[1], codes.shape[2]
-            b_ms, b_by = bound(
-                B * S * (C * U + (sum(tab.cmask) + 3) * (LOG_OPS + 3)),
-                4 * codes.numel() + msk.numel() + 8 * (
-                    tab.lut.numel() + t.numel() + gl.numel()), "f64")
-            phase("k2_vs_plain", case=name, B=B, S=S, U=U,
-                  R=tab.lut.shape[0], C=C, max_rel_err=err,
+            b_ms, b_by = k2_bound(B, S, tab, codes, tail,
+                                  lanes["tail_entries"], msk, t, gl)
+            phase("k2_vs_plain", case=name, B=B, S=S, **lanes,
+                  R=tab.lut.shape[0], C=tab.lut.shape[1], max_rel_err=err,
                   max_abs_err=aerr, tol=FRONT_TOL, ms=ms, plain_ms=plain_ms,
                   bound_ms=b_ms, bound_by=b_by)
-            record("k2", name == "main", aerr, err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by)
+            # the table's K2' row: the engine's lane profile
+            record("k2", name == "lanes", aerr, err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
             pargs = (t, g, gl, V, A, grid[0] == 0.0, grid.index(0.5),
                      tab.expand)
             got = [x.clone() for x in pair_exact(*pargs)]
@@ -828,7 +910,8 @@ def main() -> int:
             record("k3", name == "main", aerr, err, ms=ms, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by)
             # the argument tuples hold the inputs too
-            del tab, codes, msk, g, t, gl, pt, pgl, got, want, fargs, pargs
+            del tab, codes, tail, msk, g, t, gl, pt, pgl, got, want, fargs
+            del pargs
         torch.cuda.empty_cache()
 
         # K3''s refused shapes: a V=1 pool of 200 alphas (C t channels
@@ -883,7 +966,7 @@ def main() -> int:
         a7 = (t, g, nv, A, plan, tab.expand)
         a6 = (t, g, gl, nv, A, a0_sep, tab.expand)
         got7, got6 = PT.pair_tiled(*a7), PT.extras(*a6)
-        again7 = PT.pair_tiled(*a7)
+        again7, again6 = PT.pair_tiled(*a7), PT.extras(*a6)
         torch.cuda.synchronize()
         e7 = abs_err(got7, PT.pair_tiled_plain(*a7))
         e6 = abs_err(got6, PT.extras_plain(*a6))
@@ -893,10 +976,10 @@ def main() -> int:
                  f"{EXACT_TOL}")
         plane = got7[..., sym_a]
         if not (torch.equal(plane, plane.transpose(1, 2))
-                and torch.equal(got7, again7)):
-            fail(f"K7' {name}: two launches differ or the alpha == 0.5 "
+                and torch.equal(got7, again7) and torch.equal(got6, again6)):
+            fail(f"K7'/K6' {name}: two launches differ or the alpha == 0.5 "
                  "plane is not symmetric")
-        del again7
+        del again7, again6
         big = B * S * nv * nv * A > 1 << 30  # the plain versions take ~1 s
         ms7 = median_ms(lambda: PT.pair_tiled(*a7))
         plain7 = median_ms(lambda: PT.pair_tiled_plain(*a7), n=3 if big else 10)
@@ -913,9 +996,9 @@ def main() -> int:
                    "f64")
         phase("k7_k6_vs_plain", case=name, B=B, S=S, V=nv, A=A, C=t.shape[0],
               tile=plan.tile, tile_items=len(plan.items), k7_max_abs_err=e7,
-              k6_max_abs_err=e6, tol=EXACT_TOL, k7_relaunch_bit_equal=True,
-              sym_plane_exact=True,
-              k7_smem_bytes=k7.smem_bytes(plan.tile), k7_ms=ms7,
+              k6_max_abs_err=e6, tol=EXACT_TOL, relaunch_bit_equal=True,
+              sym_plane_exact=True, k7_smem_bytes=k7.smem_bytes(plan.tile),
+              k6_smem_bytes=k6.smem_bytes(nv, A, a0_sep), k7_ms=ms7,
               k7_plain_ms=plain7, k7_bound_ms=b7[0], k7_bound_by=b7[1],
               k6_ms=ms6, k6_plain_ms=plain6, k6_bound_ms=b6[0],
               k6_bound_by=b6[1])

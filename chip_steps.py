@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
 """Times the pair kernels K3' (csrc/pair_exact.cu), K7'
 (csrc/pair_tiled_exact.cu), K1 (csrc/pair_fast.cu) and K5'
-(csrc/pair_tiled_fast.cu) of several source trees side by side on one
-CUDA card, at the shapes of ``chip_smoke.py``'s phases 3, 6, 9 and 12 and
-at the engine's deepest slot pad (S = 4096).
+(csrc/pair_tiled_fast.cu), the exact front K2' (csrc/front_exact.cu) and
+K7''s O(V) channels K6' (csrc/extras_exact.cu) of several source trees
+side by side on one CUDA card, at the shapes of ``chip_smoke.py``'s phases
+3, 6, 9 and 12, at the engine's deepest slot pad (S = 4096) and, for K2',
+at the engine's lane profile (``chip_smoke.lane_profile_inputs``: U = 64
+lanes as wire-v2 parts; U, U0 and K2p printed).
 
 Each variant is a csrc directory, optional -D macros and optionally the
-kernels it is built for (default: all four); every variant's library is
+kernels it is built for (default: all six); every variant's library is
 built with nvcc (``kernels/build.py``, in parallel) and called through its
 C entry point, so variants with the same entry points compare on the same
-inputs in one process. Per shape: each variant's error against the plain
-PyTorch version (exact kernels: absolute, limit 1e-9; fast kernels:
-relative with scale max(1, |x|), limit 2e-5), whether two launches give
-identical bits, whether its outputs equal the first variant's bit for bit
-(required of the exact kernels: a change that leaves them as they were
-shows it here), and its median ms over CUDA-event timed launches, taken in
-turns (first to last, then last to first; both medians printed). One JSON
-line per (shape, variant), ptxas's report per variant, then the card's
-name and power limit.
+inputs in one process. K2' before the wire-v2 parts (no
+``dmx_front_exact_smem``) takes the full lanes, rebuilt once from the same
+parts. Per shape: each variant's error against the plain PyTorch version
+(K2': relative, limit 1e-12; the other exact kernels: absolute, limit
+1e-9; fast kernels: relative with scale max(1, |x|), limit 2e-5), whether
+two launches give identical bits, whether its outputs equal the first
+variant's bit for bit (required of K3', K7' and K2': a change that leaves
+them as they were shows it here), and its median ms over CUDA-event timed
+launches, taken in turns (first to last, then last to first; both medians
+printed). One JSON line per (shape, variant), ptxas's report per variant,
+then the card's name and power limit.
 
 Usage: python3 chip_steps.py [LABEL=DIR[:MACRO,MACRO...][@KERNEL,...] ...]
 (no argument: this checkout's csrc alone). Earlier steps are other source
@@ -41,8 +46,11 @@ import torch
 
 import chip_smoke as cs
 
-KERNELS = ("pair_exact", "pair_tiled_exact", "pair_fast", "pair_tiled_fast")
-EXACT = ("pair_exact", "pair_tiled_exact")
+KERNELS = ("pair_exact", "pair_tiled_exact", "pair_fast", "pair_tiled_fast",
+           "front_exact", "extras_exact")
+EXACT = ("pair_exact", "pair_tiled_exact", "front_exact", "extras_exact")
+# held bit-equal to the first variant
+BIT_EQUAL = ("pair_exact", "pair_tiled_exact", "front_exact")
 # (name, kernel, B, S, V, grid)
 SHAPES = (
     ("k3_main", "pair_exact", 2048, 1024, 8, cs.GRID),
@@ -55,6 +63,11 @@ SHAPES = (
     ("k5_main", "pair_tiled_fast", 2048, 1024, 32, [0.0, 0.5]),
     ("k5_a5", "pair_tiled_fast", 2048, 1024, 32, cs.GRID),
     ("k5_deep", "pair_tiled_fast", 2048, 4096, 32, [0.0, 0.5]),
+    ("k2_main", "front_exact", 2048, 1024, 8, cs.GRID),
+    ("k2_deep", "front_exact", 2048, 4096, 8, cs.GRID),
+    ("k6_main", "extras_exact", 2048, 1024, 32, [0.0, 0.5]),
+    ("k6_a5", "extras_exact", 2048, 1024, 32, cs.GRID),
+    ("k6_deep", "extras_exact", 2048, 4096, 32, [0.0, 0.5]),
 )
 
 
@@ -96,6 +109,13 @@ def load_all(variants):
                 7 if hasattr(lib, "dmx_pair_exact_smem") else 6) + [P]
         elif kernel == "pair_fast":
             fn.argtypes = [P] * 5 + [I] * 6 + [P]
+        elif kernel == "front_exact":
+            # the wire-v2 parts, or (an older tree) the full lanes
+            fn.argtypes = [P] * 8 + [I] * 12 + [P] if hasattr(
+                lib, "dmx_front_exact_smem") else [P] * 6 + [
+                    ctypes.c_longlong] + [I] * 7 + [P]
+        elif kernel == "extras_exact":
+            fn.argtypes = [P] * 5 + [I] * 5 + [P]
         else:
             fn.argtypes = [P] * 6 + [I] * 6 + [P]
         libs[label, kernel] = (lib, path)
@@ -139,6 +159,52 @@ def k1_call(lib, t, g, V, A, a0_sep, sym_a, exp_dev):
     return run
 
 
+def k2_call(lib, tab, dense, tail, n_deep, msk, full):
+    """K2' on the wire-v2 parts, or (a library without
+    ``dmx_front_exact_smem``) on the full lanes rebuilt from them."""
+    from demuxlet_tpu_torch.kernels import build as kbuild
+    from demuxlet_tpu_torch.kernels import front_exact as k2
+
+    B, S, U0 = dense.shape
+    R, C = tab.lut.shape
+    kw = dict(dtype=torch.float64, device=dense.device)
+    outs = (torch.empty((C, B, S), **kw), torch.empty((3, B, S), **kw))
+    cm = kbuild.int_table(dense.device, [bool(c) for c in tab.cmask])
+    ptrs = (tab.lut.data_ptr(), msk.data_ptr(), cm.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr())
+    chans = (R, C, *map(int, tab.gsel), int(R * C * 8 <= k2.SMEM_MAX))
+    if hasattr(lib, "dmx_front_exact_smem"):
+        K2p = tail[0].shape[1] if tail is not None else 0
+        args = (dense.data_ptr(), *(x.data_ptr() if K2p else None
+                                    for x in tail or (None, None)),
+                *ptrs, B, S, U0, K2p, n_deep if K2p else 0, *chans,
+                int(K2p * 8 <= k2.TAIL_SMEM_MAX))
+    else:
+        args = (full.data_ptr(), *ptrs, B * S, full.shape[2], *chans)
+
+    def run():
+        _check("dmx_front_exact", lib.dmx_front_exact(
+            *args, torch.cuda.current_stream().cuda_stream))
+        return outs
+    return run
+
+
+def k6_call(lib, t, g, gl, V, A, a0_sep, exp_dev):
+    from demuxlet_tpu_torch.ops.pair_tiled import extras_keys
+
+    _, B, S = t.shape
+    out = torch.empty((B, len(extras_keys(V, A, a0_sep))),
+                      dtype=torch.float64, device=t.device)
+
+    def run():
+        _check("dmx_extras_exact", lib.dmx_extras_exact(
+            t.data_ptr(), g.data_ptr(), gl.data_ptr(), exp_dev.data_ptr(),
+            out.data_ptr(), B, S, V, A, int(a0_sep),
+            torch.cuda.current_stream().cuda_stream))
+        return (out,)
+    return run
+
+
 def tiled_call(fn, t, g, V, A, plan, exp_dev, items, alist):
     """K7' or K5' (fn: the library's entry point) on the plan's items."""
     C, B, S = t.shape
@@ -154,17 +220,34 @@ def tiled_call(fn, t, g, V, A, plan, exp_dev, items, alist):
 
 
 def shape_runs(kernel, B, S, V, grid, dev, rng, variants, libs):
-    """The plain version's outputs and, per variant that builds the
-    kernel, a function that launches it once on this shape's inputs."""
+    """The plain version's outputs, per variant that builds the kernel a
+    function that launches it once on this shape's inputs, and the
+    shape's lane profile (K2')."""
     from demuxlet_tpu_torch.kernels import build as kbuild
     from demuxlet_tpu_torch.ops import pair_tiled as PT
-    from demuxlet_tpu_torch.ops.front_exact import front_exact
+    from demuxlet_tpu_torch.ops.front_exact import (
+        front_exact,
+        front_exact_plain,
+    )
     from demuxlet_tpu_torch.ops.pair import pair_llks_plain
     from demuxlet_tpu_torch.ops.pair_exact import pair_exact_plain
+    from demuxlet_tpu_torch.ops.wire import rebuild_lanes
 
     A = len(grid)
     a0_sep, sym_a = grid[0] == 0.0, grid.index(0.5)
     fast = kernel not in EXACT
+    labels = [v[0] for v in variants if kernel in v[3]]
+    lib = {label: libs[label, kernel][0] for label in labels}
+    if kernel == "front_exact":
+        tab, dense, tail, n_deep, msk, _, info = cs.lane_profile_inputs(
+            rng, B, S, dev, grid, V)
+        want = front_exact_plain(dense, tab.lut, msk, tab.cmask, tab.gsel,
+                                 tail, n_deep)
+        full = dense if tail is None else rebuild_lanes(
+            dense, *tail, n_deep, tab.lut.shape[0] - 1)
+        runs = {k: k2_call(lib[k], tab, dense, tail, n_deep, msk, full)
+                for k in labels}
+        return want, runs, info
     if fast:
         t, g, _, expand = cs.pair_inputs(rng, B, S, grid, dev, V)
     else:
@@ -173,8 +256,6 @@ def shape_runs(kernel, B, S, V, grid, dev, rng, variants, libs):
         expand = tab.expand
         del codes, msk
     exp_dev = kbuild.int_table(dev, expand)
-    labels = [v[0] for v in variants if kernel in v[3]]
-    lib = {label: libs[label, kernel][0] for label in labels}
     if kernel == "pair_exact":
         want = pair_exact_plain(t, g, gl, V, A, a0_sep, sym_a, expand)
         runs = {k: k3_call(lib[k], t, g, gl, V, A, a0_sep, sym_a, exp_dev)
@@ -183,6 +264,10 @@ def shape_runs(kernel, B, S, V, grid, dev, rng, variants, libs):
         want = pair_llks_plain(t, g, V, A, a0_sep, sym_a, expand)
         runs = {k: k1_call(lib[k], t, g, V, A, a0_sep, sym_a, exp_dev)
                 for k in labels}
+    elif kernel == "extras_exact":
+        want = (PT.extras_plain(t, g, gl, V, A, a0_sep, expand),)
+        runs = {k: k6_call(lib[k], t, g, gl, V, A, a0_sep, exp_dev)
+                for k in labels}
     else:
         plan = PT.plan_tiles(V, A, a0_sep, sym_a)
         want = (PT.pair_tiled_plain(t, g, V, A, plan, expand),)
@@ -190,7 +275,12 @@ def shape_runs(kernel, B, S, V, grid, dev, rng, variants, libs):
         alist = kbuild.int_table(dev, plan.alist)
         runs = {k: tiled_call(getattr(lib[k], "dmx_" + kernel), t, g, V, A,
                               plan, exp_dev, items, alist) for k in labels}
-    return tuple(w.reshape(w.shape[0], -1) for w in want), runs
+    return tuple(w.reshape(w.shape[0], -1) for w in want), runs, {}
+
+
+def front_rel_err(x, ref) -> float:
+    """K2''s error: relative to |ref| (t and gl are positive)."""
+    return float(((x - ref).abs() / ref.abs().clamp(min=1e-300)).max())
 
 
 def main(argv) -> int:
@@ -212,21 +302,22 @@ def main(argv) -> int:
     for name, kernel, B, S, V, grid in SHAPES:
         if not any(kernel in v[3] for v in variants):
             continue
-        want, runs = shape_runs(kernel, B, S, V, grid, dev, rng, variants,
-                                libs)
+        want, runs, info = shape_runs(kernel, B, S, V, grid, dev, rng,
+                                      variants, libs)
         exact = kernel in EXACT
+        err_fn, tol = ((front_rel_err, cs.FRONT_TOL) if kernel == "front_exact"
+                       else (cs.abs_err, cs.EXACT_TOL) if exact
+                       else (cs.rel_err, cs.TOL))
         res, first = {}, None
         for label, run in runs.items():
             got = [x.clone().reshape(w.shape) for x, w in zip(run(), want)]
             again = run()
             torch.cuda.synchronize()
-            err = max((cs.abs_err if exact else cs.rel_err)(x, w)
-                      for x, w in zip(got, want))
+            err = max(err_fn(x, w) for x, w in zip(got, want))
             first = got if first is None else first
             res[label] = dict(
-                max_abs_err=err if exact else max(
-                    cs.abs_err(x, w) for x, w in zip(got, want)),
-                max_rel_err=None if exact else err,
+                max_abs_err=max(cs.abs_err(x, w) for x, w in zip(got, want)),
+                max_rel_err=None if err_fn is cs.abs_err else err,
                 relaunch_bit_equal=all(
                     torch.equal(x, y.reshape(x.shape))
                     for x, y in zip(got, again)),
@@ -242,15 +333,16 @@ def main(argv) -> int:
                 continue
             r = res[label]
             probe = any(m.startswith("DMX_PROBE") for m in macros)
-            err = r["max_abs_err"] if exact else r["max_rel_err"]
-            ok = probe or (np.isfinite(err)
-                           and err <= (cs.EXACT_TOL if exact else cs.TOL)
+            err = r["max_abs_err"] if r["max_rel_err"] is None \
+                else r["max_rel_err"]
+            ok = probe or (np.isfinite(err) and err <= tol
                            and r["relaunch_bit_equal"]
-                           and (r["bit_equal_first"] or not exact))
+                           and (r["bit_equal_first"]
+                                or kernel not in BIT_EQUAL))
             print(json.dumps({"shape": name, "kernel": kernel, "B": B, "S": S,
-                              "V": V, "A": len(grid), "variant": label,
-                              "ok": bool(ok), **r, "card": card}),
-                  flush=True)
+                              "V": V, "A": len(grid), **info,
+                              "variant": label, "ok": bool(ok), **r,
+                              "card": card}), flush=True)
             if not ok:
                 cs.fail(f"{label} {name}: {r}")
         del want, runs, first

@@ -1,11 +1,14 @@
 """ctypes wrapper of K6' (``csrc/extras_exact.cu``), the Hopper port of
 ``demuxlet_tpu/ops/pallas_pair_exact.py::_extras_kernel_df``.
 
-Cost on this card: one f64 log per column per slot (~3V + A columns), on
-the SMs' f64 pipes, a small share of K7''s; the function's bound is the
-bytes of g (one log per column per cell would do). Design: one block per cell,
-warps over columns, lanes over slots, a fixed warp-shuffle reduction, so
-runs are bit-reproducible. See the source.
+Bound on this card: the bytes of its rows (g, gl and the t rows its
+columns use), read once per cell; ~3V + A columns of a 3-term dot and a
+multiply per slot. Design: one block per cell streams its slots through
+shared-memory stages (``csrc/stage.cuh``); each warp owns a sample's
+singlet, d and gs columns or an alpha's m0 column, and keeps each column's
+sum of logs as a product with exponent tracking (``csrc/logprod.cuh``): one
+log per lane and column, a fixed warp-shuffle reduction, so runs are
+bit-reproducible. See the source.
 
 The wrapper validates its inputs, allocates the output with
 ``torch.empty``, launches on the current stream without synchronising,
@@ -38,9 +41,17 @@ def _lib():
         I = ctypes.c_int
         fn.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
         fn.restype = I
+        lib.dmx_extras_exact_smem.argtypes = [I, I, I]
+        lib.dmx_extras_exact_smem.restype = I
         lib.dmx_cuda_error_string.argtypes = [I]
         lib.dmx_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def smem_bytes(V, A, a0_sep) -> int:
+    """The dynamic shared memory K6' takes for a pool (bytes)."""
+    lib = _lib()
+    return int(lib.dmx_extras_exact_smem(V, A, int(bool(a0_sep))))
 
 
 def extras(t, g, gl, V, A, a0_sep, expand):

@@ -13,6 +13,11 @@ works in the log domain of ``models/likelihood.py``: per (cell, slot)
     gl        = the pass-1 GL table of the three singlet channels,
                 (1, 0, 0) on a masked slot.
 
+The lanes come as the wire-v2 parts (``ops/wire.unpack_wire_v2(...,
+parts=True)``): the dense lanes and the sorted deep-lane tail, summed
+without rebuilding the full lanes; full-lane codes are the case with no
+tail.
+
 ``front_exact`` dispatches to the Hopper kernel K2' on a CUDA tensor and
 to ``front_exact_plain`` on a CPU tensor; nothing falls back.
 """
@@ -23,31 +28,40 @@ import torch
 
 from demuxlet_tpu_torch.ops.pair import _PLAIN_CHUNK_ELEMS
 from demuxlet_tpu_torch.ops.pair_exact import pair_exact
-from demuxlet_tpu_torch.ops.wire import unpack_block_inputs
+from demuxlet_tpu_torch.ops.wire import (
+    rebuild_lanes,
+    unpack_block_inputs,
+    unpack_wire_v2,
+)
 
 # the max of the smoothed mixture table: exp(0) + 1e-6, exact in f64
 _TMAX = 1.0 + 1e-6
 
 
-def front_exact(codes, lut, msk, cmask, gsel):
-    """codes (B, S, U) int32 full-lane codes; lut (R, C) f64 log LUT with
-    the 0.0 none row last; msk (B, S) bool; cmask: C bools marking the
-    mixture channels; gsel: the 3 singlet channels.
-    Returns (t (C, B, S), gl (3, B, S)) f64."""
-    if codes.device.type == "cuda":
+def front_exact(dense, lut, msk, cmask, gsel, tail=None, n_deep=0):
+    """dense (B, S, U0) int32 codes; lut (R, C) f64 log LUT with the 0.0
+    none row last; msk (B, S) bool; cmask: C bools marking the mixture
+    channels; gsel: the 3 singlet channels. tail: None (dense holds every
+    lane) or the v2 wire's deep-lane tail (tpos, tcode), (B, K2p) int32,
+    positions slot * n_deep + the lane past U0, sorted per cell; n_deep:
+    the deep lanes U - U0. Returns (t (C, B, S), gl (3, B, S)) f64."""
+    if dense.device.type == "cuda":
         from demuxlet_tpu_torch.kernels import front_exact as kernel
 
-        return kernel.front_exact(codes, lut, msk, cmask, gsel)
-    if codes.device.type != "cpu":
-        raise ValueError(f"front_exact: unsupported device {codes.device}")
-    return front_exact_plain(codes, lut, msk, cmask, gsel)
+        return kernel.front_exact(dense, lut, msk, cmask, gsel, tail, n_deep)
+    if dense.device.type != "cpu":
+        raise ValueError(f"front_exact: unsupported device {dense.device}")
+    return front_exact_plain(dense, lut, msk, cmask, gsel, tail, n_deep)
 
 
-def front_exact_plain(codes, lut, msk, cmask, gsel):
-    """The plain PyTorch version of K2': a gather-sum over lanes in lane
-    order, then the same normalisations, processed in cell chunks."""
-    B, S, U = codes.shape
+def front_exact_plain(dense, lut, msk, cmask, gsel, tail=None, n_deep=0):
+    """The plain PyTorch version of K2': the full lanes (rebuilt from the
+    tail, if any), a gather-sum over lanes in lane order, then the same
+    normalisations, processed in cell chunks."""
     R, C = lut.shape
+    codes = dense if tail is None else rebuild_lanes(dense, *tail, n_deep,
+                                                     R - 1)
+    B, S, U = codes.shape
     cm = torch.as_tensor(list(cmask), dtype=torch.bool, device=lut.device)
     gs = torch.as_tensor(list(gsel), dtype=torch.int64, device=lut.device)
     neutral = torch.tensor([1.0, 0.0, 0.0], dtype=lut.dtype,
@@ -75,9 +89,10 @@ def exact_block(codes, idx, msk, g_table, lut, cmask, gsel, expand,
                 front_fn=front_exact, pair_fn=pair_exact):
     """Fused exact-mode block step.
 
-    codes/idx/msk/wire: any shipped block form (``ops/wire.py``), decoded
-    into the full-lane (B, S, U) codes as the JAX package does (the v2
-    wire's deep-lane tail rebuilt into lanes). g_table (3V+3, NS+1) f64:
+    codes/idx/msk/wire: any shipped block form (``ops/wire.py``). A v2
+    wire is decoded into its parts, which the front reads as they are (the
+    deep-lane tail is not rebuilt into lanes, as the JAX package does); the
+    v1 and explicit forms are full-lane codes. g_table (3V+3, NS+1) f64:
     the gps rows, the three gp0 rows, and the neutral column at index NS
     that masked slots gather. lut/cmask/gsel/expand: the exact tables
     (``models/engine.exact_tables_from_numpy``). front_fn and pair_fn are
@@ -85,10 +100,17 @@ def exact_block(codes, idx, msk, g_table, lut, cmask, gsel, expand,
 
     Returns (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A))
     f64."""
-    codes, idx, msk = unpack_block_inputs(codes, idx, msk, wire)
-    B, S, _ = codes.shape
-    t, gl = front_fn(codes.to(torch.int32).contiguous(), lut,
-                     msk.contiguous(), cmask, gsel)
+    tail, n_deep = None, 0
+    if wire is not None and wire[0] == "w2":
+        dense, tail, idx, msk = unpack_wire_v2(codes, wire, parts=True)
+        if tail is not None:
+            tail = tuple(x.to(torch.int32).contiguous() for x in tail)
+            n_deep = wire[2] - wire[3]
+    else:
+        dense, idx, msk = unpack_block_inputs(codes, idx, msk, wire)
+    B, S, _ = dense.shape
+    t, gl = front_fn(dense.to(torch.int32).contiguous(), lut,
+                     msk.contiguous(), cmask, gsel, tail, n_deep)
     NS = g_table.shape[1] - 1
     idx_n = torch.where(msk, idx, NS).reshape(-1)
     # gathered straight into the channel-leading layout the kernel reads

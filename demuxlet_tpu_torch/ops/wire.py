@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+rebuilds = 0  # rebuild_lanes calls since import (the exact engine makes none)
+
 
 def _u8(words: torch.Tensor) -> torch.Tensor:
     """(B, n) int32 words -> (B, 4n) int32 of their little-endian bytes."""
@@ -102,15 +104,25 @@ def unpack_wire_v2(wbuf: torch.Tensor, meta, parts: bool = False):
         return dense, tail_parts, idx, msk
     if tail_parts is None:
         return dense, idx, msk
-    tpos, tcode = tail_parts
-    n_deep = S * (U - U0)
-    # pad entries point at or past n_deep: send them to the trash column
-    tpos = torch.where(tpos < n_deep, tpos, n_deep).to(torch.int64)
-    tail = torch.full((B, n_deep + 1), none, dtype=torch.int32,
-                      device=wbuf.device)
-    tail.scatter_(1, tpos, tcode)
-    codes = torch.cat([dense, tail[:, :n_deep].reshape(B, S, U - U0)], dim=2)
-    return codes, idx, msk
+    return rebuild_lanes(dense, *tail_parts, U - U0, none), idx, msk
+
+
+def rebuild_lanes(dense, tpos, tcode, n_deep, fill):
+    """The full lanes (B, S, U0 + n_deep) int32 of a v2 wire's parts:
+    dense (B, S, U0), the tail's flat positions tpos (slot * n_deep + the
+    lane past U0) and codes tcode, (B, K2p); the deep lanes without an entry
+    hold ``fill``. Counted in ``rebuilds``."""
+    global rebuilds
+    rebuilds += 1
+    B, S, _ = dense.shape
+    n = S * n_deep
+    # pad entries point at or past n: send them to the trash column
+    tpos = torch.where(tpos < n, tpos, n).to(torch.int64)
+    tail = torch.full((B, n + 1), fill, dtype=torch.int32,
+                      device=dense.device)
+    tail.scatter_(1, tpos, tcode.to(torch.int32))
+    return torch.cat([dense.to(torch.int32),
+                      tail[:, :n].reshape(B, S, n_deep)], dim=2)
 
 
 def unpack_block_inputs(codes, idx, msk, wire):

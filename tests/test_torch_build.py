@@ -47,17 +47,17 @@ def test_digest_follows_flags_and_is_stable(csrc):
 
 def test_repo_kernels_hash_their_headers():
     """Every csrc/*.cu of the port has a digest, and it covers the shared
-    headers the pair kernels include."""
-    pair = ("pair_exact", "pair_tiled_exact", "pair_fast", "pair_tiled_fast")
+    headers the pair kernels and K6' include."""
+    shared = ("pair_exact", "pair_tiled_exact", "pair_fast",
+              "pair_tiled_fast", "extras_exact")
     names = sorted(f[:-3] for f in os.listdir(kbuild.CSRC) if f.endswith(".cu"))
-    assert set(pair) <= set(names)
+    assert set(shared) <= set(names)
     for header in ("logprod.cuh", "stage.cuh", "tiled.cuh"):
         assert os.path.exists(os.path.join(kbuild.CSRC, header))
     for name in names:
         with open(os.path.join(kbuild.CSRC, name + ".cu")) as fh:
             text = fh.read()
-        if '.cuh"' in text:
-            assert name in pair
+        assert ('.cuh"' in text) == (name in shared), name
         assert len(kbuild.source_digest(name)) == 64
 
 

@@ -1,7 +1,8 @@
 """Exact mode of the port against the JAX package and the oracle:
-the exact tables, the f64 front (K2' plain version), the f64 pair search
-(K3' plain version), exact run_compact and the CLI's default mode; and, on
-a card, K2' and K3' against their plain versions.
+the exact tables, the f64 front (K2' plain version, on full lanes and on
+the wire-v2 parts), the f64 pair search (K3' plain version), exact
+run_compact and the CLI's default mode; and, on a card, K2' and K3'
+against their plain versions.
 
 JAX is imported inside the tests that compare with it, so the ``cuda``
 tests also collect where JAX is absent:
@@ -14,10 +15,13 @@ import pytest
 import torch
 
 from demuxlet_tpu.ops import luts
+from demuxlet_tpu_torch.host import wire as TWH
+from demuxlet_tpu_torch.host.csr import CsrPileup, build_codes_block
 from demuxlet_tpu_torch.models import engine as TE
 from demuxlet_tpu_torch.ops import front_exact as TF
 from demuxlet_tpu_torch.ops import likelihood as TL
 from demuxlet_tpu_torch.ops import pair_exact as TP
+from demuxlet_tpu_torch.ops import wire as TW
 
 torch.set_num_threads(2)
 
@@ -67,18 +71,21 @@ def _port_block(codes, idx, msk, gps, grid, cap=40, **kw):
         gps.shape[1], **kw)
 
 
-def _jax_f64(codes, idx, msk, gps, grid, cap=40):
-    """JAX f64 likelihood kernels on the equivalent dense block."""
+def _jax_f64(codes, idx, msk, gps, grid, cap=40, rows=None):
+    """JAX f64 likelihood kernels on the equivalent dense block; under a
+    wire-v2 dictionary ``rows`` the codes index its LUT rows."""
     import jax.numpy as jnp
 
     from demuxlet_tpu.models.likelihood import pair_llks, singlet_llks
 
-    cnt = jnp.asarray(_dense(codes, msk, 2 * (cap + 1)), jnp.float64)
+    w, logf = luts.pair_lut(grid, cap), luts.singlet_lut(cap)
+    if rows is not None:
+        w, logf = w[list(rows)], logf[list(rows)]
+    cnt = jnp.asarray(_dense(codes, msk, w.shape[0]), jnp.float64)
     args = (cnt, jnp.asarray(msk), *map(jnp.asarray, _gathered(idx, msk, gps)))
-    llk, llk0 = singlet_llks(*args, jnp.asarray(luts.singlet_lut(cap)),
-                             dtype=jnp.float64)
-    ab, z0 = pair_llks(*args, jnp.asarray(luts.pair_lut(grid, cap)),
-                       len(grid), slot_chunk=0, dtype=jnp.float64)
+    llk, llk0 = singlet_llks(*args, jnp.asarray(logf), dtype=jnp.float64)
+    ab, z0 = pair_llks(*args, jnp.asarray(w), len(grid), slot_chunk=0,
+                       dtype=jnp.float64)
     return [np.asarray(x) for x in (llk, llk0, ab, z0)]
 
 
@@ -189,6 +196,154 @@ def test_front_plain_matches_jax(seed, grid, U):
     assert (gl.numpy()[:, ~msk] == np.array([[1.0], [0.0], [0.0]])).all()
     empty = (codes == 255).all(axis=-1)
     assert empty.any() and (t.numpy()[:, empty] == 1.0).all()
+
+
+def _hot_csr(rng, n_cells, n_snps, hot_depth, nsnps_total=20_000):
+    """A pileup of n_snps sorted distinct SNPs per cell, 1-2 UMIs per
+    slot, allele == 2 holes (so some slots keep real codes only in deep
+    lanes: the packer's tail-only marker slots) and two PCR-hot slots of
+    hot_depth UMIs per cell (the wire's deep-lane tail)."""
+    obs = []
+    for c in range(n_cells):
+        snps = np.sort(rng.choice(nsnps_total, size=n_snps, replace=False))
+        depth = 1 + (rng.random(n_snps) < 0.2)
+        depth[rng.choice(n_snps, size=2, replace=False)] = hot_depth
+        cells = np.full(int(depth.sum()), c)
+        al = rng.integers(0, 3, size=len(cells))
+        bq = np.where(rng.random(len(cells)) < 0.8, 37, 23)
+        obs.append(np.stack([cells, np.repeat(snps, depth), al, bq], 1))
+    obs = np.concatenate(obs)
+    return CsrPileup.from_arrays(
+        ["S0", "S1"], nsnps_total, ["B%03d" % i for i in range(n_cells)],
+        np.zeros(n_cells), np.zeros(n_cells), np.zeros(n_cells),
+        obs[:, 0], obs[:, 1], obs[:, 2].astype(np.uint8),
+        obs[:, 3].astype(np.uint8))
+
+
+def _packed_v2(packer, csr, cfg):
+    """(wire (B, W) int32, meta) of all of csr's cells from the Python
+    packer (host/wire.pack_wire_block) or the native one
+    (native/prep.pack_block_v2)."""
+    cells = list(range(csr.nbcs))
+    if packer == "python":
+        return TWH.pack_wire_block(*build_codes_block(csr, cells, 40), cfg)
+    from demuxlet_tpu_torch.native import prep
+
+    if not prep.available():
+        pytest.skip("the native packer is not built")
+    return prep.pack_block_v2(csr, cells, cfg, cap_bq=40)
+
+
+def _tail_only_slots(full, U0, cfg):
+    """Slots whose dense lanes hold only the marker and whose deep lanes
+    hold real codes."""
+    return ((full[..., 0] == cfg.marker)
+            & (full[..., 1:U0] == cfg.none).all(dim=-1)
+            & (full[..., U0:] < cfg.n_real).any(dim=-1))
+
+
+@pytest.mark.parametrize("packer", ["python", "native"])
+@pytest.mark.parametrize("tw,n_cells,n_snps,hot,u_cap", [
+    (16, 40, 60, 9, 1),
+    (24, 6, 1200, 40, 1),
+    (32, 4, 140, 300, 1),
+    (16, 12, 60, 4, 8),  # every lane dense: K2p == 0
+])
+def test_front_plain_parts_equal_rebuilt_lanes(packer, tw, n_cells, n_snps,
+                                               hot, u_cap):
+    """front_exact_plain on a v2 wire's parts (dense lanes and the sorted
+    deep-lane tail, as exact_block passes them) is bit-equal to
+    front_exact_plain on the full lanes unpack_wire_v2 rebuilds, on blocks
+    from both packers at tail widths 16, 24 and 32 (tail-only marker
+    slots among them) and on a block without a tail (K2p == 0)."""
+    rng = np.random.default_rng(tw + n_cells)
+    csr = _hot_csr(rng, n_cells, n_snps, hot)
+    cfg = TWH.WireCfg(TWH.choose_cfg(csr, 40).dict_codes, 4, 8, u_cap=u_cap,
+                      adaptive=False)
+    buf, meta = _packed_v2(packer, csr, cfg)
+    _, S, U, U0, K2p, _, _, _, _, got_tw = meta
+    wbuf = torch.from_numpy(buf)
+    dense, tail, _, msk = TW.unpack_wire_v2(wbuf, meta, parts=True)
+    full, _, msk_full = TW.unpack_wire_v2(wbuf, meta)
+    assert torch.equal(msk, msk_full)
+    if u_cap >= U:
+        assert K2p == 0 and tail is None
+    else:
+        assert got_tw == tw and K2p > 0
+        assert bool(_tail_only_slots(full, U0, cfg).any())
+        tail = tuple(x.to(torch.int32).contiguous() for x in tail)
+    tab = TE.exact_tables_from_numpy(np.full((2, 2, 3), 1 / 3), GRID5, 40,
+                                     cfg, CPU)
+    args = (tab.lut, msk, tab.cmask, tab.gsel)
+    t, gl = TF.front_exact_plain(dense.to(torch.int32), *args, tail, U - U0)
+    want_t, want_gl = TF.front_exact_plain(full, *args)
+    assert t.shape == (tab.lut.shape[1], buf.shape[0], S)
+    assert torch.equal(t, want_t) and torch.equal(gl, want_gl)
+
+
+def test_exact_block_on_v2_wire_matches_jax():
+    """exact_block on a v2 wire, its front reading the dense lanes and the
+    deep-lane tail as they arrive, against the JAX package on the same
+    buffer: the JAX exact front (its own decode, pair-code gather,
+    _mixture_table_df, _gl_table_df) within 1e-12 relative on t and gl,
+    and the JAX f64 likelihood kernels on the block it decodes within
+    1e-9 absolute, at the engine's options (the mirrored plane an exact
+    copy)."""
+    import jax.numpy as jnp
+
+    from demuxlet_tpu.ops import pallas_pair as PP
+    from demuxlet_tpu.ops import pallas_pair_exact as PE
+
+    rng = np.random.default_rng(21)
+    csr = _hot_csr(rng, 12, 50, 12, nsnps_total=400)
+    cfg = TWH.WireCfg(TWH.choose_cfg(csr, 40).dict_codes, 4, 8, u_cap=1,
+                      adaptive=False)
+    buf, meta = _packed_v2("python", csr, cfg)
+    assert meta[4] > 0  # a deep-lane tail
+    grid = [0.0, 0.5]
+    gps = rng.dirichlet(np.ones(3), size=(400, 3))
+    tab = TE.exact_tables_from_numpy(gps, grid, 40, cfg, CPU)
+    fronts = []
+
+    def front(*a):
+        fronts.append(a)
+        return TF.front_exact(*a)
+
+    got = TF.exact_block(torch.from_numpy(buf), None, None, tab.g_table,
+                         tab.lut, tab.cmask, tab.gsel, tab.expand, 2, 3,
+                         a0_sep=True, sym_a=1, wire=meta, front_fn=front)
+    (dense, lut, msk, cmask, gsel, tail, n_deep), = fronts
+    assert tail is not None and n_deep == meta[2] - meta[3]
+    assert dense.shape[2] == meta[3] < meta[2]
+    t, gl = TF.front_exact(dense, lut, msk, cmask, gsel, tail, n_deep)
+
+    w, logf = luts.pair_lut(grid, 40), luts.singlet_lut(40)
+    _, _, tabs, meta_t = PE.split_tables(
+        gps, TE.compute_gp0(gps), w, logf, rows=cfg.dict_codes)
+    codes, jidx, jmsk = PP._unpack_wire_v2(jnp.asarray(buf), meta)
+    n_rows = len(cfg.dict_codes) + 1
+    c = jnp.minimum(codes.astype(jnp.int32), n_rows - 1)
+    mh, ml, ef = PE._pair_prod_gather(tuple(map(jnp.asarray, tabs[:3])), c,
+                                      n_rows)
+    th, tl = PE._mixture_table_df(
+        mh, ml, ef, axis=0, chan_mask=np.asarray(tab.cmask)[:, None, None])
+    gh, gl_ = PE._gl_table_df(*(jnp.stack([x[i] for i in meta_t[2]])
+                                for x in (mh, ml, ef)))
+    m = np.asarray(jmsk)
+    np.testing.assert_allclose(
+        t.numpy(), np.asarray(th, np.float64) + np.asarray(tl, np.float64),
+        rtol=1e-12)
+    np.testing.assert_allclose(
+        gl.numpy()[:, m],
+        (np.asarray(gh, np.float64) + np.asarray(gl_, np.float64))[:, m],
+        rtol=1e-12)
+    want = _jax_f64(np.asarray(codes), np.asarray(jidx), m, gps, grid,
+                    rows=cfg.dict_codes)
+    for name, g, ref in zip(("llk", "llk0", "llk_ab", "llk_00"), got, want):
+        assert g.shape == ref.shape, name
+        assert np.abs(g.numpy() - ref).max() < 1e-9, name
+    plane = got[2][..., 1]
+    assert torch.equal(plane, plane.transpose(1, 2))
 
 
 # ---------------------------------------------------------------- pair
@@ -462,41 +617,95 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# the 4-code wire-v2 dictionary of the engine's main path (a 5-row LUT)
+_V2_CFG = TWH.WireCfg((23, 37, 41 + 23, 41 + 37), 4, 8)
+
+
+def _v2_parts(rng, B, S, U, U0, k2p_floor, device):
+    """Wire-v2 parts of a random block on ``_V2_CFG``: 1 + Poisson(0.3)
+    UMIs per slot, 3% PCR-hot slots of U/2..U, 20% padded slots and 30%
+    holes among the UMIs (tail-only marker slots), split at U0 dense lanes
+    by the packer's rule (host/wire._split_tail; K2p at least k2p_floor:
+    padded tails). Returns (dense (B,S,U0), (tpos, tcode) (B,K2p), msk)
+    int32/bool on device, positions flattened as unpack_wire_v2 does."""
+    cfg = _V2_CFG
+    n = 1 + rng.poisson(0.3, size=(B, S))
+    hot = rng.random((B, S)) < 0.03
+    n[hot] = rng.integers(U // 2, U + 1, size=int(hot.sum()))
+    n[rng.random((B, S)) < 0.2] = 0
+    wc = np.full((B, S, U), cfg.none, np.uint8)
+    occ = np.arange(U) < n[..., None]
+    wc[occ] = rng.integers(0, cfg.n_real, size=int(occ.sum()))
+    wc[occ & (rng.random((B, S, U)) < 0.3)] = cfg.none
+    dense, U0, K2p, tw, tpos, tcode = TWH._split_tail(
+        wc, cfg, u0_pin=U0, k2p_floor=k2p_floor)
+    if tw == 24:
+        tpos = tpos[0].astype(np.int64) * (U - U0) + tpos[1]
+    dev = lambda x: torch.from_numpy(
+        np.ascontiguousarray(x).astype(np.int32)).to(device)
+    dense = dev(dense)
+    return dense, (dev(tpos), dev(tcode)), (dense != cfg.none).any(dim=-1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,U,grid,cap,lut_kb", [
-    (64, 256, 3, GRID5, 40, 11),
-    (40, 384, 2, [0.0, 0.5], 40, 3),
-    (16, 130, 20, GRID5, 126, 35),  # PCR-deep lanes, 255-row LUT
-    (8, 100, 2, np.linspace(0, 0.5, 12).tolist(), 63, 49),  # > 48 KB smem
-    (8, 128, 2, np.linspace(0, 0.5, 24).tolist(), 63, 99),  # through L1
-    (8, 128, 2, np.linspace(0, 0.5, 96).tolist(), 126, 798),
+@pytest.mark.parametrize("B,S,U,grid,cap,lut_kb,parts", [
+    (64, 256, 3, GRID5, 40, 11, None),
+    (40, 384, 2, [0.0, 0.5], 40, 3, None),
+    (16, 130, 20, GRID5, 126, 35, None),  # PCR-deep lanes, 255-row LUT
+    (8, 100, 2, np.linspace(0, 0.5, 12).tolist(), 63, 49, None),  # > 48 KB
+    (8, 128, 2, np.linspace(0, 0.5, 24).tolist(), 63, 99, None),  # via L1
+    (8, 128, 2, np.linspace(0, 0.5, 96).tolist(), 126, 798, None),
+    # wire-v2 parts (U0, K2p floor) on a 5-row LUT
+    (16, 512, 64, GRID5, 40, 0, (1, 16)),
+    (16, 512, 64, GRID5, 40, 0, (2, 16)),
+    (16, 256, 64, [0.0, 0.5], 40, 0, (8, 16)),
+    (8, 256, 64, GRID5, 40, 0, (2, 8192)),  # padded tail past TAIL_SMEM_MAX
+    (4, 4096, 64, GRID5, 40, 0, (2, 16)),  # the deepest pad: tail width 24
+    (4, 300, 300, [0.0, 0.5], 40, 0, (2, 16)),  # tail width 32
 ])
-def test_k2_matches_plain_on_card(cuda_device, B, S, U, grid, cap, lut_kb):
+def test_k2_matches_plain_on_card(cuda_device, B, S, U, grid, cap, lut_kb,
+                                  parts):
     """K2' against front_exact_plain on the card, with the LUT staged in
     shared memory (up to SMEM_MAX, opted in past 48 KB) or read through
     L1: the same lane-order sums, so t and gl agree to the exp's last bits
-    (1e-13 relative); two launches give identical bits."""
+    (1e-13 relative); two launches give identical bits. On wire-v2 parts
+    (dense lanes and the sorted tail, staged in shared memory or read
+    through L1) the outputs also equal K2''s on the rebuilt full lanes bit
+    for bit: the tail is applied in lane order."""
     from demuxlet_tpu_torch.kernels import front_exact as kernel
+    from demuxlet_tpu_torch.ops.wire import rebuild_lanes
 
     rng = np.random.default_rng(5)
     gps = rng.dirichlet(np.ones(3), size=(20, 2))
-    tab = TE.exact_tables_from_numpy(gps, grid, cap, None, cuda_device)
+    tab = TE.exact_tables_from_numpy(gps, grid, cap,
+                                     None if parts is None else _V2_CFG,
+                                     cuda_device)
     R, C = tab.lut.shape
     assert R * C * 8 // 1024 == lut_kb
-    codes = rng.integers(0, R + 2, size=(B, S, U)).astype(np.int32)
-    codes[rng.random((B, S, U)) < 0.4] = 255
-    msk = torch.from_numpy(rng.random((B, S)) < 0.8).to(cuda_device)
-    codes = torch.from_numpy(codes).to(cuda_device)
+    tail, n_deep = None, 0
+    if parts is None:
+        codes = rng.integers(0, R + 2, size=(B, S, U)).astype(np.int32)
+        codes[rng.random((B, S, U)) < 0.4] = 255
+        msk = torch.from_numpy(rng.random((B, S)) < 0.8).to(cuda_device)
+        codes = torch.from_numpy(codes).to(cuda_device)
+    else:
+        codes, tail, msk = _v2_parts(rng, B, S, U, *parts, cuda_device)
+        n_deep = U - parts[0]
+    args = (tab.lut, msk, tab.cmask, tab.gsel)
     before = kernel.launches
-    t, gl = kernel.front_exact(codes, tab.lut, msk, tab.cmask, tab.gsel)
-    t2, gl2 = kernel.front_exact(codes, tab.lut, msk, tab.cmask, tab.gsel)
+    t, gl = kernel.front_exact(codes, *args, tail, n_deep)
+    t2, gl2 = kernel.front_exact(codes, *args, tail, n_deep)
     torch.cuda.synchronize()
     assert kernel.launches == before + 2
-    pt, pgl = TF.front_exact_plain(codes, tab.lut, msk, tab.cmask, tab.gsel)
+    pt, pgl = TF.front_exact_plain(codes, *args, tail, n_deep)
     for got, want in ((t, pt), (gl, pgl)):
         err = (got - want).abs() / want.abs().clamp(min=1e-300)
         assert float(err.max()) < 1e-13
     assert torch.equal(t, t2) and torch.equal(gl, gl2)
+    if parts is not None:
+        full = rebuild_lanes(codes, *tail, n_deep, _V2_CFG.none)
+        t3, gl3 = kernel.front_exact(full, *args)
+        assert torch.equal(t, t3) and torch.equal(gl, gl3)
 
 
 def edge_inputs(edge, t, g, gl, expand, rng):

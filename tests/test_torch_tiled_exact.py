@@ -19,8 +19,8 @@ import torch
 
 from demuxlet_tpu_torch.models import engine as TE
 from demuxlet_tpu_torch.ops import pair_tiled as PT
-from test_torch_exact import _jax_f64, _likelihood_f64, _port_block, \
-    _swap_equal, _workload, assert_close_on_card, edge_inputs
+from test_torch_exact import _jax_f64, _k3_inputs, _likelihood_f64, \
+    _port_block, _swap_equal, _workload, assert_close_on_card, edge_inputs
 
 torch.set_num_threads(2)
 
@@ -338,3 +338,33 @@ def test_k7_k6_match_likelihood_on_card(cuda_device, B, S, V, grid, edge):
     assert_close_on_card(PT.extras(t, g, gl, V, A, a0_sep, tab.expand), want)
     if edge == "special":
         assert bool(torch.isneginf(got[2][0, 1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,V,grid", [
+    (16, 512, 32, [0.0, 0.5]),  # 64-slot chunks: 114 stage rows
+    (8, 333, 32, _grid(5)),  # S odd: 8-byte copies only
+    (4, 4096, 32, [0.0, 0.5]),  # the deepest pad
+    (8, 256, 1, _grid(200)),  # K3''s refused shape: rounds of alphas
+    (4, 200, 70, [0.0, 0.5]),  # two rounds of samples
+    (8, 130, 13, [0.1, 0.3, 0.5]),  # no separable plane, 128-slot chunks
+])
+def test_k6_matches_plain_on_card(cuda_device, B, S, V, grid):
+    """K6' alone against extras_plain on the card: every column within
+    1e-9 absolute, two launches give identical bits, one launch counted
+    each; across its chunk extents, rounds of samples and of alphas, and
+    slot counts that the 16-byte copies do not divide."""
+    from demuxlet_tpu_torch.kernels import extras_exact as k6
+
+    A = len(grid)
+    a0_sep = grid[0] == 0.0
+    t, g, gl, expand = _k3_inputs(B, S, V, grid, cuda_device)
+    before = k6.launches
+    got = PT.extras(t, g, gl, V, A, a0_sep, expand)
+    again = PT.extras(t, g, gl, V, A, a0_sep, expand)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 2
+    assert got.shape == (B, len(PT.extras_keys(V, A, a0_sep)))
+    assert torch.equal(got, again)
+    assert_close_on_card(got, PT.extras_plain(t, g, gl, V, A, a0_sep,
+                                              expand))
