@@ -170,19 +170,21 @@ def k2_call(lib, tab, dense, tail, n_deep, msk, full):
     kw = dict(dtype=torch.float64, device=dense.device)
     outs = (torch.empty((C, B, S), **kw), torch.empty((3, B, S), **kw))
     cm = kbuild.int_table(dense.device, [bool(c) for c in tab.cmask])
-    ptrs = (tab.lut.data_ptr(), msk.data_ptr(), cm.data_ptr(),
-            outs[0].data_ptr(), outs[1].data_ptr())
     chans = (R, C, *map(int, tab.gsel), int(R * C * 8 <= k2.SMEM_MAX))
-    if hasattr(lib, "dmx_front_exact_smem"):
-        K2p = tail[0].shape[1] if tail is not None else 0
-        args = (dense.data_ptr(), *(x.data_ptr() if K2p else None
-                                    for x in tail or (None, None)),
-                *ptrs, B, S, U0, K2p, n_deep if K2p else 0, *chans,
-                int(K2p * 8 <= k2.TAIL_SMEM_MAX))
-    else:
-        args = (full.data_ptr(), *ptrs, B * S, full.shape[2], *chans)
+    K2p = tail[0].shape[1] if tail is not None else 0
+    parts = hasattr(lib, "dmx_front_exact_smem")
 
     def run():
+        # the pointers are taken here, so the closure keeps every input alive
+        ptrs = (tab.lut.data_ptr(), msk.data_ptr(), cm.data_ptr(),
+                outs[0].data_ptr(), outs[1].data_ptr())
+        if parts:
+            args = (dense.data_ptr(), *(x.data_ptr() if K2p else None
+                                        for x in tail or (None, None)),
+                    *ptrs, B, S, U0, K2p, n_deep if K2p else 0, *chans,
+                    int(K2p * 8 <= k2.TAIL_SMEM_MAX))
+        else:
+            args = (full.data_ptr(), *ptrs, B * S, full.shape[2], *chans)
         _check("dmx_front_exact", lib.dmx_front_exact(
             *args, torch.cuda.current_stream().cuda_stream))
         return outs
