@@ -47,10 +47,9 @@
 // staged once per block in shared memory when the table fits (dynamic
 // shared memory, opted in above 48 KB), else read through L1 (a narrowed
 // wire-v2 table is a few rows; --cap-BQ 126 with a wide grid is not).
-// Channels go in tiles of 8 register sums, in two passes over the slot's
-// lanes: the first finds the max and the singlet channels, the second sums
-// again (the same order, the same bits) and writes t, so t is written once
-// and never read back.
+// Channels go in tiles of 8 register sums. lograw is kept in the t output
+// between the two passes over channels (the thread's own stores), so no
+// scratch.
 //
 // Build without --use_fast_math: exp must be the accurate one.
 
@@ -126,8 +125,10 @@ __global__ void __launch_bounds__(kThreads) front_exact_kernel(Params p) {
         lo = lower_bound(tp, K2p, s * D);
         hi = lo + lower_bound(tp + lo, K2p - lo, (s + 1) * D);
       }
-      // lograw of channels [c0, c0 + kChanTile): the lanes in order
-      auto tile = [&](int c0, double acc[kChanTile]) {
+      double mx = -INFINITY;
+      // pass 1: lograw, kept in t
+      for (int c0 = 0; c0 < C; c0 += kChanTile) {
+        double acc[kChanTile];
 #pragma unroll
         for (int k = 0; k < kChanTile; ++k) acc[k] = 0.0;
         for (int u = 0; u < U0 + hi - lo; ++u) {
@@ -139,24 +140,18 @@ __global__ void __launch_bounds__(kThreads) front_exact_kernel(Params p) {
             if (c0 + k < C) acc[k] += row[k];
           }
         }
-      };
-      // pass 1: the max over the mixture channels and the singlet channels
-      double mx = -INFINITY, l0 = 0.0, l1 = 0.0, l2 = 0.0;
-      for (int c0 = 0; c0 < C; c0 += kChanTile) {
-        double acc[kChanTile];
-        tile(c0, acc);
 #pragma unroll
         for (int k = 0; k < kChanTile; ++k) {
-          const int c = c0 + k;
-          if (c < C) {
-            if (p.cmask[c]) mx = fmax(mx, acc[k]);
-            l0 = c == p.g0 ? acc[k] : l0;
-            l1 = c == p.g1 ? acc[k] : l1;
-            l2 = c == p.g2 ? acc[k] : l2;
+          if (c0 + k < C) {
+            p.t[(c0 + k) * n + i] = acc[k];
+            if (p.cmask[c0 + k]) mx = fmax(mx, acc[k]);
           }
         }
       }
       // the pass-1 GL table from the singlet channels
+      const double l0 = p.t[p.g0 * n + i];
+      const double l1 = p.t[p.g1 * n + i];
+      const double l2 = p.t[p.g2 * n + i];
       double q0 = 1.0, q1 = 0.0, q2 = 0.0;
       if (p.msk[i]) {
         const double lm = fmax(fmax(l0, l1), l2);
@@ -173,16 +168,10 @@ __global__ void __launch_bounds__(kThreads) front_exact_kernel(Params p) {
       p.gl[i] = q0;
       p.gl[n + i] = q1;
       p.gl[2 * n + i] = q2;
-      // pass 2: the same sums again, into the mixture table
-      for (int c0 = 0; c0 < C; c0 += kChanTile) {
-        double acc[kChanTile];
-        tile(c0, acc);
-#pragma unroll
-        for (int k = 0; k < kChanTile; ++k) {
-          if (c0 + k < C) {
-            p.t[(c0 + k) * n + i] = (exp(acc[k] - mx) + 1e-6) / (1.0 + 1e-6);
-          }
-        }
+      // pass 2: the mixture table
+      for (int c = 0; c < C; ++c) {
+        double* tcp = p.t + c * n + i;
+        *tcp = (exp(*tcp - mx) + 1e-6) / (1.0 + 1e-6);
       }
     }
   }
