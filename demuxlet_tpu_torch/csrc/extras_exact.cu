@@ -42,7 +42,9 @@
 // butterfly, so runs give identical bits. A round stages gl, the alpha == 0
 // t column and g0 (9 rows), 3 rows per sample and 9 per alpha; pools whose
 // rows exceed the shared memory take several rounds, each a pass over the
-// slots. V, A, a0_sep and expand are runtime arguments.
+// slots. V, A, a0_sep and expand are runtime arguments. It runs at ~1.5x
+// its bytes: the staging alone and the arithmetic alone each take ~70% of
+// its time, so their overlap sets it (PERF.md).
 //
 // Build without --use_fast_math: log must be the accurate f64 one.
 

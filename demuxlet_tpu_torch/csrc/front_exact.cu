@@ -28,10 +28,12 @@
 //               each sum in l order; (1, 0, 0) on a masked slot.
 // A padded slot (all lanes none) has lograw == 0, so t == 1 exactly.
 //
-// What bounds it on this card: the bytes of its outputs. Per slot it writes
-// C + 3 doubles and reads U0 codes, the slot's share of the tail and
-// ~(U0 + 1.15) LUT rows (the engine's profile: 1 + Poisson(0.15) UMIs per
-// slot, a few PCR-hot slots of 32-64), against C + 3 exps. The first
+// What bounds it on this card: its bound is the bytes of its outputs. Per
+// slot it writes C + 3 doubles and reads U0 codes, the slot's share of the
+// tail and ~(U0 + 1.15) LUT rows (the engine's profile: 1 + Poisson(0.15)
+// UMIs per slot, a few PCR-hot slots of 32-64), against C + 3 exps. It runs
+// at 4-5x that bound, held by its instructions (the C + 3 f64 exps, the
+// lane loop and the two binary searches a slot), not by its bytes. The first
 // version read the full lanes that ops/wire.py rebuilt from the tail (U =
 // 32 or 64 on every block that holds a PCR-hot slot, almost all of them
 // none), one thread's U codes at a 4U-byte stride, and summed U LUT rows

@@ -3,7 +3,8 @@
 
 Bound on this card: the bytes of its rows (g, gl and the t rows its
 columns use), read once per cell; ~3V + A columns of a 3-term dot and a
-multiply per slot. Design: one block per cell streams its slots through
+multiply per slot. It runs at ~1.5x that, the staging and the arithmetic
+each near its time (PERF.md). Design: one block per cell streams its slots through
 shared-memory stages (``csrc/stage.cuh``); each warp owns a sample's
 singlet, d and gs columns or an alpha's m0 column, and keeps each column's
 sum of logs as a product with exponent tracking (``csrc/logprod.cuh``): one

@@ -3,8 +3,9 @@
 normalisation preamble of ``_pair_kernel_df``.
 
 Bound on this card: per slot it writes C + 3 doubles against its U0 dense
-codes, its share of the wire-v2 tail, ~U0 + 1 LUT rows and C + 3 exps, so it
-is bound by HBM bandwidth on its outputs. Design: one block per cell at a
+codes, its share of the wire-v2 tail, ~U0 + 1 LUT rows and C + 3 exps, so
+its bound is the bytes of its outputs; it runs at 4-5x that, held by its
+instructions (the exps, the lane loop, the binary searches; PERF.md). Design: one block per cell at a
 time, one thread per slot, slots fastest (coalesced stores); the dense
 lanes, then the slot's run of the sorted tail (a binary search of the
 cell's tail, staged in shared memory up to ``TAIL_SMEM_MAX`` bytes), so the
