@@ -13,8 +13,8 @@ each against its plain PyTorch version on the card. Phases, one line each:
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. nvcc build of every csrc/*.cu, one nvcc each, all started together
      (seconds per kernel; ptxas's registers, stack and spills per
-     instantiation; a spill or a stack frame in K1, K3', K5', K6' or K7'
-     fails);
+     instantiation; a spill or a stack frame in K1, K3', K4', K5', K6' or
+     K7' fails);
   3. K1 against pair_llks_plain at the main-path shapes, a V=1 pool of
      384 alphas and the engine's deepest slot pad S = 4096 (max relative
      error, scale max(1, |x|), limit 2e-5; two launches bit-equal, the
@@ -60,8 +60,10 @@ each against its plain PyTorch version on the card. Phases, one line each:
      parity run's;
  12. K5' (pair_tiled_fast) and K4' (extras_fast) against their plain
      versions at the shapes of phase 9: within 2e-5 relative (scale
-     max(1, |x|)), K5' bit-equal over two launches, the alpha == 0.5
-     plane exactly symmetric; kernel ms and plain ms;
+     max(1, |x|)), K5' and K4' bit-equal over two launches, the
+     alpha == 0.5 plane exactly symmetric; kernel ms and plain ms, K4''s
+     dynamic shared memory and ptxas's registers and spills for it (a
+     spill fails);
  13. fast run_compact on the same pileup with V=32 donors on the default
      grid: K5' and K4' launched once per block and K1 never, rate, phase
      seconds, peak device memory, and the first 2 and the deepest block
@@ -753,12 +755,13 @@ def main() -> int:
           count=torch.cuda.device_count(), nvidia_smi=card)
 
     dev = resolve_device("auto")
+    ptxas = {}
     for name, (lib_path, secs) in kbuild.build_all().items():
-        entries = ptxas_summary(kbuild.ptxas_report(lib_path))
+        entries = ptxas[name] = ptxas_summary(kbuild.ptxas_report(lib_path))
         phase("build", kernel=name, seconds=secs,
               library=os.path.relpath(lib_path, HERE), ptxas=entries)
         if name in ("pair_exact", "pair_tiled_exact", "pair_fast",
-                    "pair_tiled_fast", "extras_exact") and any(
+                    "pair_tiled_fast", "extras_exact", "extras_fast") and any(
                 e.get("spill_stores", 1) or e.get("stack", 1)
                 for e in entries):
             fail(f"{name}: ptxas reports spills or a stack frame: {entries}")
@@ -1036,6 +1039,11 @@ def main() -> int:
               best_equal_parity=True, launches=named)
 
     # ---- 12. K5' and K4' against their plain versions
+    k4_ptxas = [{k: e.get(k) for k in ("registers", "stack", "spill_stores")}
+                for e in ptxas["extras_fast"]]
+    if not k4_ptxas or any(e["spill_stores"] != 0 or e["stack"] != 0
+                           for e in k4_ptxas):
+        fail(f"K4': ptxas reports spills or a stack frame: {k4_ptxas}")
     rng = np.random.default_rng(6)
     # and the engine's deepest slot pad
     for name, B, S, nv, grid in TILED_CASES + (
@@ -1047,7 +1055,7 @@ def main() -> int:
         a5 = (t, gps_t, nv, A, plan, expand)
         a4 = (t, gps_t, gp0_t, nv, A, a0_sep, expand)
         got5, got4 = PT.pair_tiled_fast(*a5), PT.extras_fast(*a4)
-        again5 = PT.pair_tiled_fast(*a5)
+        again5, again4 = PT.pair_tiled_fast(*a5), PT.extras_fast(*a4)
         torch.cuda.synchronize()
         want5, want4 = PT.pair_tiled_plain(*a5), PT.extras_fast_plain(*a4)
         e5, e4 = rel_err(got5, want5), rel_err(got4, want4)
@@ -1058,10 +1066,10 @@ def main() -> int:
             fail(f"K5'/K4' {name}: max relative errors {e5}, {e4} > {TOL}")
         plane = got5[..., sym_a]
         if not (torch.equal(plane, plane.transpose(1, 2))
-                and torch.equal(got5, again5)):
-            fail(f"K5' {name}: two launches differ or the alpha == 0.5 "
+                and torch.equal(got5, again5) and torch.equal(got4, again4)):
+            fail(f"K5'/K4' {name}: two launches differ or the alpha == 0.5 "
                  "plane is not symmetric")
-        del again5
+        del again5, again4
         big = B * S * nv * nv * A > 1 << 30  # the plain versions take ~1 s
         ms5 = median_ms(lambda: PT.pair_tiled_fast(*a5))
         plain5 = median_ms(lambda: PT.pair_tiled_plain(*a5),
@@ -1081,8 +1089,9 @@ def main() -> int:
         phase("k5_k4_vs_plain", case=name, B=B, S=S, V=nv, A=A,
               C=t.shape[0], tile=plan.tile, tile_items=len(plan.items),
               k5_max_rel_err=e5, k5_max_abs_err=a5err, k4_max_rel_err=e4,
-              k4_max_abs_err=a4err, tol=TOL, k5_relaunch_bit_equal=True,
+              k4_max_abs_err=a4err, tol=TOL, relaunch_bit_equal=True,
               sym_plane_exact=True, k5_smem_bytes=k5.smem_bytes(plan.tile),
+              k4_smem_bytes=k4.smem_bytes(nv, A, a0_sep), k4_ptxas=k4_ptxas,
               k5_ms=ms5, k5_plain_ms=plain5, k5_bound_ms=b5[0],
               k5_bound_by=b5[1], k4_ms=ms4, k4_plain_ms=plain4,
               k4_bound_ms=b4[0], k4_bound_by=b4[1])

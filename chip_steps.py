@@ -2,14 +2,15 @@
 """Times the pair kernels K3' (csrc/pair_exact.cu), K7'
 (csrc/pair_tiled_exact.cu), K1 (csrc/pair_fast.cu) and K5'
 (csrc/pair_tiled_fast.cu), the exact front K2' (csrc/front_exact.cu) and
-K7''s O(V) channels K6' (csrc/extras_exact.cu) of several source trees
-side by side on one CUDA card, at the shapes of ``chip_smoke.py``'s phases
-3, 6, 9 and 12, at the engine's deepest slot pad (S = 4096) and, for K2',
-at the engine's lane profile (``chip_smoke.lane_profile_inputs``: U = 64
-lanes as wire-v2 parts; U, U0 and K2p printed).
+the O(V) channels K6' (csrc/extras_exact.cu, beside K7') and K4'
+(csrc/extras_fast.cu, beside K5') of several source trees side by side on
+one CUDA card, at the shapes of ``chip_smoke.py``'s phases 3, 6, 9 and 12,
+at the engine's deepest slot pad (S = 4096) and, for K2', at the engine's
+lane profile (``chip_smoke.lane_profile_inputs``: U = 64 lanes as wire-v2
+parts; U, U0 and K2p printed).
 
 Each variant is a csrc directory, optional -D macros and optionally the
-kernels it is built for (default: all six); every variant's library is
+kernels it is built for (default: all seven); every variant's library is
 built with nvcc (``kernels/build.py``, in parallel) and called through its
 C entry point, so variants with the same entry points compare on the same
 inputs in one process. K2' before the wire-v2 parts (no
@@ -18,8 +19,9 @@ parts. Per shape: each variant's error against the plain PyTorch version
 (K2': relative, limit 1e-12; the other exact kernels: absolute, limit
 1e-9; fast kernels: relative with scale max(1, |x|), limit 2e-5), whether
 two launches give identical bits, whether its outputs equal the first
-variant's bit for bit (required of K3', K7' and K2': a change that leaves
-them as they were shows it here), and its median ms over CUDA-event timed
+variant's bit for bit (required of every kernel but K4', whose
+accumulation the steps change: a change that leaves a kernel's arithmetic
+as it was shows it here), and its median ms over CUDA-event timed
 launches, taken in turns (first to last, then last to first; both medians
 printed). One JSON line per (shape, variant), ptxas's report per variant,
 then the card's name and power limit.
@@ -47,10 +49,11 @@ import torch
 import chip_smoke as cs
 
 KERNELS = ("pair_exact", "pair_tiled_exact", "pair_fast", "pair_tiled_fast",
-           "front_exact", "extras_exact")
+           "front_exact", "extras_exact", "extras_fast")
 EXACT = ("pair_exact", "pair_tiled_exact", "front_exact", "extras_exact")
 # held bit-equal to the first variant
-BIT_EQUAL = ("pair_exact", "pair_tiled_exact", "front_exact")
+BIT_EQUAL = ("pair_exact", "pair_tiled_exact", "pair_fast", "pair_tiled_fast",
+             "front_exact", "extras_exact")
 # (name, kernel, B, S, V, grid)
 SHAPES = (
     ("k3_main", "pair_exact", 2048, 1024, 8, cs.GRID),
@@ -68,6 +71,9 @@ SHAPES = (
     ("k6_main", "extras_exact", 2048, 1024, 32, [0.0, 0.5]),
     ("k6_a5", "extras_exact", 2048, 1024, 32, cs.GRID),
     ("k6_deep", "extras_exact", 2048, 4096, 32, [0.0, 0.5]),
+    ("k4_main", "extras_fast", 2048, 1024, 32, [0.0, 0.5]),
+    ("k4_a5", "extras_fast", 2048, 1024, 32, cs.GRID),
+    ("k4_deep", "extras_fast", 2048, 4096, 32, [0.0, 0.5]),
 )
 
 
@@ -114,7 +120,7 @@ def load_all(variants):
             fn.argtypes = [P] * 8 + [I] * 12 + [P] if hasattr(
                 lib, "dmx_front_exact_smem") else [P] * 6 + [
                     ctypes.c_longlong] + [I] * 7 + [P]
-        elif kernel == "extras_exact":
+        elif kernel in ("extras_exact", "extras_fast"):
             fn.argtypes = [P] * 5 + [I] * 5 + [P]
         else:
             fn.argtypes = [P] * 6 + [I] * 6 + [P]
@@ -207,6 +213,22 @@ def k6_call(lib, t, g, gl, V, A, a0_sep, exp_dev):
     return run
 
 
+def k4_call(lib, t, g, g0, V, A, a0_sep, exp_dev):
+    from demuxlet_tpu_torch.ops.pair_tiled import extras_keys
+
+    _, B, S = t.shape
+    out = torch.empty((B, len(extras_keys(V, A, a0_sep, singlets=False))),
+                      dtype=torch.float32, device=t.device)
+
+    def run():
+        _check("dmx_extras_fast", lib.dmx_extras_fast(
+            t.data_ptr(), g.data_ptr(), g0.data_ptr(), exp_dev.data_ptr(),
+            out.data_ptr(), B, S, V, A, int(a0_sep),
+            torch.cuda.current_stream().cuda_stream))
+        return (out,)
+    return run
+
+
 def tiled_call(fn, t, g, V, A, plan, exp_dev, items, alist):
     """K7' or K5' (fn: the library's entry point) on the plan's items."""
     C, B, S = t.shape
@@ -251,7 +273,7 @@ def shape_runs(kernel, B, S, V, grid, dev, rng, variants, libs):
                 for k in labels}
         return want, runs, info
     if fast:
-        t, g, _, expand = cs.pair_inputs(rng, B, S, grid, dev, V)
+        t, g, g0, expand = cs.pair_inputs(rng, B, S, grid, dev, V)
     else:
         tab, codes, msk, g = cs.exact_inputs(rng, B, S, grid, dev, V)
         t, gl = front_exact(codes, tab.lut, msk, tab.cmask, tab.gsel)
@@ -269,6 +291,10 @@ def shape_runs(kernel, B, S, V, grid, dev, rng, variants, libs):
     elif kernel == "extras_exact":
         want = (PT.extras_plain(t, g, gl, V, A, a0_sep, expand),)
         runs = {k: k6_call(lib[k], t, g, gl, V, A, a0_sep, exp_dev)
+                for k in labels}
+    elif kernel == "extras_fast":
+        want = (PT.extras_fast_plain(t, g, g0, V, A, a0_sep, expand),)
+        runs = {k: k4_call(lib[k], t, g, g0, V, A, a0_sep, exp_dev)
                 for k in labels}
     else:
         plan = PT.plan_tiles(V, A, a0_sep, sym_a)

@@ -41,120 +41,97 @@
 
 #include <cuda_runtime.h>
 
+#include "extras.cuh"
+
+// Measurement variants (chip_steps.py): the accumulation form, the warps,
+// units a warp, blocks an SM, stages and chunk extent.
+#ifndef DMX_K4_LOGF
+#define DMX_K4_LOGF 0
+#endif
+#ifndef DMX_K4_WARPS
+#define DMX_K4_WARPS 8
+#endif
+#ifndef DMX_K4_UNITS
+#define DMX_K4_UNITS 5
+#endif
+#ifndef DMX_K4_BLOCKS
+#define DMX_K4_BLOCKS 2
+#endif
+#ifndef DMX_K4_STAGES
+#define DMX_K4_STAGES 2
+#endif
+#ifndef DMX_K4_CHUNK
+#define DMX_K4_CHUNK 0
+#endif
+
 namespace {
 
-constexpr int kWarps = 8;
+using Cfg = dmx::ExtrasCfg<float, false, DMX_K4_WARPS, DMX_K4_UNITS,
+                           DMX_K4_STAGES, DMX_K4_CHUNK>;
 
-struct Params {
-  const float* t;     // (C, B, S)
-  const float* g;     // (3V, B, S)
-  const float* g0;    // (3, B, S)
-  const int* expand;  // (A*9,) rows of t
-  float* out;         // (B, n_x)
-  long long plane;    // B*S: stride between channels
-  int S, V, A, a0_sep, n_x;
+// One accurate logf per column per slot, summed in f64: the accumulation
+// form beside logprod.cuh's products.
+template <int N>
+struct LogfAcc {
+  double s[N];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] = 0.0;
+  }
+  __device__ __forceinline__ bool step(int i, float x) {
+    s[i] += static_cast<double>(logf(x));
+    return true;
+  }
+  __device__ __forceinline__ void fix(int, float) {}
+  __device__ __forceinline__ double log_sum(int i) const { return s[i]; }
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int kAcc = Cfg::kCols * Cfg::kUnits;
+#if DMX_K4_LOGF
+using Acc = LogfAcc<kAcc>;
+#else
+using Acc = dmx::Acc<kAcc, float>;
+#endif
 
-// the kinds of column: d (alpha == 0 factor), gs (genotype sum), m0
-// (background pair channel of one alpha)
-enum Kind { kD, kGs, kM0 };
-
-__global__ void __launch_bounds__(kWarps * 32)
-extras_fast_kernel(Params p) {
-  const long long b = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int S = p.S, V = p.V;
-  const long long plane = p.plane;
-  const float* t = p.t + b * S;
-  const float* g = p.g + b * S;
-  const float* g0 = p.g0 + b * S;
-  const int n_sep = p.a0_sep ? 2 * V + 2 : 0;
-
-  for (int c = warp; c < p.n_x; c += kWarps) {
-    // column c -> (kind, its g rows r (V: g0), alpha a)
-    Kind kind;
-    int j = V, a = 0;
-    if (c < n_sep) {
-      if (c < V) {
-        kind = kD;
-        j = c;
-      } else if (c < 2 * V) {
-        kind = kGs;
-        j = c - V;
-      } else {
-        kind = c == 2 * V ? kD : kGs;  // u00, g0s: the background row
-      }
-    } else {
-      kind = kM0;
-      a = c - n_sep + p.a0_sep;
-    }
-    const float* r = j < V ? g + (3LL * j) * plane : g0;
-    float acc = 0.f;
-    if (kind == kD) {
-      const float* t0 = t + p.expand[0] * plane;
-      const float* t3 = t + p.expand[3] * plane;
-      const float* t6 = t + p.expand[6] * plane;
-      for (int s = lane; s < S; s += 32) {
-        acc += logf(r[s] * t0[s] + r[plane + s] * t3[s] +
-                    r[2 * plane + s] * t6[s]);
-      }
-    } else if (kind == kGs) {
-      for (int s = lane; s < S; s += 32) {
-        acc += logf(r[s] + r[plane + s] + r[2 * plane + s]);
-      }
-    } else {
-      int e[9];
-#pragma unroll
-      for (int i = 0; i < 9; ++i) e[i] = p.expand[a * 9 + i];
-      for (int s = lane; s < S; s += 32) {
-        const float r0 = r[s], r1 = r[plane + s], r2 = r[2 * plane + s];
-        float u[3];
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          u[m] = r0 * t[e[m] * plane + s] + r1 * t[e[3 + m] * plane + s] +
-                 r2 * t[e[6 + m] * plane + s];
-        }
-        acc += logf(r0 * u[0] + r1 * u[1] + r2 * u[2]);
-      }
-    }
-    const float v = warp_sum(acc);
-    if (lane == 0) p.out[b * p.n_x + c] = v;
-  }
+template <int CH>
+__global__ void __launch_bounds__(Cfg::kWarps * 32, DMX_K4_BLOCKS)
+extras_fast_kernel(dmx::ExtrasParams<float> p) {
+  extern __shared__ __align__(16) float smem[];  // stages, row pointers
+  dmx::extras_body<Cfg, CH, Acc>(p, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K4' on `stream` and returns cudaGetLastError() (0 on success).
+// The dynamic shared memory K4' takes for a pool (bytes).
+int dmx_extras_fast_smem(int V, int A, int a0_sep) {
+  int ch;
+  const dmx::ExtrasParams<float> p = dmx::extras_params<Cfg>(
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, V, A,
+      a0_sep, &ch);
+  return dmx::extras_smem<Cfg>(ch, p.stride);
+}
+
+// Launches K4' on `stream` and returns the first CUDA error (0 on success).
 // t (C, B, S), g (3V, B, S), g0 (3, B, S) and expand (A*9) on the device;
 // out (B, n_x) allocated by the caller, n_x = (a0_sep ? 2V + 2 : 0) + the
 // number of non-separable alphas.
 int dmx_extras_fast(const float* t, const float* g, const float* g0,
                     const int* expand, float* out, int B, int S, int V, int A,
                     int a0_sep, void* stream) {
-  Params p;
-  p.t = t;
-  p.g = g;
-  p.g0 = g0;
-  p.expand = expand;
-  p.out = out;
-  p.plane = (long long)B * S;
-  p.S = S;
-  p.V = V;
-  p.A = A;
-  p.a0_sep = a0_sep;
-  p.n_x = (a0_sep ? 2 * V + 2 : 0) + A - (a0_sep ? 1 : 0);
+  int ch;
+  const dmx::ExtrasParams<float> p = dmx::extras_params<Cfg>(
+      t, g, g0, nullptr, expand, out, B, S, V, A, a0_sep, &ch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  extras_fast_kernel<<<B, kWarps * 32, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (ch == 128) {
+    return dmx::launch_extras<Cfg, 128>(extras_fast_kernel<128>, p, B, st);
+  }
+  if (ch == 64) {
+    return dmx::launch_extras<Cfg, 64>(extras_fast_kernel<64>, p, B, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* dmx_cuda_error_string(int code) {

@@ -39,9 +39,17 @@ def _lib():
         I = ctypes.c_int
         fn.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
         fn.restype = I
+        lib.dmx_extras_fast_smem.argtypes = [I, I, I]
+        lib.dmx_extras_fast_smem.restype = I
         lib.dmx_cuda_error_string.argtypes = [I]
         lib.dmx_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def smem_bytes(V, A, a0_sep) -> int:
+    """The dynamic shared memory K4' takes for a pool (bytes)."""
+    lib = _lib()
+    return int(lib.dmx_extras_fast_smem(V, A, int(bool(a0_sep))))
 
 
 def extras_fast(t, gps_t, gp0_t, V, A, a0_sep, expand):

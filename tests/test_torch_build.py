@@ -47,12 +47,12 @@ def test_digest_follows_flags_and_is_stable(csrc):
 
 def test_repo_kernels_hash_their_headers():
     """Every csrc/*.cu of the port has a digest, and it covers the shared
-    headers the pair kernels and K6' include."""
+    headers the pair kernels, K6' and K4' include."""
     shared = ("pair_exact", "pair_tiled_exact", "pair_fast",
-              "pair_tiled_fast", "extras_exact")
+              "pair_tiled_fast", "extras_exact", "extras_fast")
     names = sorted(f[:-3] for f in os.listdir(kbuild.CSRC) if f.endswith(".cu"))
     assert set(shared) <= set(names)
-    for header in ("logprod.cuh", "stage.cuh", "tiled.cuh"):
+    for header in ("logprod.cuh", "stage.cuh", "tiled.cuh", "extras.cuh"):
         assert os.path.exists(os.path.join(kbuild.CSRC, header))
     for name in names:
         with open(os.path.join(kbuild.CSRC, name + ".cu")) as fh:

@@ -91,6 +91,33 @@ def test_plain_tiled_matches_jax_pallas_and_f64(B, S, V, A, opt):
         assert torch.equal(plane, plane.transpose(1, 2))
 
 
+def test_plain_extras_matches_jax_extras_many_alphas():
+    """extras_fast_plain against JAX _call_extras_only (interpret mode) on
+    a pool of many alphas and no separable plane (V=2, A=97, V*V*A = 388:
+    97 m0 columns and no sample column), with host background rows given
+    apart: within 1e-5 relative (scale max(1, |x|)); the JAX kernel's
+    columns past n_x are its lane padding."""
+    import jax.numpy as jnp
+
+    from demuxlet_tpu.ops.pallas_pair import _call_extras_only
+
+    V, A = 2, 97
+    assert V * V * A > TP.UNROLL_CAP
+    _, (_, gps_t, _), t = _packed(4, 64, V, A)
+    rng = np.random.default_rng(A)
+    gp0 = rng.dirichlet(np.ones(3), size=t.shape[1:]).astype(np.float32)
+    gp0_t = torch.from_numpy(np.ascontiguousarray(gp0.transpose(2, 0, 1)))
+    expand = tuple(range(A * 9))
+    got = PT.extras_fast_plain(t, torch.from_numpy(gps_t), gp0_t, V, A,
+                               False, expand)
+    n_x = len(PT.extras_keys(V, A, False, singlets=False))
+    assert got.dtype == torch.float32 and got.shape == (t.shape[1], n_x)
+    want = _call_extras_only(jnp.asarray(t.numpy()), jnp.asarray(gps_t),
+                             jnp.asarray(gp0_t.numpy()), V, A, True, False,
+                             expand)
+    assert _rel(got, np.asarray(want)[:, :n_x]) < 1e-5
+
+
 @pytest.mark.parametrize("V,A", [(8, 5), (16, 2), (17, 3)])
 def test_background_rows_per_route(V, A):
     """llk_00 takes its background rows as the JAX package's route of the
@@ -335,3 +362,54 @@ def test_k5_matches_plain_on_card(cuda_device, B, S, V, grid, edge):
     if edge == "special":
         assert bool(torch.isneginf(got[0, 1, 1, list(plan.alist)]).all())
         assert bool(torch.isnan(got[1, :, :, A - 1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,V,grid,edge", [
+    (16, 512, 32, [0.0, 0.5], None),
+    (8, 333, 32, _grid(5), None),  # S odd: 4-byte copies only
+    (2, 8192, 32, [0.0, 0.5], None),  # deep: the exponents run far
+    (16, 130, 20, [0.5, 0.1], None),  # no separable plane: no sample rows
+    (16, 128, 24, [0.0], None),  # single-point alpha == 0 grid
+    (4, 256, 1, _grid(400), None),  # rounds of alphas
+    (4, 200, 70, [0.0, 0.5], None),  # two rounds of samples
+    # S neither a multiple of the 128-slot chunk nor of 4 (4-byte copies)
+    (8, 1001, 17, _grid(3), "floor"),
+    (4, 256, 32, _grid(5), "special"),
+    (4, 130, 20, [0.5, 0.1], "special"),
+    (4, 200, 20, [0.0, 0.5], "padding"),
+])
+def test_k4_matches_plain_on_card(cuda_device, B, S, V, grid, edge):
+    """K4' alone against extras_fast_plain on the card, on inputs with the
+    edge cases of ``edge_inputs`` in f32 and background rows that are the
+    samples' mean: within 2e-5 relative (scale max(1, |x|); equal
+    infinities and NaNs match), two launches give identical bits and each
+    counts one launch; exact-zero and NaN inner values give -inf and NaN,
+    an all-padding block exact zeros; across its rounds of samples and of
+    alphas and slot counts that the 16-byte copies do not divide."""
+    from demuxlet_tpu_torch.kernels import extras_fast as k4
+    from test_torch_exact import assert_close_on_card
+    from test_torch_pair import card_inputs
+
+    A = len(grid)
+    t, g, expand, a0_sep, _ = card_inputs(B, S, V, grid, cuda_device, edge)
+    g0 = g.view(V, 3, B, S).mean(dim=0).contiguous()
+    args = (t, g, g0, V, A, a0_sep, expand)
+    before = k4.launches
+    got = PT.extras_fast(*args)
+    assert k4.launches == before + 1
+    again = PT.extras_fast(*args)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 2
+    assert got.shape == (B, len(PT.extras_keys(V, A, a0_sep,
+                                               singlets=False)))
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+    assert torch.equal(got.isnan(), again.isnan())
+    assert_close_on_card(got, PT.extras_fast_plain(*args), TOL,
+                         relative=True)
+    if edge == "padding":
+        assert bool((got == 0).all())
+    if edge == "special":
+        if a0_sep:  # sample 1's zero row: its d and gs columns
+            assert bool(torch.isneginf(got[0, [1, V + 1]]).all())
+        assert bool(torch.isnan(got[1, -1]))  # the last alpha's NaN t value
