@@ -41,19 +41,22 @@
 
 namespace dmx {
 
-constexpr int kExtrasSmemMax = 227 * 1024;
+constexpr int kExtrasSmemMax = 227 * 1024;  // a block's
+constexpr int kSmSmem = 228 * 1024;         // an SM's
+constexpr int kBlockReserved = 1024;        // the system's share a block
 
 // A kernel's compile-time shape: its scalar type F, whether it has the
 // singlet columns (and so the gl rows), its warps, the units a warp owns
-// in a round, its stages and its chunk extent (0: 128 unless 64 takes
-// fewer rounds).
-template <class F_, bool kGl_, int kWarps_, int kUnits_, int kStages_ = 2,
-          int kChunk_ = 0>
+// in a round, the blocks an SM it is built for (its launch bounds), its
+// stages and its chunk extent (0: choose_chunk's rule).
+template <class F_, bool kGl_, int kWarps_, int kUnits_, int kBlocks_,
+          int kStages_ = 2, int kChunk_ = 0>
 struct ExtrasCfg {
   using F = F_;
   static constexpr bool kGl = kGl_;
   static constexpr int kWarps = kWarps_;
   static constexpr int kUnits = kUnits_;
+  static constexpr int kBlocks = kBlocks_;
   static constexpr int kStages = kStages_;
   static constexpr int kChunk = kChunk_;
   static constexpr int kRoundUnits = kWarps * kUnits;
@@ -293,8 +296,17 @@ int plan_rounds(int n_units, int n_s, int max_rows, int* rows) {
   return n;
 }
 
-// The chunk extent of a pool, its stage stride and row budget: Cfg::kChunk,
-// or 128 slots unless 64 takes fewer rounds (more rows fit a round).
+template <class Cfg>
+int extras_smem(int ch, int stride) {
+  using F = typename Cfg::F;
+  return stride * (Cfg::kStages * ch * static_cast<int>(sizeof(F)) +
+                   static_cast<int>(sizeof(F*)));
+}
+
+// The chunk extent of a pool, its stage stride and row budget: Cfg::kChunk
+// if set; else the extent with fewer rounds (more rows fit a round), and on
+// a tie 128 slots unless its stages keep Cfg::kBlocks blocks from sharing
+// an SM where 64's do not.
 template <class Cfg>
 int choose_chunk(int n_units, int n_s, int* stride, int* max_rows) {
   int r128, r64;
@@ -302,18 +314,21 @@ int choose_chunk(int n_units, int n_s, int* stride, int* max_rows) {
       plan_rounds<Cfg>(n_units, n_s, Cfg::template kMaxRows<128>, &r128);
   const int n64 =
       plan_rounds<Cfg>(n_units, n_s, Cfg::template kMaxRows<64>, &r64);
-  const int ch = Cfg::kChunk ? Cfg::kChunk : (n128 <= n64 ? 128 : 64);
+  const auto shares = [](int bytes) {
+    return Cfg::kBlocks * (bytes + kBlockReserved) <= kSmSmem;
+  };
+  const int ch =
+      Cfg::kChunk ? Cfg::kChunk
+      : n128 != n64
+          ? (n128 < n64 ? 128 : 64)
+          : (shares(extras_smem<Cfg>(128, r128)) ||
+                     !shares(extras_smem<Cfg>(64, r64))
+                 ? 128
+                 : 64);
   *stride = ch == 128 ? r128 : r64;
   *max_rows =
       ch == 128 ? Cfg::template kMaxRows<128> : Cfg::template kMaxRows<64>;
   return ch;
-}
-
-template <class Cfg>
-int extras_smem(int ch, int stride) {
-  using F = typename Cfg::F;
-  return stride * (Cfg::kStages * ch * static_cast<int>(sizeof(F)) +
-                   static_cast<int>(sizeof(F*)));
 }
 
 // The launch parameters of a pool (chunk: the extent it takes), or the

@@ -56,10 +56,10 @@ namespace {
 
 // 16 warps of up to 3 units each (up to 9 f64 accumulators a thread), one
 // block an SM
-using Cfg = dmx::ExtrasCfg<double, true, 16, 3>;
+using Cfg = dmx::ExtrasCfg<double, true, 16, 3, 1>;
 
 template <int CH>
-__global__ void __launch_bounds__(Cfg::kWarps * 32, 1)
+__global__ void __launch_bounds__(Cfg::kWarps * 32, Cfg::kBlocks)
 extras_exact_kernel(dmx::ExtrasParams<double> p) {
   extern __shared__ __align__(16) double smem[];  // stages, row pointers
   dmx::extras_body<Cfg, CH, dmx::Acc<Cfg::kCols * Cfg::kUnits>>(p, smem);

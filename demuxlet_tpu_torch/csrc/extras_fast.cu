@@ -49,10 +49,10 @@
 #define DMX_K4_LOGF 0
 #endif
 #ifndef DMX_K4_WARPS
-#define DMX_K4_WARPS 8
+#define DMX_K4_WARPS 16
 #endif
 #ifndef DMX_K4_UNITS
-#define DMX_K4_UNITS 5
+#define DMX_K4_UNITS 3
 #endif
 #ifndef DMX_K4_BLOCKS
 #define DMX_K4_BLOCKS 2
@@ -67,7 +67,7 @@
 namespace {
 
 using Cfg = dmx::ExtrasCfg<float, false, DMX_K4_WARPS, DMX_K4_UNITS,
-                           DMX_K4_STAGES, DMX_K4_CHUNK>;
+                           DMX_K4_BLOCKS, DMX_K4_STAGES, DMX_K4_CHUNK>;
 
 // One accurate logf per column per slot, summed in f64: the accumulation
 // form beside logprod.cuh's products.
@@ -95,7 +95,7 @@ using Acc = dmx::Acc<kAcc, float>;
 #endif
 
 template <int CH>
-__global__ void __launch_bounds__(Cfg::kWarps * 32, DMX_K4_BLOCKS)
+__global__ void __launch_bounds__(Cfg::kWarps * 32, Cfg::kBlocks)
 extras_fast_kernel(dmx::ExtrasParams<float> p) {
   extern __shared__ __align__(16) float smem[];  // stages, row pointers
   dmx::extras_body<Cfg, CH, Acc>(p, smem);
