@@ -18,7 +18,7 @@
 // so its inner values are exactly 1.
 //
 // One block owns one cell and streams its slots in chunks of CH slots
-// through Cfg::kStages shared-memory stages (stage.cuh), so every row is
+// through two shared-memory stages (stage.cuh), so every row is
 // read from HBM once per cell. A unit is sample j (j = V: g0) with its
 // columns (they read g_j once), or one non-separable alpha with its m0
 // column; a kernel without singlet columns has sample units only when
@@ -47,31 +47,26 @@ constexpr int kBlockReserved = 1024;        // the system's share a block
 
 // A kernel's compile-time shape: its scalar type F, whether it has the
 // singlet columns (and so the gl rows), its warps, the units a warp owns
-// in a round, the blocks an SM it is built for (its launch bounds), its
-// stages and its chunk extent (0: choose_chunk's rule).
-template <class F_, bool kGl_, int kWarps_, int kUnits_, int kBlocks_,
-          int kStages_ = 2, int kChunk_ = 0>
+// in a round and the blocks an SM it is built for (its launch bounds).
+template <class F_, bool kGl_, int kWarps_, int kUnits_, int kBlocks_>
 struct ExtrasCfg {
   using F = F_;
   static constexpr bool kGl = kGl_;
   static constexpr int kWarps = kWarps_;
   static constexpr int kUnits = kUnits_;
   static constexpr int kBlocks = kBlocks_;
-  static constexpr int kStages = kStages_;
-  static constexpr int kChunk = kChunk_;
   static constexpr int kRoundUnits = kWarps * kUnits;
   // head rows: gl (kGl), then t[0,:,0] at kT0 and g0 at kG0
   static constexpr int kT0 = kGl ? 3 : 0;
   static constexpr int kG0 = kT0 + 3;
   static constexpr int kHead = kG0 + 3;
   static constexpr int kCols = kGl ? 3 : 2;  // a sample unit's columns
-  // the most stage rows a chunk extent CH allows: the stages and a row
+  // the most stage rows a chunk extent CH allows: two stages and a row
   // pointer per row
   template <int CH>
   static constexpr int kMaxRows =
       kExtrasSmemMax /
-      (kStages * CH * static_cast<int>(sizeof(F)) +
-       static_cast<int>(sizeof(F*)));
+      (2 * CH * static_cast<int>(sizeof(F)) + static_cast<int>(sizeof(F*)));
 };
 
 template <class F>
@@ -162,7 +157,7 @@ __device__ __forceinline__ void extras_body(
   using F = typename Cfg::F;
   constexpr int kCols = Cfg::kCols;
   const F** rows =
-      reinterpret_cast<const F**>(smem + Cfg::kStages * p.stride * CH);
+      reinterpret_cast<const F**>(smem + 2 * p.stride * CH);
   const long long b = blockIdx.x;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -231,7 +226,7 @@ __device__ __forceinline__ void extras_body(
     }
     Acc acc;
     acc.init();
-    stream_chunks<CH, F, Cfg::kStages>(
+    stream_chunks<CH, F>(
         smem, rows, n_rows, p.S, p.vec, [&](const F* st, int n) {
 #pragma unroll 1
           for (int s0 = 0; s0 < n; s0 += 32) {
@@ -299,14 +294,15 @@ int plan_rounds(int n_units, int n_s, int max_rows, int* rows) {
 template <class Cfg>
 int extras_smem(int ch, int stride) {
   using F = typename Cfg::F;
-  return stride * (Cfg::kStages * ch * static_cast<int>(sizeof(F)) +
-                   static_cast<int>(sizeof(F*)));
+  return stride *
+         (2 * ch * static_cast<int>(sizeof(F)) + static_cast<int>(sizeof(F*)));
 }
 
-// The chunk extent of a pool, its stage stride and row budget: Cfg::kChunk
-// if set; else the extent with fewer rounds (more rows fit a round), and on
-// a tie 128 slots unless its stages keep Cfg::kBlocks blocks from sharing
-// an SM where 64's do not.
+// The chunk extent of a pool, its stage stride and row budget: the extent
+// with fewer rounds (more rows fit a round), and on a tie 128 slots unless
+// its stages keep Cfg::kBlocks blocks from sharing an SM where 64's do not
+// (K4' at V=32, A=5: two blocks of 64-slot chunks took 18% less time than
+// one of 128, PERF.md).
 template <class Cfg>
 int choose_chunk(int n_units, int n_s, int* stride, int* max_rows) {
   int r128, r64;
@@ -317,14 +313,11 @@ int choose_chunk(int n_units, int n_s, int* stride, int* max_rows) {
   const auto shares = [](int bytes) {
     return Cfg::kBlocks * (bytes + kBlockReserved) <= kSmSmem;
   };
-  const int ch =
-      Cfg::kChunk ? Cfg::kChunk
-      : n128 != n64
-          ? (n128 < n64 ? 128 : 64)
-          : (shares(extras_smem<Cfg>(128, r128)) ||
-                     !shares(extras_smem<Cfg>(64, r64))
-                 ? 128
-                 : 64);
+  const int ch = n128 != n64 ? (n128 < n64 ? 128 : 64)
+                 : shares(extras_smem<Cfg>(128, r128)) ||
+                         !shares(extras_smem<Cfg>(64, r64))
+                     ? 128
+                     : 64;
   *stride = ch == 128 ? r128 : r64;
   *max_rows =
       ch == 128 ? Cfg::template kMaxRows<128> : Cfg::template kMaxRows<64>;

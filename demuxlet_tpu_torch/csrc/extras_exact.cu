@@ -30,19 +30,21 @@
 // and g0 from L2 for every column that used them: 2.0 ms at V=32, A=2,
 // B=2048, S=1024, 3.7x the bytes (PERF.md).
 //
-// What the design does about it (stage.cuh and logprod.cuh as K3' and K7'
-// use them): one block owns one cell and streams its slots in chunks of CH
-// slots (128, or 64 where a round's rows would not fit two stages of 128)
-// through two shared-memory stages (cp.async; chunk c + 1 lands while chunk
-// c is computed), so every row is read from HBM once per cell. A unit is
-// sample j with its s, d and gs columns (they read g_j once), or one
-// non-separable alpha with its m0 column; each warp owns up to kUnits units
-// of a round, its lanes over slots, one product accumulator per column in
-// registers: one f64 log per lane and column, then the fixed warp-shuffle
-// butterfly, so runs give identical bits. A round stages gl, the alpha == 0
-// t column and g0 (9 rows), 3 rows per sample and 9 per alpha; pools whose
-// rows exceed the shared memory take several rounds, each a pass over the
-// slots. V, A, a0_sep and expand are runtime arguments. It runs at ~1.5x
+// What the design does about it (extras.cuh, the body K4' shares, over
+// stage.cuh and logprod.cuh as K3' and K7' use them): one block owns one
+// cell and streams its slots in chunks of CH slots (128, or 64 where that
+// takes fewer rounds) through two shared-memory stages (cp.async; chunk
+// c + 1 lands while chunk c is computed), so every row is read from HBM
+// once per cell. A unit is sample j with its s, d and gs columns (they read
+// g_j once), or one non-separable alpha with its m0 column; each of 16
+// warps owns up to 3 units of a round, its lanes over slots, one product
+// accumulator per column in registers: one f64 log per lane and column,
+// then the fixed warp-shuffle butterfly, so runs give identical bits. A
+// round stages gl, the alpha == 0 t column and g0 (9 rows), 3 rows per
+// sample and 9 per alpha; pools whose rows exceed the shared memory take
+// several rounds, each a pass over the slots. V, A, a0_sep and expand are
+// runtime arguments. Sharing the body with K4' left its bits as they were
+// and its time within 3%. It runs at ~1.5x
 // its bytes: the staging alone and the arithmetic alone each take ~70% of
 // its time, so their overlap sets it (PERF.md).
 //

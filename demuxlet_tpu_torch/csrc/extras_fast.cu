@@ -4,101 +4,59 @@
 // Replaces the TPU kernel demuxlet_tpu/ops/pallas_pair.py::_extras_kernel
 // (launched by _call_extras_only), the companion of K5' (pair_tiled_fast.cu)
 // on pools with V*V*A > 384; on a single-point alpha == 0 grid it carries
-// the whole pair search alone.
+// the whole pair search alone. The TPU kernel multiplied up to four slots'
+// inner values per log (`halves`); this one multiplies every slot's into a
+// product with exponent tracking and takes one log per lane and column
+// (logprod.cuh).
 //
-// What it computes, per cell b, as columns of out (B, n_x) in the order of
-// ops/pair_tiled.py::extras_keys(..., singlets=False) (g rows j*3 + l for
-// the V samples; g0 the three host background rows gp0, the TPU's
-// host-exact gp0 planes, not a mean taken here; t the front's mixture
-// table, expand mapping the A*9 logical channels onto its rows). When the
-// alpha == 0 plane is separable (a0_sep),
-//   d[j]   = sum_s log(g[j] . t[0,:,0])                  j = 0..V-1
-//   gs[k]  = sum_s log(g[k,0] + g[k,1] + g[k,2])         k = 0..V-1
-//   u00    = d of g0,  g0s = gs of g0,
-// then, for every alpha a that is not the separable one,
-//   m0[a]  = sum_s log(g0 . (g0 t[a]))
-// The singlet sums are not here: fast mode's front computes them. A masked
-// slot carries t == 1 and neutral rows (1, 0, 0), so it adds log 1 == 0
-// exactly.
+// What it computes: the columns of extras.cuh without the singlets (fast
+// mode's front computes them), per cell b as out (B, n_x) in the order of
+// ops/pair_tiled.py::extras_keys(..., singlets=False): with a separable
+// alpha == 0 plane d[j], gs[k], u00 and g0s, then m0[a] for every other
+// alpha. g0 is the three host background rows gp0 through their own
+// pointer (the TPU's host-exact gp0 planes, not a mean taken here), so the
+// caller never concatenates them to g.
 //
-// What limits it on this card: one f32 log per column per slot (~2V + A),
-// against ~V*V*A/2 in K5', so it is a small share of the block; per slot it
-// reads 3V + 3 floats of g and g0 and up to 3 + 9 (A - 1) of t. The
-// function needs no per-slot log (a column's inner values can multiply into
-// a product with exponent renormalisation, one log per cell), so its bound
-// is those bytes; the per-slot logs are this simple kernel's cost.
+// What bounds it on this card: the bytes. Per slot it reads the 3V g rows,
+// g0 and up to 3 + 9 (A - 1) t rows (104 distinct f32 rows at V=32, A=2:
+// 0.26 ms at B=2048, S=1024), against ~2V + A columns of a 3-term dot and
+// a multiply each. The first version took one accurate logf per column per
+// slot, its warps walking whole columns and re-reading the t column and g0
+// from L2 for every column that used them: 0.68 ms, 2.6x the bytes.
 //
-// What the design does about it: K6''s layout (extras_exact.cu) in f32.
-// One block owns one cell and loops over all of its slots; each warp takes
-// whole columns; lanes stride over slots, so loads are coalesced along s;
-// each column's sum lives in a register and ends in a fixed warp-shuffle
-// butterfly: no atomics, so runs give identical bits. V, A, a0_sep and
-// expand are runtime arguments. g0 comes through its own pointer, so the
-// caller never concatenates it to g.
+// What the design does about it: K6''s body (extras.cuh) in f32. One block
+// owns one cell and streams its slots through two shared-memory stages of
+// 128-slot chunks (64 where 128's would keep two blocks from sharing an
+// SM: A=5 at V=32), so every row is read from HBM once per cell; without a
+// separable plane no sample row is staged. Each of 16 warps owns up to 3
+// units (a sample's d and gs columns, g0's u00 and g0s, or an alpha's m0),
+// its lanes over slots, one f32 product per column in registers; the
+// lane's log and the butterfly are f64, rounded to f32 once per column: no
+// atomics, so runs give identical bits. 63 registers, two blocks an SM.
+// Measured (chip_steps.py, PERF.md): 0.35 ms at V=32, A=2, 1.3x the bytes
+// (1.2x at S=4096); staging alone takes 0.31 ms and the arithmetic alone
+// 0.26, so their overlap sets it. One logf per column per slot in place of
+// the products was 12-16% slower, 8 warps of up to 5 units (84 registers)
+// 10-15%, and a third stage within 3% either way.
 //
-// Build without --use_fast_math: the fast-mode contract (2e-5 relative)
-// needs the accurate logf (1 ulp), not __logf.
+// Build without --use_fast_math: the lane's log must be the accurate one.
 
 #include <cuda_runtime.h>
 
 #include "extras.cuh"
 
-// Measurement variants (chip_steps.py): the accumulation form, the warps,
-// units a warp, blocks an SM, stages and chunk extent.
-#ifndef DMX_K4_LOGF
-#define DMX_K4_LOGF 0
-#endif
-#ifndef DMX_K4_WARPS
-#define DMX_K4_WARPS 16
-#endif
-#ifndef DMX_K4_UNITS
-#define DMX_K4_UNITS 3
-#endif
-#ifndef DMX_K4_BLOCKS
-#define DMX_K4_BLOCKS 2
-#endif
-#ifndef DMX_K4_STAGES
-#define DMX_K4_STAGES 2
-#endif
-#ifndef DMX_K4_CHUNK
-#define DMX_K4_CHUNK 0
-#endif
-
 namespace {
 
-using Cfg = dmx::ExtrasCfg<float, false, DMX_K4_WARPS, DMX_K4_UNITS,
-                           DMX_K4_BLOCKS, DMX_K4_STAGES, DMX_K4_CHUNK>;
-
-// One accurate logf per column per slot, summed in f64: the accumulation
-// form beside logprod.cuh's products.
-template <int N>
-struct LogfAcc {
-  double s[N];
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int i = 0; i < N; ++i) s[i] = 0.0;
-  }
-  __device__ __forceinline__ bool step(int i, float x) {
-    s[i] += static_cast<double>(logf(x));
-    return true;
-  }
-  __device__ __forceinline__ void fix(int, float) {}
-  __device__ __forceinline__ double log_sum(int i) const { return s[i]; }
-};
-
-constexpr int kAcc = Cfg::kCols * Cfg::kUnits;
-#if DMX_K4_LOGF
-using Acc = LogfAcc<kAcc>;
-#else
-using Acc = dmx::Acc<kAcc, float>;
-#endif
+// 16 warps of up to 3 units each (up to 6 f32 accumulators a thread), two
+// blocks an SM
+using Cfg = dmx::ExtrasCfg<float, false, 16, 3, 2>;
 
 template <int CH>
 __global__ void __launch_bounds__(Cfg::kWarps * 32, Cfg::kBlocks)
 extras_fast_kernel(dmx::ExtrasParams<float> p) {
   extern __shared__ __align__(16) float smem[];  // stages, row pointers
-  dmx::extras_body<Cfg, CH, Acc>(p, smem);
+  dmx::extras_body<Cfg, CH, dmx::Acc<Cfg::kCols * Cfg::kUnits, float>>(
+      p, smem);
 }
 
 }  // namespace

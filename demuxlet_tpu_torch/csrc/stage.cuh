@@ -1,16 +1,16 @@
 // Slot chunks staged in shared memory, and the (j, k) accumulator patch
 // that reads them: the common core of the pair kernels, in f64 (K3'
 // pair_exact.cu, K7' pair_tiled_exact.cu) and in f32 (K1 pair_fast.cu, K5'
-// pair_tiled_fast.cu), and the staging of the O(V) kernels (extras.cuh).
+// pair_tiled_fast.cu), and the staging of the O(V) kernels K6' and K4'
+// (extras.cuh).
 //
-// A block streams its cell's S slots through NST shared-memory stages (two
-// unless the kernel asks for more) of n_rows x CH values of the scalar
-// type F (row r of a stage: slots [s0, s0 + CH) of one global row; rows of
-// one cell are contiguous in the (rows, B, S) layout). The copies of the
-// next NST - 1 chunks are in flight (cp.async, 16 bytes where the rows
-// allow it: 2 doubles or 4 floats) while the block computes on chunk c.
-// Each warp reads the stage with its lanes over slots: 32 consecutive
-// values per load, no bank conflict.
+// A block streams its cell's S slots through two shared-memory stages of
+// n_rows x CH values of the scalar type F (row r of a stage: slots
+// [s0, s0 + CH) of one global row; rows of one cell are contiguous in the
+// (rows, B, S) layout). The copy of chunk c + 1 is in flight (cp.async, 16
+// bytes where the rows allow it: 2 doubles or 4 floats) while the block
+// computes on chunk c. Each warp reads the stage with its lanes over slots:
+// 32 consecutive values per load, no bank conflict.
 //
 // A patch is PJ j rows x NK k rows of one alpha in one thread: per slot it
 // loads PJ g_j rows, the 9 t values of the alpha and NK g_k rows, forms
@@ -69,10 +69,8 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// waits until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 // Copies slots [s0, s0 + n) of rows[0 .. n_rows) into buf (row r at
@@ -115,40 +113,31 @@ __device__ __forceinline__ void stage_chunk(F* buf, const F* const* rows,
   }
 }
 
-// Streams S slots through NST stages at smem (NST x n_rows x CH values)
+// Streams S slots through the two stages at smem (2 x n_rows x CH values)
 // and calls body(stage, n) on every thread once per chunk, n its slots,
-// between barriers: chunks c + 1 .. c + NST - 1 are in flight while chunk c
-// is computed. Every thread of the block must call it.
-template <int CH, class F, int NST = 2, class Body>
+// between barriers. Every thread of the block must call it.
+template <int CH, class F, class Body>
 __device__ __forceinline__ void stream_chunks(F* smem,
                                               const F* const* rows,
                                               int n_rows, int S, bool vec,
                                               Body body) {
-  static_assert(NST >= 2, "a stage in flight beside the one computed");
   const int n_ch = (S + CH - 1) / CH;
-#pragma unroll
-  for (int c = 0; c < NST - 1; ++c) {
-    if (c < n_ch) {
-      stage_chunk<CH>(smem + c * n_rows * CH, rows, n_rows, c * CH,
-                      min(CH, S - c * CH), vec);
-    }
-    cp_async_commit();
-  }
+  stage_chunk<CH>(smem, rows, n_rows, 0, min(CH, S), vec);
+  cp_async_commit();
   for (int c = 0; c < n_ch; ++c) {
-    const int c1 = c + NST - 1;
-    if (c1 < n_ch && DMX_PROBE != 2) {
-      const int s1 = c1 * CH;
-      stage_chunk<CH>(smem + (c1 % NST) * n_rows * CH, rows, n_rows, s1,
+    if (c + 1 < n_ch && DMX_PROBE != 2) {
+      const int s1 = (c + 1) * CH;
+      stage_chunk<CH>(smem + ((c + 1) & 1) * n_rows * CH, rows, n_rows, s1,
                       min(CH, S - s1), vec);
     }
     cp_async_commit();
-    cp_async_wait<NST - 1>();  // chunk c has landed; later ones may not
+    cp_async_wait1();  // chunk c has landed; c + 1 may be in flight
     __syncthreads();
     if (DMX_PROBE != 1) {
-      body(smem + (DMX_PROBE == 2 ? 0 : (c % NST) * n_rows * CH),
+      body(smem + (DMX_PROBE == 2 ? 0 : (c & 1) * n_rows * CH),
            min(CH, S - c * CH));
     }
-    __syncthreads();  // the stage is free for chunk c + NST
+    __syncthreads();  // the stage is free for chunk c + 2
   }
 }
 

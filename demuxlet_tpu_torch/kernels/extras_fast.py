@@ -1,12 +1,17 @@
 """ctypes wrapper of K4' (``csrc/extras_fast.cu``), the Hopper port of
 ``demuxlet_tpu/ops/pallas_pair.py::_extras_kernel``.
 
-Cost on this card: one f32 log per column per slot (~2V + A columns), on
-the SMs' FP32 pipes, a small share of K5''s; the function's bound is the
-bytes of g (one log per column per cell would do). Design: K6''s layout in
-f32 without the singlet columns, the host background rows through their own
-pointer; one block per cell, warps over columns, lanes over slots, a fixed
-warp-shuffle reduction, so runs are bit-reproducible. See the source.
+Bound on this card: the bytes of its rows (g, the host background rows
+and the t rows its columns use), read once per cell; ~2V + A columns of a
+3-term dot and a multiply per slot. It runs at ~1.3x that, its staging
+and its arithmetic each near its time (PERF.md). Design: K6''s body
+(``csrc/extras.cuh``) in f32 without the singlet columns, the background
+rows through their own pointer: one block per cell streams its slots
+through shared-memory stages; each warp owns a sample's d and gs columns
+or an alpha's m0 column and keeps each column's sum of logs as a product
+with exponent tracking (``csrc/logprod.cuh``): one log per lane and
+column, a fixed warp-shuffle reduction, so runs are bit-reproducible. See
+the source.
 
 The wrapper validates its inputs, allocates the output with
 ``torch.empty``, launches on the current stream without synchronising,
