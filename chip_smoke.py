@@ -62,8 +62,8 @@ each against its plain PyTorch version on the card. Phases, one line each:
      versions at the shapes of phase 9: within 2e-5 relative (scale
      max(1, |x|)), K5' and K4' bit-equal over two launches, the
      alpha == 0.5 plane exactly symmetric; kernel ms and plain ms, K4''s
-     dynamic shared memory and ptxas's registers and spills for it (a
-     spill fails);
+     dynamic shared memory and its ptxas registers, stack and spills (a
+     spill or a stack frame already failed phase 2);
  13. fast run_compact on the same pileup with V=32 donors on the default
      grid: K5' and K4' launched once per block and K1 never, rate, phase
      seconds, peak device memory, and the first 2 and the deepest block
@@ -1038,12 +1038,10 @@ def main() -> int:
         phase("cli", mode="fast", cells=cells, samples=16, alphas=2,
               best_equal_parity=True, launches=named)
 
-    # ---- 12. K5' and K4' against their plain versions
+    # ---- 12. K5' and K4' against their plain versions (phase 2 failed on
+    # a spill or stack frame in either)
     k4_ptxas = [{k: e.get(k) for k in ("registers", "stack", "spill_stores")}
                 for e in ptxas["extras_fast"]]
-    if not k4_ptxas or any(e["spill_stores"] != 0 or e["stack"] != 0
-                           for e in k4_ptxas):
-        fail(f"K4': ptxas reports spills or a stack frame: {k4_ptxas}")
     rng = np.random.default_rng(6)
     # and the engine's deepest slot pad
     for name, B, S, nv, grid in TILED_CASES + (
