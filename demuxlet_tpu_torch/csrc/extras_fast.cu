@@ -22,7 +22,7 @@
 // 0.26 ms at B=2048, S=1024), against ~2V + A columns of a 3-term dot and
 // a multiply each. The first version took one accurate logf per column per
 // slot, its warps walking whole columns and re-reading the t column and g0
-// from L2 for every column that used them: 0.68 ms, 2.6x the bytes.
+// from L2 for every column that used them: 0.64 ms, 2.4x the bytes.
 //
 // What the design does about it: K6''s body (extras.cuh) in f32. One block
 // owns one cell and streams its slots through two shared-memory stages of
@@ -33,11 +33,11 @@
 // its lanes over slots, one f32 product per column in registers; the
 // lane's log and the butterfly are f64, rounded to f32 once per column: no
 // atomics, so runs give identical bits. 63 registers, two blocks an SM.
-// Measured (chip_steps.py, PERF.md): 0.35 ms at V=32, A=2, 1.3x the bytes
-// (1.2x at S=4096); staging alone takes 0.31 ms and the arithmetic alone
-// 0.26, so their overlap sets it. One logf per column per slot in place of
-// the products was 12-16% slower, 8 warps of up to 5 units (84 registers)
-// 10-15%, and a third stage within 3% either way.
+// Measured (chip_steps.py, PERF.md): 0.33 ms at V=32, A=2, 1.3x the bytes
+// (1.1x at S=4096); staging alone takes 0.30 ms and the arithmetic alone
+// 0.25, so their overlap sets it. One logf per column per slot in place of
+// the products was 12-18% slower, 8 warps of up to 5 units (84 registers)
+// 12-16%, and a third stage within 4% either way.
 //
 // Build without --use_fast_math: the lane's log must be the accurate one.
 
