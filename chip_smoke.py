@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port on one CUDA card (H100).
 
 Drives the port's device paths, fast-mode and exact-mode (the CLI default)
-``DemuxEngine.run_compact`` and the CLI, at the full width of the repo's
+``DemuxEngine.run_compact``, the full-tensor ``DemuxEngine.run`` (with
+its spool and its dense route) and the CLI, at the full width of the repo's
 realistic configuration (V=8 donors, the 5-point alpha grid, 50,000 SNPs,
 ~1,000 covered SNPs per cell, --cell-block 2048), and both modes on a
 large pool (V=32 donors on the CLI's default grid [0, 0.5], V*V*A = 2048:
@@ -24,7 +25,8 @@ each against its plain PyTorch version on the card. Phases, one line each:
      seconds, and the first 2 and the last (deepest) block, with their
      slot pads S and lanes U, again with the plain pair search on the card;
   5. the CLI (--mode fast) on a BAM/VCF from tests/fixtures.py (150 cells,
-     V=8): its .best calls equal the host-oracle --mode parity calls;
+     V=8): its .best calls equal the host-oracle --mode parity
+     --write-pair calls;
   6. K2' (front_exact) and K3' (pair_exact) against their plain versions
      at the main-path shapes, the engine's deepest slot pad S = 4096 and,
      for K2', the engine's lane profile (U = 64 lanes as wire-v2 parts:
@@ -41,7 +43,9 @@ each against its plain PyTorch version on the card. Phases, one line each:
      within 1e-9 absolute, integer fields equal except counted near ties);
   8. the CLI with no --mode (exact) on the same BAM/VCF: .single and
      .sing2 byte-identical to --mode parity, .best equal after
-     canonicalize_best;
+     canonicalize_best; then with --write-pair (run() on K2' + K3', and no
+     other kernel): .pair, .single and .sing2 byte-identical to parity's;
+     and with --profile: its torch.profiler trace names K2' and K3';
   9. K7' (pair_tiled_exact) and K6' (extras_exact) against their plain
      versions at B=2048, S=1024 for (V, A) = (32, 5), (32, 2), (20, 2),
      (17, 3), a ragged B=40/S=384 case (V=7, A=8: one 8-tile) and the
@@ -68,7 +72,22 @@ each against its plain PyTorch version on the card. Phases, one line each:
      grid: K5' and K4' launched once per block and K1 never, rate, phase
      seconds, peak device memory, and the first 2 and the deepest block
      through the plain versions (2e-5 relative, near ties counted);
- 14. per run (exact and fast at V=8, exact and fast at V=32), one more
+ 14. per mode at V=8/A=5 and V=32/A=2, the full-tensor run() on the
+     same pileup and then run_compact on the same engine: the route's
+     kernels launched once per block and every other kernel never; llks and
+     llk0s bit-equal to run_compact's; compact_from_result of run()'s
+     tensors against run_compact's rows (1e-9 absolute exact, 2e-5
+     relative fast; integer fields equal except counted near ties); the
+     first 2 and the deepest block's four outputs through the plain
+     versions; each call's rate, phase seconds, H2D and D2H bytes and peak
+     device memory;
+ 15. exact run() at V=8 with a spool directory, twice: one file a block,
+     the second run launches no kernel, its arrays bit-equal;
+ 16. the dense route (ops/likelihood.py) at V=8/A=5 on a cut pileup
+     (1,024 cells of the same profile on blocks of 256): --exact-kernel xla
+     and --cap-BQ 127 within 1e-9 of the kernel run() on it, f32 within
+     2e-5 relative, no kernel of the port launched; rate and peak memory;
+ 17. per run (exact and fast at V=8, exact and fast at V=32), one more
      run_compact on the pileup (rate, phase seconds, peak device memory)
      and one under torch.profiler: the device's busy ms and idle share, the
      top ops by device ms, the port's kernels' ms per block slot pad, and
@@ -114,6 +133,10 @@ GRID = [float(a) for a in np.linspace(0.0, 0.5, 5)]
 # the large pool: the tiled K7' + K6' (exact) and K5' + K4' (fast)
 V_LARGE, GRID_LARGE = 32, [0.0, 0.5]
 # the tiled kernels' cases: (name, B, S, V, grid); "main" is the large pool
+# the dense route's cut: 1,024 cells of the same profile on blocks of 256
+# (its host count slots, (B, S, 2 * (cap_bq + 1)) int32, stay under 2.2 GB
+# a block at --cap-BQ 127 and the deepest pad, S = 8192)
+DENSE_CELLS, DENSE_BLOCK = 1024, 256
 TILED_CASES = (
     ("v32_a5", 2048, 1024, 32, GRID),
     ("main", 2048, 1024, V_LARGE, GRID_LARGE),
@@ -507,19 +530,47 @@ def fast_cli_vs_parity(base, tmp, parity, kernels, absent=()):
     return len(calls[0]), counts
 
 
-def run_cli(base, tmp, name, mode=None):
-    """One CLI run into tmp/name (no --mode: the parser default)."""
+def run_cli(base, tmp, name, mode=None, extra=()):
+    """One CLI run into tmp/name (no --mode: the parser default), with
+    extra arguments; returns its output files' lines (.pair where
+    written)."""
     from demuxlet_tpu_torch import cli
 
     out = os.path.join(tmp, name)
     argv = base + ["--out", out] + ([] if mode is None else ["--mode", mode])
-    if cli.main(argv) != 0:
+    if cli.main(argv + list(extra)) != 0:
         fail(f"CLI {name} returned non-zero")
     files = {}
-    for ext in (".single", ".sing2", ".best"):
-        with open(out + ext) as fh:
-            files[ext] = fh.read().splitlines()
+    for ext in (".single", ".sing2", ".best", ".pair"):
+        if ext != ".pair" or os.path.exists(out + ext):
+            with open(out + ext) as fh:
+                files[ext] = fh.read().splitlines()
     return files
+
+
+def exact_pair_plain_of(V, A):
+    """The plain version of the exact pair search the engine's route takes
+    at V samples and A alphas (K3''s, or K7' + K6''s)."""
+    import functools
+
+    from demuxlet_tpu_torch.ops import pair_tiled as PT
+    from demuxlet_tpu_torch.ops.pair import UNROLL_CAP
+    from demuxlet_tpu_torch.ops.pair_exact import pair_exact_plain
+
+    if V * V * A <= UNROLL_CAP:
+        return pair_exact_plain
+    return functools.partial(PT.pair_exact_tiled, pair_fn=PT.pair_tiled_plain,
+                             extras_fn=PT.extras_plain)
+
+
+def pack_rows(comp, llks, llk0s):
+    """A CompactResult and its singlet LLKs as the packed decision rows."""
+    from demuxlet_tpu_torch.models import decision as D
+
+    return np.concatenate(
+        [comp.sing_col, comp.llk_00]
+        + [getattr(comp, k).astype(np.float64)[:, None] for k in D._PACK_KEYS]
+        + [llks, llk0s[:, None]], axis=1)
 
 
 def engine_vs_plain(eng, csr, llks, llk0s, comp, blocks, pads, exact, dev):
@@ -528,20 +579,14 @@ def engine_vs_plain(eng, csr, llks, llk0s, comp, blocks, pads, exact, dev):
     plain versions of the path's kernels on the same device; compare_rows
     of the engine's rows against them. Returns (max err, near ties,
     [{block, S, U, cells}])."""
-    import functools
-
     from demuxlet_tpu_torch.models import decision as D
     from demuxlet_tpu_torch.models.engine import _h2d
-    from demuxlet_tpu_torch.ops import pair_tiled as PT
     from demuxlet_tpu_torch.ops.front_exact import front_exact_plain
-    from demuxlet_tpu_torch.ops.pair import UNROLL_CAP, pair_llks_plain
-    from demuxlet_tpu_torch.ops.pair_exact import pair_exact_plain
+    from demuxlet_tpu_torch.ops.pair import pair_llks_plain
 
     cfg = eng._wire_cfg_for(csr)
     V, A = eng.nv, len(eng.grid_alpha)
-    exact_pair_plain = pair_exact_plain if V * V * A <= UNROLL_CAP else \
-        functools.partial(PT.pair_exact_tiled, pair_fn=PT.pair_tiled_plain,
-                          extras_fn=PT.extras_plain)
+    exact_pair_plain = exact_pair_plain_of(V, A)
     dbl_w = torch.as_tensor(D.doublet_weights(V, eng.grid_alpha, 0.5),
                             dtype=torch.float64, device=dev)
     dbl_msk = torch.as_tensor(D.doublet_mask(V, A), device=dev)
@@ -565,11 +610,8 @@ def engine_vs_plain(eng, csr, llks, llk0s, comp, blocks, pads, exact, dev):
                 tab.logf_ext, dbl_w, dbl_msk, A, V, 0.5, expand=tab.expand,
                 wire=meta, pair_fn=pair_llks_plain, **kw)
         ref.append(rows.cpu().numpy()[: len(cells)])
-        c = D.take(comp, np.asarray(cells))
-        got.append(np.concatenate(
-            [c.sing_col, c.llk_00]
-            + [getattr(c, k).astype(np.float64)[:, None] for k in D._PACK_KEYS]
-            + [llks[cells], llk0s[cells][:, None]], axis=1))
+        got.append(pack_rows(D.take(comp, np.asarray(cells)), llks[cells],
+                             llk0s[cells]))
     tol = EXACT_TOL if exact else TOL
     err, ties = compare_rows(np.concatenate(got), np.concatenate(ref), V, A,
                              tol, absolute=exact)
@@ -633,6 +675,215 @@ def drive_engine(csr, gps, mode, dev, kernels, grid=GRID, absent=()):
                   near_tie_cells=ties, lane_rebuilds=rebuilds)
     fields["plain_max_abs_err" if exact else "plain_max_rel_err"] = err
     return fields, launches
+
+
+def run_vs_plain(eng, csr, res, blocks, pads, dev):
+    """The first 2 blocks of a run() and its last (the deepest) again,
+    through the plain versions of the route's kernels on the same device:
+    the max error of the four outputs (absolute in exact mode, relative in
+    fast mode) and [{block, S, U, cells}]."""
+    from demuxlet_tpu_torch.models.engine import _h2d
+    from demuxlet_tpu_torch.ops.front import fast_front
+    from demuxlet_tpu_torch.ops.front_exact import (
+        exact_block,
+        front_exact_plain,
+    )
+    from demuxlet_tpu_torch.ops.pair import pair_llks_plain
+
+    cfg = eng._wire_cfg_for(csr)
+    V, A = eng.nv, eng.n_alpha
+    exact = eng.mode == "exact"
+    err_fn = abs_err if exact else rel_err
+    err, checked = 0.0, []
+    for i in sorted({0, 1, len(blocks) - 1} & set(range(len(blocks)))):
+        cells = blocks[i]
+        buf, meta, _ = eng._prep_codes_blk(csr, cells,
+                                           pads[i] if pads else None)
+        checked.append(dict(block=i, S=meta[1], U=meta[2], cells=len(cells)))
+        kw = dict(a0_sep=True, sym_a=eng.grid_alpha.index(0.5), wire=meta)
+        if exact:
+            tab = eng._exact_tables(cfg)
+            outs = exact_block(
+                _h2d(buf, dev), None, None, tab.g_table, tab.lut, tab.cmask,
+                tab.gsel, tab.expand, A, V, front_fn=front_exact_plain,
+                pair_fn=exact_pair_plain_of(V, A), **kw)
+        else:
+            tab = eng._fast_tables(cfg)
+            outs = fast_front(
+                _h2d(buf, dev), None, None, tab.gps, tab.gp0, tab.w_ext,
+                tab.logf_ext, A, V, expand=tab.expand, pair_fn=pair_llks_plain,
+                g_table=tab.g_table, **kw)
+        for got, want in zip((res.llks, res.llk0s, res.llk_ab, res.llk_00),
+                             outs):
+            err = max(err, err_fn(torch.from_numpy(got[cells]),
+                                  want[: len(cells)].cpu()))
+    return err, checked
+
+
+def engine_stats(eng, n, wall, peak):
+    return dict(seconds=wall, barcodes_per_s=n / wall,
+                phase_s=dict(eng.phase_s), h2d_bytes=eng.h2d_bytes,
+                d2h_bytes=eng.d2h_bytes, peak_device_gb=peak / 1e9)
+
+
+def drive_run(csr, gps, mode, dev, kernels, every, grid=GRID):
+    """The full-tensor run() of the given mode and grid on csr, then
+    run_compact on the same engine (its tables built by a run_compact
+    before either): every launch count of ``every`` set to 0 just before
+    run() and read just after; the path's ``kernels`` launched once per
+    block, the others never; llks and llk0s bit-equal to run_compact's;
+    compact_from_result of run()'s tensors against run_compact's rows
+    (floats within the mode's tolerance, integer fields equal except
+    counted near ties); the first 2 and the deepest block through the plain
+    versions. Returns (phase fields, {kernel: launches}, engine, result)."""
+    from demuxlet_tpu_torch.models import decision as D
+    from demuxlet_tpu_torch.models.engine import DemuxEngine
+
+    eng = DemuxEngine(gps, grid, cell_block=CELL_BLOCK, mode=mode, device=dev)
+    eng.run_compact(csr, 0.5)  # the engine's tables
+    torch.cuda.synchronize()
+    for k in every:
+        k.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    res = eng.run(csr)
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: k.launches for k in every}
+    run_stats = engine_stats(eng, csr.nbcs, wall, peak)
+    blocks, pads = eng._blocks(csr.nbcs, csr)
+    named = {k.__name__.rsplit(".", 1)[1]: n for k, n in launches.items()}
+    if any(launches[k] != len(blocks) for k in kernels) or any(
+            launches[k] for k in every if k not in kernels):
+        fail(f"{mode} run(): launches {named} for {len(blocks)} blocks")
+    nv, A = gps.shape[1], len(grid)
+    if not (res.llk_ab.shape == (csr.nbcs, nv, nv, A)
+            and all(np.isfinite(x).all() for x in (
+                res.llks, res.llk0s, res.llk_ab, res.llk_00))):
+        fail(f"{mode} run() outputs are not finite or have the wrong shape")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    llks, llk0s, comp = eng.run_compact(csr, 0.5)
+    compact_stats = engine_stats(eng, csr.nbcs, time.monotonic() - t0,
+                                 torch.cuda.max_memory_allocated())
+    if not (np.array_equal(res.llks, llks)
+            and np.array_equal(res.llk0s, llk0s)):
+        fail(f"{mode} run(): llks or llk0s differ from run_compact's")
+    exact = mode == "exact"
+    tol = EXACT_TOL if exact else TOL
+    t0 = time.monotonic()
+    decided = D.compact_from_result(res.llk_ab, res.llk_00, grid, 0.5)
+    host_decision_s = time.monotonic() - t0
+    err_c, ties = compare_rows(pack_rows(decided, res.llks, res.llk0s),
+                               pack_rows(comp, llks, llk0s), nv, A, tol,
+                               absolute=exact)
+    err_p, checked = run_vs_plain(eng, csr, res, blocks, pads, dev)
+    if not (err_c <= tol and err_p <= tol):
+        fail(f"{mode} run(): compact_from_result vs run_compact {err_c}, "
+             f"vs plain {err_p} > {tol}")
+    fields = dict(cells=csr.nbcs, samples=nv, alphas=A, blocks=len(blocks),
+                  route=eng.route, run=run_stats, run_compact=compact_stats,
+                  llks_bit_equal_run_compact=True,
+                  host_compact_from_result_s=host_decision_s,
+                  compact_max_err=err_c, near_tie_cells=ties,
+                  plain_check_blocks=checked, plain_max_err=err_p, tol=tol,
+                  launches=named)
+    return fields, named, eng, res
+
+
+def spool_twice(eng, csr, every, dev):
+    """run() with a spool directory twice on one engine: one file a block;
+    the second run launches no kernel (launch counts set to 0 just before
+    it) and its arrays are bit-equal to the first's."""
+    with tempfile.TemporaryDirectory() as sd:
+        t0 = time.monotonic()
+        first = eng.run(csr, spool_dir=sd)
+        t_first = time.monotonic() - t0
+        files = os.listdir(sd)
+        nbytes = sum(os.path.getsize(os.path.join(sd, f)) for f in files)
+        for k in every:
+            k.reset_launches()
+        t0 = time.monotonic()
+        again = eng.run(csr, spool_dir=sd)
+        t_again = time.monotonic() - t0
+        launched = {k.__name__.rsplit(".", 1)[1]: k.launches for k in every}
+    n_blocks = len(eng._blocks(csr.nbcs, csr)[0])
+    same = all(np.array_equal(a, b) for a, b in zip(
+        (first.llks, first.llk0s, first.llk_ab, first.llk_00),
+        (again.llks, again.llk0s, again.llk_ab, again.llk_00)))
+    if len(files) != n_blocks or any(launched.values()) or not same:
+        fail(f"spool: {len(files)} files for {n_blocks} blocks, second run "
+             f"launches {launched}, arrays bit-equal {same}")
+    return dict(mode=eng.mode, blocks=n_blocks, files=len(files),
+                spool_bytes=nbytes, first_s=t_first, second_s=t_again,
+                second_launches=launched, bit_equal=True,
+                second_h2d_bytes=eng.h2d_bytes)
+
+
+def drive_dense(gps, dev, every):
+    """The dense route (build_slots count slots through ops/likelihood.py)
+    on a cut pileup: --exact-kernel xla in f64 and --cap-BQ 127 (the
+    pileup's qualities lie below 40, so both equal the kernel route) within
+    EXACT_TOL of the kernel run() on the same pileup and blocks, f32 within
+    TOL relative; no kernel of the port launched. Returns phase lines."""
+    from demuxlet_tpu_torch.models.engine import DemuxEngine
+
+    cut = synth_pileup(np.random.default_rng(8), DENSE_CELLS)
+    kern = DemuxEngine(gps, GRID, cell_block=DENSE_BLOCK,
+                       device=dev).run(cut)
+    want = (kern.llks, kern.llk0s, kern.llk_ab, kern.llk_00)
+    out = []
+    for name, kw, tol in (("xla", dict(exact_kernel="xla"), EXACT_TOL),
+                          ("f32", dict(dtype=torch.float32), TOL),
+                          ("cap127", dict(cap_bq=127), EXACT_TOL)):
+        eng = DemuxEngine(gps, GRID, cell_block=DENSE_BLOCK, device=dev, **kw)
+        for k in every:
+            k.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        res = eng.run(cut)
+        stats = engine_stats(eng, cut.nbcs, time.monotonic() - t0,
+                             torch.cuda.max_memory_allocated())
+        launched = {k.__name__.rsplit(".", 1)[1]: k.launches for k in every}
+        err_fn = rel_err if name == "f32" else abs_err
+        err = max(err_fn(torch.from_numpy(g), torch.from_numpy(w)) for g, w
+                  in zip((res.llks, res.llk0s, res.llk_ab, res.llk_00), want))
+        if not err <= tol or any(launched.values()) or not \
+                eng.route.startswith("dense"):
+            fail(f"dense {name}: max error {err} > {tol} against the kernel "
+                 f"run(), launches {launched}, route {eng.route}")
+        out.append(dict(option=name, cells=cut.nbcs, cell_block=DENSE_BLOCK,
+                        samples=gps.shape[1], alphas=len(GRID),
+                        route=eng.route, max_err_vs_kernel_run=err, tol=tol,
+                        relative=name == "f32",
+                        slot_pads=sorted({_bucket_of(eng, cut, b) for b in
+                                          eng._blocks(cut.nbcs, cut)[0]}),
+                        **stats))
+    return out
+
+
+def _bucket_of(eng, csr, cells):
+    """The dense route's slot pad of a block: its max covered SNPs, padded
+    to 8 and bucketed to a power of two (``host/slots``, ``_bucket``)."""
+    from demuxlet_tpu_torch.models.engine import _bucket
+
+    m = int(np.asarray(csr.n_snps_all())[cells].max())
+    return _bucket(-(-m // 8) * 8)
+
+
+def profile_trace_kernels(path):
+    """{kernel: launches} of the port's own kernels in a Chrome trace."""
+    with open(path) as fh:
+        ev = json.load(fh)["traceEvents"]
+    out = {}
+    for e in ev:
+        if e.get("cat") == "kernel":
+            for k, v in OWN_KERNELS.items():
+                if k in e["name"]:
+                    out[v] = out.get(v, 0) + 1
+    return out
 
 
 # the port's own kernels, by the name CUPTI records for them
@@ -755,6 +1006,7 @@ def main() -> int:
           count=torch.cuda.device_count(), nvidia_smi=card)
 
     dev = resolve_device("auto")
+    every = [pair_fast, k2, k3, k7, k6, k5, k4]  # every kernel module
     ptxas = {}
     for name, (lib_path, secs) in kbuild.build_all().items():
         entries = ptxas[name] = ptxas_summary(kbuild.ptxas_report(lib_path))
@@ -835,7 +1087,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 5. the CLI (fast) against the host oracle
         base = cli_case(tmp, V, 150, 80)
-        parity = run_cli(base, tmp, "parity", "parity")
+        parity = run_cli(base, tmp, "parity", "parity",
+                         extra=["--write-pair"])
         cells, named = fast_cli_vs_parity(base, tmp, parity, [pair_fast],
                                           absent=[k5, k4])
         phase("cli", mode="fast", cells=cells, samples=V,
@@ -954,6 +1207,30 @@ def main() -> int:
         phase("cli", mode="exact (default)", cells=cells, samples=V,
               single_sing2_byte_identical=True, best_equal_parity=True,
               launches=named)
+
+        # --write-pair (run() on K2' + K3'): .pair, .single and .sing2
+        # byte-identical to parity's; --profile: a trace naming them
+        for k in every:
+            k.reset_launches()
+        wp = run_cli(base, tmp, "write_pair", extra=["--write-pair"])
+        named = {k.__name__.rsplit(".", 1)[1]: k.launches for k in every}
+        for ext in (".pair", ".single", ".sing2"):
+            if wp[ext] != parity[ext]:
+                fail(f"CLI --write-pair {ext} differs from parity's")
+        if not (named["front_exact"] and named["pair_exact"]) or sum(
+                named.values()) != named["front_exact"] + named["pair_exact"]:
+            fail(f"CLI --write-pair launches {named}")
+        trace_dir = os.path.join(tmp, "trace")
+        run_cli(base, tmp, "profile", extra=["--profile", trace_dir])
+        traced = profile_trace_kernels(
+            os.path.join(trace_dir, "torch_trace.json"))
+        if not (traced.get("K2'") and traced.get("K3'")):
+            fail(f"CLI --profile trace names the kernels {traced}")
+        phase("cli", mode="exact (default) --write-pair, --profile",
+              cells=len(wp[".best"]) - 1, samples=V,
+              pair_lines=len(wp[".pair"]),
+              pair_single_sing2_byte_identical=True, launches=named,
+              profile_trace_kernels=traced)
 
     # ---- 9. K7' and K6' against their plain versions
     rng = np.random.default_rng(4)
@@ -1108,7 +1385,25 @@ def main() -> int:
           k4_launches=counts[k4], k1_launches=counts[pair_fast], card=card,
           **fields)
 
-    # ---- 14. where the device time goes, per run
+    # ---- 14. the full-tensor run() per mode and pool, beside run_compact
+    for mode, g, grid, path in (
+            ("exact", gps, GRID, [k2, k3]), ("fast", gps, GRID, [pair_fast]),
+            ("exact", gps_large, GRID_LARGE, [k2, k7, k6]),
+            ("fast", gps_large, GRID_LARGE, [k5, k4])):
+        fields, _, eng, _ = drive_run(csr, g, mode, dev, path, every, grid)
+        phase("run", mode=mode, card=card, **fields)
+        if (mode, g.shape[1]) == ("exact", V):
+            # ---- 15. run() with a spool directory, twice
+            phase("spool", card=card, **spool_twice(eng, csr, every, dev))
+        del eng
+    torch.cuda.empty_cache()
+
+    # ---- 16. the dense route on a cut pileup
+    for fields in drive_dense(gps, dev, every):
+        phase("dense", card=card, **fields)
+    torch.cuda.empty_cache()
+
+    # ---- 17. where the device time goes, per run
     for mode, g, grid in (("exact", gps, GRID), ("fast", gps, GRID),
                           ("exact", gps_large, GRID_LARGE),
                           ("fast", gps_large, GRID_LARGE)):

@@ -8,13 +8,19 @@ kernel versions (tests), ``tpu`` is an error.
 
 ``--mode exact`` (the default; ``--exact-kernel auto|pallas`` both select
 the port's f64 kernels) and ``--mode fast`` run through
-``DemuxEngine.run_compact``, ``--mode parity`` runs the host oracle.
-Everything else fails loudly with a DemuxError naming the ROADMAP item
-that will port it; nothing falls back to another mode.
+``DemuxEngine.run_compact``; ``--write-pair``, ``--spool``, a genome shard
+and the dense route (``--exact-kernel xla``, exact ``--cap-BQ`` > 126,
+exact ``--precision f32``) through ``DemuxEngine.run``, as the JAX CLI
+chooses; ``--mode parity`` runs the host oracle. A NOTICE names the route
+each run took. Multi-device meshes, ``--dist-coordinator`` and ``--device
+tpu`` fail loudly with a DemuxError naming the ROADMAP item that will port
+them; nothing falls back to another mode.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 import time
 
@@ -29,32 +35,17 @@ from demuxlet_tpu_torch.utils.logging_utils import error, notice
 
 
 def _refuse_unported(args) -> None:
-    """DemuxError for every option the port does not cover yet."""
-    if args.mode == "exact" and args.exact_kernel == "xla":
-        error("--exact-kernel xla (the dense f64 run()) is not ported to "
-              "PyTorch yet (ROADMAP queue 1, item 12); use auto")
-    if args.mode == "exact" and args.cap_BQ > 126:
-        error("--cap-BQ > 126 in exact mode needs the dense f64 run(), not "
-              "ported to PyTorch yet (ROADMAP queue 1, item 12)")
-    if args.write_pair:
-        error("--write-pair needs the full-tensor run(), not ported to "
-              "PyTorch yet (ROADMAP queue 1, item 12)")
-    if args.spool:
-        error("--spool needs the full-tensor run(), not ported to PyTorch "
-              "yet (ROADMAP queue 1, item 12)")
-    if args.profile:
-        error("--profile (torch.profiler) is not ported yet (ROADMAP "
-              "queue 1, item 12)")
+    """DemuxError for every option the port does not cover yet, and for
+    fast mode's cap-BQ > 126 (the JAX engine's refusal) before any input
+    is read."""
     if args.dist_coordinator:
-        error("--dist-coordinator (multi-host) is not ported to PyTorch "
-              "yet (ROADMAP queue 1, item 15)")
-    if args.shard_by == "genome":
-        error("--shard-by genome needs the full-tensor run() and the "
-              "multi-host sum merge, not ported to PyTorch yet (ROADMAP "
-              "queue 1, items 12 and 15)")
-    if args.precision != "f64":
-        error("--precision f32 is not ported: the port's decision pass "
-              "always runs in f64 (ROADMAP queue 1, item 9)")
+        error("--dist-coordinator (multi-host%s) is not ported to PyTorch "
+              "yet (ROADMAP queue 1, item 15)",
+              ", genome shards included" if args.shard_by == "genome"
+              else "")
+    if args.mode == "fast" and args.cap_BQ > 126:
+        error("--cap-BQ > 126 is not representable by the fast-mode u8 "
+              "observation codes; use --mode exact")
 
 
 def _check_single_device(args) -> None:
@@ -78,11 +69,27 @@ def _check_single_device(args) -> None:
               args.mesh, n)
 
 
-def _load_table(args):
+def _genome_regions(args):
+    """This process's regions of a genome-sharded run (``--shard-by
+    genome --num-shards N``, N > 1), else None: ``split_genome_shards``
+    over the BAM's reference lengths, as demuxlet_tpu.cli.main computes
+    them before the VCF load."""
+    if args.shard_by != "genome" or args.num_shards <= 1:
+        return None
+    from demuxlet_tpu_torch.native.ingest import _bam_refs_len
+    from demuxlet_tpu_torch.utils.intervals import split_genome_shards
+
+    shards = split_genome_shards(_bam_refs_len(args.sam), args.num_shards)
+    return shards[args.shard_id]
+
+
+def _load_table(args, genome_regions=None):
     """The SNP table, as demuxlet_tpu.cli.main loads it (chunk patterns
-    included; genome sharding is refused above)."""
+    included), restricted to genome_regions when given; a genome shard may
+    hold no SNP."""
     from demuxlet_tpu_torch.io.vcf import (
         expand_chunk_pattern,
+        filter_snp_table,
         load_snp_table,
         merge_snp_tables,
     )
@@ -112,11 +119,26 @@ def _load_table(args):
         if not files:
             error("No chunk files found for pattern %s", args.vcf)
         table = merge_snp_tables([load_snp_table(f, **kw) for f in files])
+        if genome_regions is not None:
+            table = filter_snp_table(table, genome_regions)
     else:
-        table = load_snp_table(args.vcf, **kw)
-    if table.nsnps == 0:
+        table = load_snp_table(args.vcf, regions=genome_regions, **kw)
+    if table.nsnps == 0 and genome_regions is None:
         error("Cannot read any single variant from %s", args.vcf)
     return table
+
+
+def _profiler(args, device):
+    """torch.profiler over the device passes under --profile (CPU and
+    CUDA activities on the card, CPU on the CPU), else a null context."""
+    if not args.profile:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
 
 
 def main(argv=None) -> int:
@@ -154,15 +176,33 @@ def main(argv=None) -> int:
             "Finished loading %d droplet/cell barcodes to consider", len(group_set)
         )
 
-    table = _load_table(args)
+    genome_regions = _genome_regions(args)
+    if genome_regions is not None:
+        args._genome_regions = genome_regions  # read by the ingest
+    table = _load_table(args, genome_regions)
+    if genome_regions is not None:
+        notice(
+            "WARNING: genome-sharded run without --dist-coordinator "
+            "writes PARTIAL per-shard LLKs (this shard's SNPs only); "
+            "contributions from all shards must be sum-merged"
+        )
+        notice(
+            "Genome shard %d/%d: %d regions, %d SNPs",
+            args.shard_id, args.num_shards, len(genome_regions),
+            table.nsnps,
+        )
     t_vcf_done = time.time()
     eng = None
     if args.mode != "parity":
+        import torch
+
         from demuxlet_tpu_torch.models.engine import DemuxEngine
 
-        eng = DemuxEngine(table.gps, grid_alpha, cap_bq=args.cap_BQ,
-                          cell_block=args.cell_block, mode=args.mode,
-                          device=device)
+        eng = DemuxEngine(
+            table.gps, grid_alpha, cap_bq=args.cap_BQ,
+            cell_block=args.cell_block, slot_chunk=args.slot_chunk,
+            dtype=torch.float64 if args.precision == "f64" else torch.float32,
+            mode=args.mode, exact_kernel=args.exact_kernel, device=device)
 
     scl, ctr = _ingest(args, table, group_set)
     ctr.report(scl.nbcs, scl.nsnps)
@@ -177,9 +217,27 @@ def main(argv=None) -> int:
     from demuxlet_tpu_torch.models import outputs as out_mod
     from demuxlet_tpu_torch.models.engine import cell_stats
 
+    # the compact device decision pass unless the full tensors are needed
+    # (the .pair file, the spool, a shard's partial LLKs) or the engine
+    # takes the dense route, which has no compact step
+    use_compact = (not args.write_pair and not args.spool
+                   and genome_regions is None and eng.dense_reason is None)
     t_eng = time.time()
-    llks, llk0s, compact = eng.run_compact(scl, args.doublet_prior)
+    with _profiler(args, device) as prof:
+        if use_compact:
+            llks, llk0s, compact = eng.run_compact(scl, args.doublet_prior)
+        else:
+            res = eng.run(scl, spool_dir=args.spool)
+            llks, llk0s = res.llks, res.llk0s
+        if prof is not None and device.type == "cuda":
+            torch.cuda.synchronize()
     t_eng_done = time.time()
+    notice("Route: %s, %s", "run_compact" if use_compact else "run", eng.route)
+    if prof is not None:
+        os.makedirs(args.profile, exist_ok=True)
+        path = os.path.join(args.profile, "torch_trace.json")
+        prof.export_chrome_trace(path)
+        notice("Profiler trace written to %s", path)
     if scl.nbcs:
         notice(
             "Device passes: %.2fs (%.0f barcodes/s, mode=%s, device=%s)",
@@ -193,11 +251,21 @@ def main(argv=None) -> int:
     )
     with _open_out(args.out, ".single") as fh:
         out_mod.write_single(fh, stats, table.sample_ids, llks, llk0s, **filt)
-    with _open_out(args.out, ".sing2") as s2, _open_out(args.out, ".best") as sb:
-        out_mod.write_pass2_compact(
-            stats, table.sample_ids, compact, grid_alpha,
-            args.doublet_prior, s2, sb, **filt,
-        )
+    with contextlib.ExitStack() as files:
+        s2 = files.enter_context(_open_out(args.out, ".sing2"))
+        sb = files.enter_context(_open_out(args.out, ".best"))
+        if use_compact:
+            out_mod.write_pass2_compact(
+                stats, table.sample_ids, compact, grid_alpha,
+                args.doublet_prior, s2, sb, **filt,
+            )
+        else:
+            wpair = (files.enter_context(_open_out(args.out, ".pair"))
+                     if args.write_pair else None)
+            out_mod.write_pass2(
+                stats, table.sample_ids, res.llk_ab, res.llk_00, grid_alpha,
+                args.doublet_prior, s2, sb, wpair, **filt,
+            )
     notice("Finished writing output files")
     notice("Total wall-clock time: %.3fs", time.time() - t_start)
     return 0

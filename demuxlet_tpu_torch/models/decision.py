@@ -9,7 +9,8 @@ maximum), the -1e300-seeded second best, -inf masking of excluded doublet
 channels.
 
 ``CompactResult``, ``doublet_weights``, ``doublet_mask``, ``take``,
-``concat``, ``_PACK_KEYS`` and ``unpack_block`` are copies of the JAX
+``concat``, ``_PACK_KEYS``, ``unpack_block`` and ``compact_from_result``
+(numpy, for ``run()``'s full tensors) are copies of the JAX
 module's JAX-free helpers (that module imports JAX at the top);
 tests/test_torch_decision.py pins each copy equal to the original.
 """
@@ -122,6 +123,60 @@ def unpack_block(packed: np.ndarray, n_samples: int, n_alpha: int):
     return llks, llk0s, out
 
 
+def compact_from_result(
+    llk_ab: np.ndarray,
+    llk_00: np.ndarray,
+    grid_alpha: Sequence[float],
+    doublet_prior: float,
+) -> CompactResult:
+    """Build a CompactResult from full (n,V,V,A) LLKs (exact-mode path):
+    the same decision pass the fast path fuses on device, run once over
+    host-resident f64 arrays. Used to gather compact rows (not the full
+    tensor) across hosts (parallel/multihost.gather_compact)."""
+    llk_ab = np.asarray(llk_ab, dtype=np.float64)
+    llk_00 = np.asarray(llk_00, dtype=np.float64)
+    n, V, _, A = llk_ab.shape
+    dbl_w = doublet_weights(V, grid_alpha, doublet_prior)
+    dbl_msk = doublet_mask(V, A)
+    rows = np.arange(n)
+    flat = llk_ab.reshape(n, -1)
+    max_llk = np.maximum(
+        flat.max(axis=1) if flat.shape[1] else np.full(n, -np.inf), -1e300
+    )
+    sing_col = llk_ab[:, :, 0, 0]
+    sum_single = (
+        np.exp(sing_col - max_llk[:, None]).sum(axis=1)
+        * (1.0 - doublet_prior) / V
+    )
+    sum_double = np.einsum(
+        "cjkn,jkn->c", np.exp(llk_ab - max_llk[:, None, None, None]), dbl_w
+    )
+    i1 = np.argmax(sing_col, axis=1)
+    masked = sing_col.copy()
+    masked[rows, i1] = -np.inf
+    i2 = np.argmax(masked, axis=1)
+    max2 = np.maximum(masked[rows, i2], -1e300)
+    flat_masked = np.where(dbl_msk.reshape(-1)[None, :], flat, -np.inf)
+    best = np.argmax(flat_masked, axis=1)
+    jb = best // (V * A)
+    kb = (best // A) % V
+    ab_ = best % A
+    return CompactResult(
+        sing_col=sing_col,
+        llk_00=llk_00,
+        max_llk=max_llk,
+        sum_single=sum_single,
+        sum_double=sum_double,
+        i_sing1=i1.astype(np.int64),
+        i_sing2=i2.astype(np.int64),
+        max_sing2=max2,
+        best_flat=best.astype(np.int64),
+        pair_llk12=llk_ab[rows, jb, kb, ab_],
+        pair_llk10=llk_ab[rows, jb, 0, ab_],
+        pair_llk20=llk_ab[rows, kb, 0, ab_],
+    )
+
+
 def decide(llk_ab, llk_00, dbl_w, dbl_msk, doublet_prior):
     """Decision pass on device. llk_ab (B,V,V,A), llk_00 (B,A); dbl_w
     (V,V,A) and dbl_msk (V,V,A) bool built on the host. Returns a dict of
@@ -184,18 +239,21 @@ def compact_step_body(
     codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext, dbl_w, dbl_msk,
     n_alpha, n_samples, doublet_prior, a0_sep=False, sym_a=None,
     expand=None, wire=None, pair_fn=pair_llks, g_table=None,
+    dtype=torch.float64,
 ):
     """Fused fast block step + decision pass, packed into ONE (B, 2V+A+11)
     f64 tensor on the block's device. g_table: the engine's
     ``ops/front.fast_g_table`` of gps_table and gp0_table (None: built per
-    call)."""
+    call). dtype: the decision pass's (float32 is the JAX CLI's
+    ``--precision f32``, whose casts to f64 stay f32 without x64; dbl_w
+    comes in it)."""
     llk, llk0, llk_ab, llk_00 = fast_front(
         codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext,
         n_alpha, n_samples, a0_sep=a0_sep, sym_a=sym_a, expand=expand,
         wire=wire, pair_fn=pair_fn, g_table=g_table,
     )
-    out = decide(llk_ab.to(torch.float64), llk_00.to(torch.float64),
-                 dbl_w, dbl_msk, doublet_prior)
+    out = decide(llk_ab.to(dtype), llk_00.to(dtype), dbl_w, dbl_msk,
+                 doublet_prior)
     return pack_rows(out, llk, llk0)
 
 

@@ -9,17 +9,24 @@ fused block step (``decision.compact_step_body_exact`` in exact mode,
 device-side concat and ONE readback at the end, then the inverse of the
 coverage-sorted block permutation.
 
+``run`` follows the JAX engine's full-tensor ``run()``: the same blocks
+and host prep, the full (llk, llk0, llk_ab, llk_00) of each block copied
+back on a worker thread (and spooled to a directory for resume), stored
+by cell id. It takes the kernel route of ``run_compact``, or, in exact
+mode when the user asks for ``exact_kernel="xla"``, f32 or cap-BQ > 126
+(which the u8 codes cannot hold), the dense route: ``host/slots.py``
+count slots through ``ops/likelihood.py``, as the JAX engine routes its
+XLA path. Fast mode refuses cap-BQ > 126, as the JAX engine does.
+
 The JAX module imports JAX at the top, so its JAX-free helpers are
 copied here (``compute_gp0``, ``_prefetched``, ``_to_wire``, ``_bucket``,
-``_wire_cfg_for``, ``_prep_codes_blk``, ``_pack_reg``,
-``_shrink_codes_blk``, ``_blocks``, ``cell_stats``);
+``EngineResult``, ``_pad_block``, ``_wire_cfg_for``, ``_prep_codes_blk``,
+``_pack_reg``, ``_shrink_codes_blk``, ``_blocks``, ``cell_stats``);
 tests/test_torch_engine.py pins each copy to the original.
 
 Both modes run every pool size: V*V*A > 384 takes the tiled K7' + K6'
 (exact) or K5' + K4' (fast; ``ops/pair_tiled.py``) where smaller pools
-take K3' or K1. Refused, never emulated: cap-BQ > 126 (the u8 codes
-cannot hold it: the JAX package refuses it in fast mode and sends exact
-mode to the dense ``run()``, ROADMAP queue 1, item 12).
+take K3' or K1.
 """
 
 from __future__ import annotations
@@ -36,14 +43,18 @@ import torch
 
 from demuxlet_tpu_torch.host.csr import CsrPileup, build_codes_block
 from demuxlet_tpu_torch.host.pileup import PileupData
+from demuxlet_tpu_torch.host.slots import SlotBlock, build_slots
 from demuxlet_tpu_torch.models.outputs import CellStats
-from demuxlet_tpu_torch.ops import luts
+from demuxlet_tpu_torch.ops import likelihood, luts
 from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 from demuxlet_tpu_torch.models import decision as D
-from demuxlet_tpu_torch.ops.front import fast_g_table
-from demuxlet_tpu_torch.ops.pair import dedup_channels, extend_luts
+from demuxlet_tpu_torch.ops.front import fast_front, fast_g_table
+from demuxlet_tpu_torch.ops.front_exact import exact_block
+from demuxlet_tpu_torch.ops.pair import UNROLL_CAP, dedup_channels, extend_luts
+from demuxlet_tpu_torch.ops.pair_exact import takes_k3
 
 MODES = ("exact", "fast")
+EXACT_KERNELS = ("auto", "pallas", "xla")
 
 
 def compute_gp0(gps: np.ndarray) -> np.ndarray:
@@ -102,6 +113,14 @@ def _bucket(n: int, minimum: int = 8) -> int:
     while b < n:
         b *= 2
     return b
+
+
+@dataclass
+class EngineResult:
+    llks: np.ndarray  # (ncells, nv)
+    llk0s: np.ndarray  # (ncells,)
+    llk_ab: np.ndarray  # (ncells, nv, nv, nA)
+    llk_00: np.ndarray  # (ncells, nA)
 
 
 @dataclass
@@ -238,7 +257,10 @@ class DemuxEngine:
         grid_alpha: Sequence[float],
         cap_bq: int = 40,
         cell_block: int = 256,
+        slot_chunk: int = 512,
+        dtype: torch.dtype = torch.float64,
         mode: str = "exact",
+        exact_kernel: str = "auto",
         device: Optional[torch.device] = None,
     ):
         """mode="exact" (the JAX engine's default): f64 front and pair
@@ -246,26 +268,49 @@ class DemuxEngine:
         when V*V*A > 384; their plain versions on the CPU), f64 decision
         pass. mode="fast": f32 pair search (K1, or K5' and K4' when
         V*V*A > 384; their plain versions on the CPU), f32 singlet term,
-        f64 decision pass.
+        decision pass in ``dtype``.
+        exact_kernel: "auto" and "pallas" select the port's kernels; "xla"
+        the dense route (``ops/likelihood.py``, the JAX package's XLA
+        path), which exact mode also takes in f32 and at cap_bq > 126.
+        slot_chunk: the dense route's slot chunk; dtype: torch.float64 or
+        torch.float32.
         device: a torch.device; None resolves "auto" (CUDA or DemuxError,
         ``utils/device.resolve_device``)."""
         if mode not in MODES:
             raise DemuxError(f"--mode {mode} is not a mode of the engine "
                              f"(one of {', '.join(MODES)})")
+        if exact_kernel not in EXACT_KERNELS:
+            raise DemuxError(f"--exact-kernel {exact_kernel} is not one of "
+                             f"{', '.join(EXACT_KERNELS)}")
+        if dtype not in (torch.float64, torch.float32):
+            raise DemuxError(f"dtype {dtype} is neither float64 nor float32")
+        if mode == "fast" and cap_bq > 126:
+            raise DemuxError(
+                "--cap-BQ > 126 is not representable by the fast-mode u8 "
+                "observation codes; use --mode exact"
+            )
         self.gps = _pad_gps(gps)
         self.gp0 = compute_gp0(self.gps)
         self.grid_alpha = list(grid_alpha)
         self.cap_bq = cap_bq
         self.cell_block = cell_block
+        self.slot_chunk = slot_chunk
+        self.dtype = dtype
         self.mode = mode
         self.nv = gps.shape[1]
         self.n_alpha = len(self.grid_alpha)
-        if self.cap_bq > 126:
-            raise DemuxError(
-                "--cap-BQ > 126 is not representable by the u8 observation "
-                "codes; exact mode takes it through the dense f64 run(), "
-                "not ported to PyTorch yet (ROADMAP queue 1, item 12)"
-            )
+        # the route (engine.py:172-191 of the JAX package): exact mode
+        # leaves the kernels for the dense route only when asked, or when
+        # the u8 codes cannot hold the qualities
+        self.dense_reason = None
+        if mode == "exact":
+            if exact_kernel == "xla":
+                self.dense_reason = "--exact-kernel xla"
+            elif cap_bq > 126:
+                self.dense_reason = (f"--cap-BQ {cap_bq} > 126, beyond the "
+                                     "u8 observation codes")
+            elif dtype == torch.float32:
+                self.dense_reason = "--precision f32"
         if device is None:
             from demuxlet_tpu_torch.utils.device import resolve_device
 
@@ -275,6 +320,8 @@ class DemuxEngine:
         self._tables_v2 = None
         self._exact = None
         self._exact_v2 = None
+        self._dense = None
+        self.route = None  # set by each run: its kernels, or dense and why
         # wire v2 (host/wire.py): per-run packed H2D format, chosen once
         # per pileup; the (S, U) meta registry keeps same-shape blocks on
         # one layout
@@ -502,28 +549,119 @@ class DemuxEngine:
             for s in range(0, n, self.cell_block)
         ], None
 
+    def _kernel_route(self, tab) -> str:
+        """The kernels a kernel-route block step launches, as
+        ``ops/pair_exact`` and ``ops/pair`` choose them."""
+        V, A = self.nv, self.n_alpha
+        if self.mode == "exact":
+            names = ("K2' + K3'" if takes_k3(V, A, tab.lut.shape[1],
+                                             self.grid_alpha[0] == 0.0)
+                     else "K2' + K7' + K6'")
+        else:
+            names = "K1" if V * V * A <= UNROLL_CAP else "K5' + K4'"
+        where = ("CUDA" if self.device.type == "cuda"
+                 else "their plain versions on the CPU")
+        return f"kernels {names} ({where})"
+
+    def _ship(self, codes, idx, msk, cfg):
+        """One prepped block to the device, in the form the fronts take:
+        returns ((codes, idx, msk) tensors, wire meta or None); counts
+        ``h2d_bytes``."""
+        wire = None
+        if msk is None and isinstance(idx, tuple) and isinstance(idx[0], str):
+            wire, idx = idx, None  # v2 packed wire: codes IS the buffer
+        elif msk is None and isinstance(idx, tuple):
+            codes, wire = _to_wire(codes, idx)
+            idx = None
+        # with a v2 cfg active the run's LUTs are the dict-narrowed
+        # tables: a v1-form block would be scored against the wrong
+        # rows. _wire_cfg_for's run-level gate makes mixing
+        # unreachable; fail loudly if it ever is not.
+        if cfg is not None and (wire is None or wire[0] != "w2"):
+            raise RuntimeError("v1-form block in a wire-v2 run")
+        self.h2d_bytes += _nbytes(codes, idx, msk)
+        dev = self.device
+        return (_h2d(codes, dev),
+                None if idx is None else _h2d(idx, dev),
+                None if msk is None else _h2d(msk, dev)), wire
+
+    def _dispatch_block(self, codes, idx, msk, cfg, tab):
+        """One block through the kernel route: (llk (B, V), llk0 (B,),
+        llk_ab (B, V, V, A), llk_00 (B, A)) on the device, f64 in exact
+        mode (``ops/front_exact.exact_block``), f32 in fast mode
+        (``ops/front.fast_front``)."""
+        blk, wire = self._ship(codes, idx, msk, cfg)
+        kw = dict(a0_sep=self.grid_alpha[0] == 0.0, sym_a=self._sym_a(),
+                  wire=wire)
+        if self.mode == "exact":
+            return exact_block(*blk, tab.g_table, tab.lut, tab.cmask,
+                               tab.gsel, tab.expand, self.n_alpha, self.nv,
+                               **kw)
+        return fast_front(*blk, tab.gps, tab.gp0, tab.w_ext, tab.logf_ext,
+                          self.n_alpha, self.nv, expand=tab.expand,
+                          g_table=tab.g_table, **kw)
+
+    def _dense_tables(self):
+        """The dense route's device tables in the run's dtype (the JAX
+        engine's ``_gps_dev``, ``_gp0_dev``, ``_logf_dev``, ``_w_dev``)."""
+        if self._dense is None:
+            self._dense = tuple(
+                torch.as_tensor(x, dtype=self.dtype, device=self.device)
+                for x in (self.gps, self.gp0, luts.singlet_lut(self.cap_bq),
+                          luts.pair_lut(self.grid_alpha, self.cap_bq)))
+        return self._dense
+
+    def _run_block(self, blk: SlotBlock):
+        """One ``build_slots`` block through the dense route
+        (``ops/likelihood.py``; the JAX engine's ``_run_block``): the gps
+        and gp0 rows taken by idx, then the singlet and pair LLKs in the
+        run's dtype. Returns (llk, llk0, llk_ab, llk_00) on the device."""
+        gps, gp0, logf, w = self._dense_tables()
+        self.h2d_bytes += _nbytes(blk.idx, blk.msk, blk.cnt)
+        idx, msk, cnt = _h2d((blk.idx, blk.msk, blk.cnt), self.device)
+        B, S = idx.shape
+        ns, nv = gps.shape[:2]
+        flat = idx.reshape(-1)
+        gps_g = gps.reshape(ns, nv * 3).index_select(0, flat).view(
+            B, S, nv, 3)
+        gp0_g = gp0.index_select(0, flat).view(B, S, 3)
+        llk, llk0 = likelihood.singlet_llks(cnt, msk, gps_g, gp0_g, logf,
+                                            dtype=self.dtype)
+        llk_ab, llk_00 = likelihood.pair_llks(
+            cnt, msk, gps_g, gp0_g, w, self.n_alpha,
+            slot_chunk=self.slot_chunk, dtype=self.dtype)
+        return llk, llk0, llk_ab, llk_00
+
     def run_compact(self, scl, doublet_prior: float):
         """Exact- or fast-mode pipeline with the device-side decision pass
         (one block step per block: K2' + K3' in exact mode, K2' + K7' +
         K6' on pools with V*V*A > 384; K1 in fast mode, K5' + K4' on
         those pools): returns
         (llks, llk0s, decision.CompactResult). Per-run accounting:
-        ``h2d_bytes`` (block buffers shipped) and ``phase_s`` (setup = wire
+        ``h2d_bytes`` (block buffers shipped), ``d2h_bytes`` (the packed
+        rows read back) and ``phase_s`` (setup = wire
         config, tables and blocking, on the first call for a pileup also
         its one pass over all observations; prep = host packing on the
         prefetch pool, summed over threads; prep_wait = main-thread stall
         on prep; dispatch = H2D + enqueue; fetch = the one readback, which
-        waits for the device, + unpacking)."""
+        waits for the device, + unpacking). Fast mode decides in the
+        engine's dtype (f32 is the JAX CLI's ``--precision f32``); the
+        dense route has no compact step (use ``run``)."""
+        if self.dense_reason is not None:
+            raise DemuxError("run_compact takes the kernel route; this "
+                             f"engine takes the dense route "
+                             f"({self.dense_reason}): use run()")
         t_setup = time.monotonic()
         if not hasattr(scl, "cell_ptr"):
             scl = CsrPileup.from_pileup(scl)
         cfg = self._wire_cfg_for(scl)
         exact = self.mode == "exact"
         tab = self._exact_tables(cfg) if exact else self._fast_tables(cfg)
+        self.route = self._kernel_route(tab)
         dev = self.device
         dbl_w = torch.as_tensor(
             D.doublet_weights(self.nv, self.grid_alpha, doublet_prior),
-            dtype=torch.float64, device=dev)
+            dtype=torch.float64 if exact else self.dtype, device=dev)
         dbl_msk = torch.as_tensor(D.doublet_mask(self.nv, self.n_alpha),
                                   device=dev)
         a0_sep = self.grid_alpha[0] == 0.0
@@ -533,6 +671,7 @@ class DemuxEngine:
         llks = np.zeros((n, self.nv), dtype=np.float64)
         llk0s = np.zeros(n, dtype=np.float64)
         self.h2d_bytes = 0
+        self.d2h_bytes = 0
         self.phase_s = {"setup": 0.0, "prep": 0.0, "prep_wait": 0.0,
                         "dispatch": 0.0, "fetch": 0.0}
         prep_lock = threading.Lock()
@@ -550,22 +689,7 @@ class DemuxEngine:
             return out
 
         def dispatch(codes, idx, msk):
-            wire = None
-            if msk is None and isinstance(idx, tuple) and isinstance(idx[0], str):
-                wire, idx = idx, None  # v2 packed wire: codes IS the buffer
-            elif msk is None and isinstance(idx, tuple):
-                codes, wire = _to_wire(codes, idx)
-                idx = None
-            # with a v2 cfg active the run's LUTs are the dict-narrowed
-            # tables: a v1-form block would be scored against the wrong
-            # rows. _wire_cfg_for's run-level gate makes mixing
-            # unreachable; fail loudly if it ever is not.
-            if cfg is not None and (wire is None or wire[0] != "w2"):
-                raise RuntimeError("v1-form block in a wire-v2 run")
-            self.h2d_bytes += _nbytes(codes, idx, msk)
-            blk = (_h2d(codes, dev),
-                   None if idx is None else _h2d(idx, dev),
-                   None if msk is None else _h2d(msk, dev))
+            blk, wire = self._ship(codes, idx, msk, cfg)
             if exact:
                 return D.compact_step_body_exact(
                     *blk, tab, dbl_w, dbl_msk, self.n_alpha, self.nv,
@@ -575,7 +699,7 @@ class DemuxEngine:
                 *blk, tab.gps, tab.gp0, tab.w_ext, tab.logf_ext, dbl_w,
                 dbl_msk, self.n_alpha, self.nv, doublet_prior, a0_sep=a0_sep,
                 sym_a=sym_a, expand=tab.expand, wire=wire,
-                g_table=tab.g_table,
+                g_table=tab.g_table, dtype=self.dtype,
             )
 
         # defer all device->host readback to ONE transfer at the end
@@ -596,6 +720,7 @@ class DemuxEngine:
         if dev_parts:
             t0 = time.monotonic()
             host = torch.cat([p for _, p in dev_parts], dim=0).cpu().numpy()
+            self.d2h_bytes = host.nbytes
             off = 0
             for cells, p in dev_parts:
                 m = len(cells)
@@ -620,6 +745,171 @@ class DemuxEngine:
             comp = D.take(comp, inv)
         return llks, llk0s, comp
 
+    def run(self, scl: PileupData, spool_dir: Optional[str] = None,
+            pipeline_depth: int = 1) -> EngineResult:
+        """All barcode blocks with the full LLK tensors (the JAX engine's
+        ``run()``): returns an ``EngineResult`` of f64 host arrays, stored
+        by cell id (coverage-sorted blocks permute cells).
+
+        Host prep (spool probe, wire pack or dense slots) runs on a
+        4-thread prefetch pool; H2D and the enqueue on the calling thread,
+        which never waits on the device before it dispatches the next
+        block; each block's outputs are copied back into pinned host
+        memory and a worker thread waits for the copy, writes the spool
+        file and hands the arrays back, ``pipeline_depth`` blocks
+        outstanding.
+
+        spool_dir: per-block results for checkpoint/resume, one file a
+        block, ``block_%08d_%d.npz`` of its first cell id and its length,
+        with the keys a, b, c, d (llk, llk0, llk_ab, llk_00) and cells,
+        the JAX engine's names and keys (so either package resumes the
+        other's directory); a file is used only when its cells equal the
+        block's, else the block is recomputed.
+
+        Accounting as in ``run_compact``: ``h2d_bytes``, ``d2h_bytes``
+        (outputs copied back) and ``phase_s`` (setup; prep, thread-summed;
+        prep_wait; dispatch = H2D + enqueue + the copy's enqueue; fetch =
+        the calling thread's waits for finished blocks and their
+        stores)."""
+        t_setup = time.monotonic()
+        if spool_dir:
+            os.makedirs(spool_dir, exist_ok=True)
+        dense = self.dense_reason is not None
+        cfg = tab = None
+        if dense:
+            self.route = f"dense ({self.dtype}; {self.dense_reason})"
+        else:
+            if not hasattr(scl, "cell_ptr"):
+                scl = CsrPileup.from_pileup(scl)
+            # warmed here: else the 4 prep threads each race through the
+            # config's pass over all observations
+            cfg = self._wire_cfg_for(scl)
+            tab = (self._exact_tables(cfg) if self.mode == "exact"
+                   else self._fast_tables(cfg))
+            self.route = self._kernel_route(tab)
+        n, nv, na = scl.nbcs, self.nv, self.n_alpha
+        llks = np.zeros((n, nv), dtype=np.float64)
+        llk0s = np.zeros(n, dtype=np.float64)
+        llk_ab = np.zeros((n, nv, nv, na), dtype=np.float64)
+        llk_00 = np.zeros((n, na), dtype=np.float64)
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        self.phase_s = {"setup": 0.0, "prep": 0.0, "prep_wait": 0.0,
+                        "dispatch": 0.0, "fetch": 0.0}
+        lock = threading.Lock()
+        blocks, pads = self._blocks(n, scl)
+        jobs = list(zip(blocks, pads or [None] * len(blocks)))
+
+        def spool_path(cells):
+            return os.path.join(
+                spool_dir, "block_%08d_%d.npz" % (cells[0], len(cells)))
+
+        def prep(job):
+            cells, pad = job
+            t0 = time.monotonic()
+            out = None
+            if spool_dir and os.path.exists(spool_path(cells)):
+                with np.load(spool_path(cells)) as z:
+                    # a file from another blocking must recompute, never
+                    # misattribute
+                    if "cells" in z.files and np.array_equal(
+                            z["cells"], np.asarray(cells, np.int64)):
+                        out = "spooled", tuple(z[k] for k in "abcd")
+            if out is None and dense:
+                blk = build_slots(scl, cells, cap_bq=self.cap_bq)
+                out = "slots", _pad_block(blk, self.cell_block,
+                                          _bucket(blk.idx.shape[1]))
+            elif out is None:
+                out = "codes", self._prep_codes_blk(scl, cells, pad)
+            with lock:
+                self.phase_s["prep"] += time.monotonic() - t0
+            return cells, out
+
+        def store(cells, arrs):
+            m = len(cells)
+            a, b, c, d = arrs
+            llks[cells] = a[:m]
+            llk0s[cells] = b[:m]
+            llk_ab[cells] = c[:m]
+            llk_00[cells] = d[:m]
+
+        def start_d2h(outs, m):
+            """Enqueue the copy of the block's m real cells; returns what
+            the worker waits on."""
+            outs = [x[:m] for x in outs]
+            self.d2h_bytes += sum(x.numel() * x.element_size() for x in outs)
+            if self.device.type != "cuda":
+                return outs, None
+            host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                    for x in outs]
+            for h, x in zip(host, outs):
+                h.copy_(x, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return host, done
+
+        def finish(cells, copy):
+            host, done = copy
+            if done is not None:
+                done.synchronize()
+            arrs = tuple(x.numpy() for x in host)
+            if spool_dir:
+                # np.savez appends .npz to a name without it
+                tmp = spool_path(cells) + ".tmp.npz"
+                np.savez(tmp, a=arrs[0], b=arrs[1], c=arrs[2], d=arrs[3],
+                         cells=np.asarray(cells, np.int64))
+                os.replace(tmp, spool_path(cells))
+            return arrs
+
+        def collect(pending):
+            cells, fut = pending
+            t0 = time.monotonic()
+            store(cells, fut.result())
+            self.phase_s["fetch"] += time.monotonic() - t0
+
+        self.phase_s["setup"] = time.monotonic() - t_setup
+        pending = []
+        with ThreadPoolExecutor(max_workers=2) as pool, \
+                ThreadPoolExecutor(max_workers=4) as prep_pool:
+            it = _prefetched(prep_pool, prep, jobs)
+            while True:
+                t0 = time.monotonic()
+                try:
+                    cells, (kind, data) = next(it)
+                except StopIteration:
+                    break
+                self.phase_s["prep_wait"] += time.monotonic() - t0
+                t0 = time.monotonic()
+                if kind == "spooled":
+                    store(cells, data)
+                    self.phase_s["fetch"] += time.monotonic() - t0
+                    continue
+                if kind == "slots":
+                    outs = self._run_block(data)
+                else:
+                    outs = self._dispatch_block(*data, cfg, tab)
+                copy = start_d2h(outs, len(cells))
+                del outs
+                self.phase_s["dispatch"] += time.monotonic() - t0
+                pending.append((cells, pool.submit(finish, cells, copy)))
+                while len(pending) > pipeline_depth:
+                    collect(pending.pop(0))
+            for p in pending:
+                collect(p)
+        return EngineResult(llks, llk0s, llk_ab, llk_00)
+
+
+def _pad_block(blk: SlotBlock, n_cells: int, n_slots: int) -> SlotBlock:
+    B, S = blk.idx.shape
+    if B == n_cells and S == n_slots:
+        return blk
+    pb, ps = n_cells - B, n_slots - S
+    return SlotBlock(
+        cell_ids=blk.cell_ids,
+        idx=np.pad(blk.idx, ((0, pb), (0, ps))),
+        msk=np.pad(blk.msk, ((0, pb), (0, ps))),
+        cnt=np.pad(blk.cnt, ((0, pb), (0, ps), (0, 0))),
+    )
 
 def cell_stats(scl: PileupData) -> CellStats:
     if hasattr(scl, "n_snps_all"):  # CSR form: vectorized distinct counts

@@ -8,6 +8,13 @@ max-renormalise), then the (l, m) genotype contraction and a masked log
 sum over the slot axis. The pair terms keep the JAX module's (l, m)
 l-major order and its product ``(g_j[l] * g_k[m]) * t``
 (cmd_cram_demuxlet.cpp:671-684). It never runs on the card's main path.
+
+It is also the engine's dense route (``DemuxEngine.run`` on
+``host/slots.py`` count slots), which the user chooses by a flag, as the
+JAX package's XLA path: ``--exact-kernel xla``, exact ``--cap-BQ`` > 126
+(beyond the u8 observation codes of the kernel route) and exact
+``--precision f32``. It has no Pallas kernel in the JAX package, so it
+stays plain torch on the card.
 """
 
 from __future__ import annotations

@@ -29,6 +29,12 @@ from demuxlet_tpu_torch.ops.pair import (
 from demuxlet_tpu_torch.ops.pair_tiled import _dot3, pair_exact_tiled
 
 
+def takes_k3(V, A, C, a0_sep):
+    """Whether ``pair_exact`` takes K3' (else K7' + K6') for V samples, A
+    alphas and C t channels."""
+    return V * V * A <= UNROLL_CAP and k3_fits(V, A, C, a0_sep)
+
+
 def pair_exact(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None):
     """Exact pair-search and singlet LLKs.
 
@@ -46,10 +52,9 @@ def pair_exact(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None):
     or their plain versions) with the same contract, on either device."""
     if expand is None:
         expand = tuple(range(A * 9))
-    unrolled = V * V * A <= UNROLL_CAP
-    if not (unrolled and k3_fits(V, A, t.shape[0], a0_sep)):
+    if not takes_k3(V, A, t.shape[0], a0_sep):
         return pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, expand,
-                                force=unrolled)
+                                force=V * V * A <= UNROLL_CAP)
     if t.device.type == "cuda":
         from demuxlet_tpu_torch.kernels import pair_exact as kernel
 

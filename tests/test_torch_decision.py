@@ -130,3 +130,16 @@ def test_copied_helpers_equal_jax():
             x, y = getattr(a, f.name), getattr(b, f.name)
             assert x.dtype == y.dtype, f.name
             np.testing.assert_array_equal(x, y, err_msg=f.name)
+    # compact_from_result (numpy) on full LLK tensors, with exact ties on
+    # the mirrored alpha == 0.5 plane and V = 1 (no doublet channel)
+    for V, grid in ((4, [0.0, 0.25, 0.5]), (1, [0.0, 0.5])):
+        A = len(grid)
+        ab = rng.normal(-50, 10, size=(9, V, V, A))
+        ab[..., A - 1] = ab[..., A - 1] + ab[..., A - 1].transpose(0, 2, 1)
+        z0 = rng.normal(-50, 10, size=(9, A))
+        got = TD.compact_from_result(ab, z0, grid, 0.3)
+        want = JD.compact_from_result(ab, z0, grid, 0.3)
+        for f in dataclasses.fields(JD.CompactResult):
+            x, y = getattr(got, f.name), getattr(want, f.name)
+            assert x.dtype == y.dtype, f.name
+            np.testing.assert_array_equal(x, y, err_msg=f.name)

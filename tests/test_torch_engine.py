@@ -134,6 +134,22 @@ def test_copied_engine_helpers_equal_jax(monkeypatch):
     # coverage skew, so that _blocks sorts and pads to pow2 buckets
     csr, gps = _pcr_hot_csr(5, n_cells=70, per_cell=(8, 290))
     np.testing.assert_array_equal(TE.compute_gp0(gps), JE.compute_gp0(gps))
+    assert ([(f.name, f.type) for f in dataclasses.fields(TE.EngineResult)]
+            == [(f.name, f.type) for f in dataclasses.fields(JE.EngineResult)])
+    # _pad_block on the port's and the JAX package's build_slots blocks
+    from demuxlet_tpu.host.slots import build_slots as j_build_slots
+    from demuxlet_tpu_torch.host.slots import build_slots as t_build_slots
+
+    for cells, n_cells, n_slots in ((list(range(5)), 8, 512),
+                                    (list(range(16)), 16, None)):
+        bt = t_build_slots(csr, cells, cap_bq=40)
+        bj = j_build_slots(csr, cells, cap_bq=40)
+        n_slots = n_slots or bt.idx.shape[1]
+        pt = TE._pad_block(bt, n_cells, n_slots)
+        pj = JE._pad_block(bj, n_cells, n_slots)
+        for f in ("cell_ids", "idx", "msk", "cnt"):
+            np.testing.assert_array_equal(getattr(pt, f), getattr(pj, f))
+        assert pt.idx.shape == (n_cells, n_slots)
     for n in (1, 8, 9, 200, 4097):
         assert TE._bucket(n) == JE._bucket(n)
         assert TE._bucket(n, 128) == JE._bucket(n, 128)
@@ -197,10 +213,14 @@ def test_engine_refuses_unported(monkeypatch):
     assert TE.DemuxEngine(big, [0.0, 0.5], mode="fast",
                           device=CPU).mode == "fast"
     assert TE.DemuxEngine(big, [0.0, 0.5], device=CPU).mode == "exact"
-    for mode in ("exact", "fast"):
-        with pytest.raises(DemuxError, match="cap-BQ.*item 12"):
-            TE.DemuxEngine(gps, [0.0, 0.5], cap_bq=127, mode=mode,
-                           device=CPU)
+    # cap-BQ > 126: exact mode takes the dense route, fast mode refuses
+    assert TE.DemuxEngine(gps, [0.0, 0.5], cap_bq=127,
+                          device=CPU).dense_reason.startswith("--cap-BQ 127")
+    with pytest.raises(DemuxError, match="cap-BQ.*use --mode exact"):
+        TE.DemuxEngine(gps, [0.0, 0.5], cap_bq=127, mode="fast", device=CPU)
+    for kw in (dict(exact_kernel="cuda"), dict(dtype=torch.float16)):
+        with pytest.raises(DemuxError):
+            TE.DemuxEngine(gps, [0.0, 0.5], device=CPU, **kw)
     with pytest.raises(DemuxError, match="mode"):
         TE.DemuxEngine(gps, [0.0, 0.5], mode="parity", device=CPU)
     if not torch.cuda.is_available():

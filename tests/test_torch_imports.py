@@ -55,9 +55,10 @@ def test_every_port_module_imports_without_jax():
 
 def test_port_cli_runs_without_jax_package(tmp_path):
     """With jax, demuxlet_tpu and oracle blocked, the port CLI runs on the
-    CPU in parity, exact (the default) and fast modes on one BAM/VCF, and
-    in fast mode on a large pool (V=8, 7 alphas: K5' + K4'); the exact
-    .single equals parity's."""
+    CPU in parity, exact (the default) and fast modes on one BAM/VCF, with
+    --write-pair, --spool and --exact-kernel xla (the full-tensor run()),
+    and in fast mode on a large pool (V=8, 7 alphas: K5' + K4'); the exact
+    .single equals parity's, and so do those of run()."""
     import random
 
     from fixtures import random_workload, write_bam, write_vcf
@@ -73,6 +74,9 @@ def test_port_cli_runs_without_jax_package(tmp_path):
     large.mkdir()
     runs = [("parity", base + ["--mode", "parity"]), ("exact", base),
             ("fast", base + ["--mode", "fast"]),
+            ("write_pair", base + ["--write-pair"]),
+            ("spool", base + ["--spool", str(tmp_path / "spool")]),
+            ("xla", base + ["--exact-kernel", "xla"]),
             ("fast_large", _large_pool_case(large, 3) + ["--mode", "fast"])]
     code = (
         _BLOCK + "from demuxlet_tpu_torch import cli\n"
@@ -88,8 +92,11 @@ def test_port_cli_runs_without_jax_package(tmp_path):
     for name, _ in runs:
         n = 11 if name == "fast_large" else 13
         assert len((tmp_path / f"{name}.best").read_text().splitlines()) == n
-    assert (tmp_path / "exact.single").read_text() == (
-        tmp_path / "parity.single").read_text()
+    for name in ("exact", "write_pair", "spool", "xla"):
+        assert (tmp_path / f"{name}.single").read_text() == (
+            tmp_path / "parity.single").read_text(), name
+    assert (tmp_path / "write_pair.pair").stat().st_size > 0
+    assert os.listdir(tmp_path / "spool")
 
 
 def test_chip_smoke_fixtures_without_jax_package(tmp_path):
@@ -146,17 +153,12 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--exact-kernel", "xla"], "item 12"),  # exact is the default mode
-    (["--mode", "exact", "--cap-BQ", "127"], "item 12"),
-    (["--mode", "fast", "--write-pair"], "item 12"),
-    (["--mode", "fast", "--spool", "spool_dir"], "item 12"),
-    (["--mode", "fast", "--profile", "trace_dir"], "item 12"),
     (["--mode", "fast", "--dist-coordinator", "localhost:1",
       "--num-shards", "2"], "item 15"),
-    (["--mode", "fast", "--shard-by", "genome", "--num-shards", "2"],
-     "items 12 and 15"),
+    (["--dist-coordinator", "localhost:1", "--shard-by", "genome",
+      "--num-shards", "2"], "item 15"),
     (["--mode", "fast", "--mesh", "2x1"], "item 14"),
-    (["--mode", "fast", "--precision", "f32"], "item 9"),
+    (["--mode", "fast", "--cap-BQ", "127"], "use --mode exact"),
     (["--mode", "fast", "--device", "tpu"], "cpu"),
 ])
 def test_cli_refuses_unported(tmp_path, extra, item):
@@ -168,21 +170,69 @@ def test_cli_refuses_unported(tmp_path, extra, item):
                   "--device", "cpu"] + extra)
 
 
-def _large_pool_case(tmp_path, seed):
-    """A V=8 BAM/VCF and the 7-point grid (V*V*A = 448 > 384): the CLI
+@pytest.mark.parametrize("extra", [
+    ["--exact-kernel", "xla"],  # exact is the default mode
+    ["--mode", "exact", "--cap-BQ", "127"],
+    ["--mode", "fast", "--write-pair"],
+    ["--mode", "fast", "--spool", "spool_dir"],
+    ["--mode", "fast", "--profile", "trace_dir"],
+    ["--mode", "fast", "--shard-by", "genome", "--num-shards", "2"],
+    ["--mode", "fast", "--precision", "f32"],
+], ids=["xla", "cap127", "write_pair", "spool", "profile", "genome",
+        "f32"])
+def test_cli_runs_formerly_refused_option(tmp_path, extra):
+    """Each option the port refused before the full-tensor run() runs on
+    the CPU and writes its outputs: .single, .sing2 and .best for every
+    cell (and .pair, the spool's block files or the trace where asked);
+    the .best calls equal --mode parity's where the option keeps the whole
+    genome."""
+    from demuxlet_tpu_torch import cli
+
+    from parity_utils import canonicalize_best_line
+
+    base = _workload(tmp_path, 5, 8)  # the default grid
+    extra = [str(tmp_path / x) if x.endswith("_dir") else x for x in extra]
+    calls = {}
+    for name, args in (("run", extra), ("parity", ["--mode", "parity"])):
+        out = str(tmp_path / name)
+        assert cli.main(base + ["--out", out] + args) == 0
+        with open(out + ".best") as fh:
+            calls[name] = [canonicalize_best_line(l).split("\t")[5]
+                           for l in fh.read().splitlines()]
+        assert os.path.exists(out + ".single") and os.path.exists(
+            out + ".sing2")
+    assert len(calls["run"]) == 11
+    if "genome" not in extra:
+        assert calls["run"] == calls["parity"]
+    if "--write-pair" in extra:
+        assert os.path.getsize(tmp_path / "run.pair") > 0
+    for opt, want in (("--spool", ".npz"), ("--profile", ".json")):
+        if opt in extra:
+            d = extra[extra.index(opt) + 1]
+            assert [f for f in os.listdir(d) if f.endswith(want)]
+
+
+def _workload(tmp_path, seed, n_samples):
+    """A BAM/VCF of 10 cells and 40 SNPs for n_samples samples: the CLI
     arguments, --device cpu."""
     import random
 
     from fixtures import random_workload, write_bam, write_vcf
 
     contigs, names, variants, reads, _ = random_workload(
-        random.Random(seed), n_cells=10, n_snps=40, n_samples=8,
+        random.Random(seed), n_cells=10, n_snps=40, n_samples=n_samples,
         reads_per_cell=50)
     vcf = write_vcf(str(tmp_path / "w.vcf"), names, variants, contigs=contigs)
     bam = write_bam(str(tmp_path / "w.bam"), contigs, reads)
-    return ["--sam", bam, "--vcf", vcf, "--field", "GT", "--device", "cpu",
-            "--alpha", "0"] + [a for x in (0.1, 0.2, 0.25, 0.3, 0.4, 0.5)
-                               for a in ("--alpha", str(x))]
+    return ["--sam", bam, "--vcf", vcf, "--field", "GT", "--device", "cpu"]
+
+
+def _large_pool_case(tmp_path, seed):
+    """A V=8 BAM/VCF and the 7-point grid (V*V*A = 448 > 384): the CLI
+    arguments, --device cpu."""
+    grid = (0, 0.1, 0.2, 0.25, 0.3, 0.4, 0.5)
+    return _workload(tmp_path, seed, 8) + [
+        a for x in grid for a in ("--alpha", str(x))]
 
 
 def test_cli_fast_runs_large_pool(tmp_path):
