@@ -554,10 +554,10 @@ def exact_pair_plain_of(V, A):
     import functools
 
     from demuxlet_tpu_torch.ops import pair_tiled as PT
-    from demuxlet_tpu_torch.ops.pair import UNROLL_CAP
+    from demuxlet_tpu_torch.ops.pair import unrolled
     from demuxlet_tpu_torch.ops.pair_exact import pair_exact_plain
 
-    if V * V * A <= UNROLL_CAP:
+    if unrolled(V, A):
         return pair_exact_plain
     return functools.partial(PT.pair_exact_tiled, pair_fn=PT.pair_tiled_plain,
                              extras_fn=PT.extras_plain)

@@ -50,7 +50,7 @@ from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 from demuxlet_tpu_torch.models import decision as D
 from demuxlet_tpu_torch.ops.front import fast_front, fast_g_table
 from demuxlet_tpu_torch.ops.front_exact import exact_block
-from demuxlet_tpu_torch.ops.pair import UNROLL_CAP, dedup_channels, extend_luts
+from demuxlet_tpu_torch.ops.pair import dedup_channels, extend_luts, unrolled
 from demuxlet_tpu_torch.ops.pair_exact import takes_k3
 
 MODES = ("exact", "fast")
@@ -550,15 +550,16 @@ class DemuxEngine:
         ], None
 
     def _kernel_route(self, tab) -> str:
-        """The kernels a kernel-route block step launches, as
-        ``ops/pair_exact`` and ``ops/pair`` choose them."""
+        """The kernels a kernel-route block step launches, by the rules
+        ``ops/pair_exact`` and ``ops/pair`` choose them with (``takes_k3``,
+        ``unrolled``)."""
         V, A = self.nv, self.n_alpha
         if self.mode == "exact":
             names = ("K2' + K3'" if takes_k3(V, A, tab.lut.shape[1],
                                              self.grid_alpha[0] == 0.0)
                      else "K2' + K7' + K6'")
         else:
-            names = "K1" if V * V * A <= UNROLL_CAP else "K5' + K4'"
+            names = "K1" if unrolled(V, A) else "K5' + K4'"
         where = ("CUDA" if self.device.type == "cuda"
                  else "their plain versions on the CPU")
         return f"kernels {names} ({where})"
@@ -670,23 +671,6 @@ class DemuxEngine:
         n = scl.nbcs
         llks = np.zeros((n, self.nv), dtype=np.float64)
         llk0s = np.zeros(n, dtype=np.float64)
-        self.h2d_bytes = 0
-        self.d2h_bytes = 0
-        self.phase_s = {"setup": 0.0, "prep": 0.0, "prep_wait": 0.0,
-                        "dispatch": 0.0, "fetch": 0.0}
-        prep_lock = threading.Lock()
-
-        blocks, pads = self._blocks(n, scl)
-        jobs = list(zip(blocks, pads or [None] * len(blocks)))
-        self.phase_s["setup"] = time.monotonic() - t_setup
-
-        def prep(job):
-            cells, pad = job
-            t0 = time.monotonic()
-            out = cells, self._prep_codes_blk(scl, cells, pad)
-            with prep_lock:
-                self.phase_s["prep"] += time.monotonic() - t0
-            return out
 
         def dispatch(codes, idx, msk):
             blk, wire = self._ship(codes, idx, msk, cfg)
@@ -704,18 +688,15 @@ class DemuxEngine:
 
         # defer all device->host readback to ONE transfer at the end
         dev_parts = []
-        with ThreadPoolExecutor(max_workers=4) as prep_pool:
-            it = _prefetched(prep_pool, prep, jobs)
-            while True:
-                t0 = time.monotonic()
-                try:
-                    cells, (codes, idx, msk) = next(it)
-                except StopIteration:
-                    break
-                self.phase_s["prep_wait"] += time.monotonic() - t0
-                t0 = time.monotonic()
-                dev_parts.append((cells, dispatch(codes, idx, msk)))
-                self.phase_s["dispatch"] += time.monotonic() - t0
+
+        def step(cells, prepped):
+            t0 = time.monotonic()
+            dev_parts.append((cells, dispatch(*prepped)))
+            self.phase_s["dispatch"] += time.monotonic() - t0
+
+        blocks = self._drive_blocks(
+            scl, t_setup,
+            lambda cells, pad: self._prep_codes_blk(scl, cells, pad), step)
         parts = []
         if dev_parts:
             t0 = time.monotonic()
@@ -745,8 +726,8 @@ class DemuxEngine:
             comp = D.take(comp, inv)
         return llks, llk0s, comp
 
-    def run(self, scl: PileupData, spool_dir: Optional[str] = None,
-            pipeline_depth: int = 1) -> EngineResult:
+    def run(self, scl: PileupData,
+            spool_dir: Optional[str] = None) -> EngineResult:
         """All barcode blocks with the full LLK tensors (the JAX engine's
         ``run()``): returns an ``EngineResult`` of f64 host arrays, stored
         by cell id (coverage-sorted blocks permute cells).
@@ -756,8 +737,8 @@ class DemuxEngine:
         which never waits on the device before it dispatches the next
         block; each block's outputs are copied back into pinned host
         memory and a worker thread waits for the copy, writes the spool
-        file and hands the arrays back, ``pipeline_depth`` blocks
-        outstanding.
+        file and hands the arrays back, one block outstanding while the
+        next is enqueued.
 
         spool_dir: per-block results for checkpoint/resume, one file a
         block, ``block_%08d_%d.npz`` of its first cell id and its length,
@@ -792,38 +773,24 @@ class DemuxEngine:
         llk0s = np.zeros(n, dtype=np.float64)
         llk_ab = np.zeros((n, nv, nv, na), dtype=np.float64)
         llk_00 = np.zeros((n, na), dtype=np.float64)
-        self.h2d_bytes = 0
-        self.d2h_bytes = 0
-        self.phase_s = {"setup": 0.0, "prep": 0.0, "prep_wait": 0.0,
-                        "dispatch": 0.0, "fetch": 0.0}
-        lock = threading.Lock()
-        blocks, pads = self._blocks(n, scl)
-        jobs = list(zip(blocks, pads or [None] * len(blocks)))
 
         def spool_path(cells):
             return os.path.join(
                 spool_dir, "block_%08d_%d.npz" % (cells[0], len(cells)))
 
-        def prep(job):
-            cells, pad = job
-            t0 = time.monotonic()
-            out = None
+        def prep(cells, pad):
             if spool_dir and os.path.exists(spool_path(cells)):
                 with np.load(spool_path(cells)) as z:
                     # a file from another blocking must recompute, never
                     # misattribute
                     if "cells" in z.files and np.array_equal(
                             z["cells"], np.asarray(cells, np.int64)):
-                        out = "spooled", tuple(z[k] for k in "abcd")
-            if out is None and dense:
+                        return "spooled", tuple(z[k] for k in "abcd")
+            if dense:
                 blk = build_slots(scl, cells, cap_bq=self.cap_bq)
-                out = "slots", _pad_block(blk, self.cell_block,
-                                          _bucket(blk.idx.shape[1]))
-            elif out is None:
-                out = "codes", self._prep_codes_blk(scl, cells, pad)
-            with lock:
-                self.phase_s["prep"] += time.monotonic() - t0
-            return cells, out
+                return "slots", _pad_block(blk, self.cell_block,
+                                           _bucket(blk.idx.shape[1]))
+            return "codes", self._prep_codes_blk(scl, cells, pad)
 
         def store(cells, arrs):
             m = len(cells)
@@ -867,23 +834,17 @@ class DemuxEngine:
             store(cells, fut.result())
             self.phase_s["fetch"] += time.monotonic() - t0
 
-        self.phase_s["setup"] = time.monotonic() - t_setup
         pending = []
-        with ThreadPoolExecutor(max_workers=2) as pool, \
-                ThreadPoolExecutor(max_workers=4) as prep_pool:
-            it = _prefetched(prep_pool, prep, jobs)
-            while True:
-                t0 = time.monotonic()
-                try:
-                    cells, (kind, data) = next(it)
-                except StopIteration:
-                    break
-                self.phase_s["prep_wait"] += time.monotonic() - t0
+        # two D2H workers: the outstanding block's and the one just enqueued
+        with ThreadPoolExecutor(max_workers=2) as pool:
+
+            def step(cells, prepped):
+                kind, data = prepped
                 t0 = time.monotonic()
                 if kind == "spooled":
                     store(cells, data)
                     self.phase_s["fetch"] += time.monotonic() - t0
-                    continue
+                    return
                 if kind == "slots":
                     outs = self._run_block(data)
                 else:
@@ -892,11 +853,49 @@ class DemuxEngine:
                 del outs
                 self.phase_s["dispatch"] += time.monotonic() - t0
                 pending.append((cells, pool.submit(finish, cells, copy)))
-                while len(pending) > pipeline_depth:
+                if len(pending) > 1:
                     collect(pending.pop(0))
+
+            self._drive_blocks(scl, t_setup, prep, step)
             for p in pending:
                 collect(p)
         return EngineResult(llks, llk0s, llk_ab, llk_00)
+
+    def _drive_blocks(self, scl, t_setup, prep_block, step):
+        """The block loop of ``run`` and ``run_compact``: resets the run's
+        accounting, blocks the cells (``_blocks``), runs
+        ``prep_block(cells, pad)`` on the 4-thread prefetch pool and
+        ``step(cells, prepped)`` on the calling thread in block order.
+        Times setup (since ``t_setup``), prep (summed over threads) and
+        prep_wait; ``step`` times its own dispatch and fetch. Returns the
+        blocks."""
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        self.phase_s = {"setup": 0.0, "prep": 0.0, "prep_wait": 0.0,
+                        "dispatch": 0.0, "fetch": 0.0}
+        blocks, pads = self._blocks(scl.nbcs, scl)
+        jobs = list(zip(blocks, pads or [None] * len(blocks)))
+        lock = threading.Lock()
+
+        def prep(job):
+            t0 = time.monotonic()
+            out = job[0], prep_block(*job)
+            with lock:
+                self.phase_s["prep"] += time.monotonic() - t0
+            return out
+
+        self.phase_s["setup"] = time.monotonic() - t_setup
+        with ThreadPoolExecutor(max_workers=4) as prep_pool:
+            it = _prefetched(prep_pool, prep, jobs)
+            while True:
+                t0 = time.monotonic()
+                try:
+                    cells, prepped = next(it)
+                except StopIteration:
+                    break
+                self.phase_s["prep_wait"] += time.monotonic() - t0
+                step(cells, prepped)
+        return blocks
 
 
 def _pad_block(blk: SlotBlock, n_cells: int, n_slots: int) -> SlotBlock:

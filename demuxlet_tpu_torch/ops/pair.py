@@ -36,6 +36,13 @@ _KNORM = np.float32(1.0) / (np.float32(1.0) + np.float32(1e-6))
 _PLAIN_CHUNK_ELEMS = 1 << 27
 
 
+def unrolled(V, A):
+    """Whether a pool of V samples and A alphas takes the unrolled kernels
+    (K1 in fast mode, K3' in exact mode when its stages hold the pool);
+    larger pools take the tiled K5' + K4' or K7' + K6'."""
+    return V * V * A <= UNROLL_CAP
+
+
 def dedup_channels(grid_alpha):
     """(cols, expand) for the A*9 mixture columns: the per-UMI factor
     depends on (a, l, m) only through p = 0.5*l + (m-l)*0.5*alpha, so
@@ -86,7 +93,7 @@ def pair_llks(t, gps_t, V, A, a0_sep=False, sym_a=None, expand=None,
     falls back from one to the other."""
     if expand is None:
         expand = tuple(range(A * 9))
-    if V * V * A > UNROLL_CAP:
+    if not unrolled(V, A):
         # imported here: pair_tiled imports this module
         from demuxlet_tpu_torch.ops import pair_tiled as PT
 
@@ -127,7 +134,7 @@ def pair_llks_plain(t, gps_t, V, A, a0_sep=False, sym_a=None, expand=None,
     rows."""
     if expand is None:
         expand = tuple(range(A * 9))
-    if V * V * A > UNROLL_CAP:
+    if not unrolled(V, A):
         from demuxlet_tpu_torch.ops import pair_tiled as PT
 
         return PT.pair_fast_tiled(

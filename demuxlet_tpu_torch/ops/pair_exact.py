@@ -23,8 +23,8 @@ import torch
 from demuxlet_tpu_torch.kernels.pair_exact import k3_fits
 from demuxlet_tpu_torch.ops.pair import (
     _PLAIN_CHUNK_ELEMS,
-    UNROLL_CAP,
     _pair_plain_chunk,
+    unrolled,
 )
 from demuxlet_tpu_torch.ops.pair_tiled import _dot3, pair_exact_tiled
 
@@ -32,7 +32,7 @@ from demuxlet_tpu_torch.ops.pair_tiled import _dot3, pair_exact_tiled
 def takes_k3(V, A, C, a0_sep):
     """Whether ``pair_exact`` takes K3' (else K7' + K6') for V samples, A
     alphas and C t channels."""
-    return V * V * A <= UNROLL_CAP and k3_fits(V, A, C, a0_sep)
+    return unrolled(V, A) and k3_fits(V, A, C, a0_sep)
 
 
 def pair_exact(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None):
@@ -54,7 +54,7 @@ def pair_exact(t, g, gl, V, A, a0_sep=False, sym_a=None, expand=None):
         expand = tuple(range(A * 9))
     if not takes_k3(V, A, t.shape[0], a0_sep):
         return pair_exact_tiled(t, g, gl, V, A, a0_sep, sym_a, expand,
-                                force=V * V * A <= UNROLL_CAP)
+                                force=unrolled(V, A))
     if t.device.type == "cuda":
         from demuxlet_tpu_torch.kernels import pair_exact as kernel
 

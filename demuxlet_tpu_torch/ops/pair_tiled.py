@@ -44,7 +44,11 @@ from typing import Optional
 
 import torch
 
-from demuxlet_tpu_torch.ops.pair import _PLAIN_CHUNK_ELEMS, UNROLL_CAP
+from demuxlet_tpu_torch.ops.pair import (
+    _PLAIN_CHUNK_ELEMS,
+    UNROLL_CAP,
+    unrolled,
+)
 
 
 @dataclass(frozen=True)
@@ -70,7 +74,7 @@ def plan_tiles(V, A, a0_sep, sym_a, force=False) -> Optional[TilePlan]:
     (V*V*A <= 384) and ``force`` is not set. force: plan such a pool all
     the same (the shapes K3''s stages refuse, ``ops/pair_exact.py``). The
     tile extent is 16 for V > 8, else 8."""
-    if V * V * A <= UNROLL_CAP and not force:
+    if unrolled(V, A) and not force:
         return None
     tile = 16 if V > 8 else 8
     n_t = -(-V // tile)
