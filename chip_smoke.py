@@ -3,7 +3,8 @@
 
 Drives the port's device paths, fast-mode and exact-mode (the CLI default)
 ``DemuxEngine.run_compact``, the full-tensor ``DemuxEngine.run`` (with
-its spool and its dense route) and the CLI, at the full width of the repo's
+its spool and its dense route), both on meshes, the multi-process merges
+and the CLI, at the full width of the repo's
 realistic configuration (V=8 donors, the 5-point alpha grid, 50,000 SNPs,
 ~1,000 covered SNPs per cell, --cell-block 2048), and both modes on a
 large pool (V=32 donors on the CLI's default grid [0, 0.5], V*V*A = 2048:
@@ -91,7 +92,28 @@ each against its plain PyTorch version on the card. Phases, one line each:
      run_compact on the pileup (rate, phase seconds, peak device memory)
      and one under torch.profiler: the device's busy ms and idle share, the
      top ops by device ms, the port's kernels' ms per block slot pad, and
-     (exact runs: none) the lane rebuilds.
+     (exact runs: none) the lane rebuilds;
+ 18. meshes (``parallel/mesh.py``): per mode at V=8/A=5 and V=32/A=2, an
+     engine on a 2x1 mesh whose two members are this card: run_compact
+     and run() bit-equal to one device's, the route's kernels launched
+     once per block summed over the members and every other kernel never,
+     rate, phase seconds and peak device memory beside one device's; exact
+     run() on 1x2 and 2x2 meshes (the dense route split on the slot axis)
+     on the cut pileup of phase 16 within 1e-9 of the unsplit dense run,
+     no kernel launched; with two or more cards the same over
+     cuda:0/cuda:1, else a line that says it was not run;
+ 19. two processes over gloo on 127.0.0.1 (``parallel/multihost.py``),
+     both on this card (``chip_smoke.py --multihost-worker RANK PORT``):
+     the pileup's barcode stripes through run_compact + gather_compact
+     against the one-process run_compact, its two halves of SNP ids (genome
+     shards) through run() + gather_results_sum_compact against
+     gather_results_sum + compact_from_result and the one-process run
+     (1e-9 absolute, near ties counted), K2' and K3' launched once per
+     block in each process; then the CLI as two processes on the phase-5
+     BAM/VCF, barcode stripes and genome shards, each with and without
+     --write-pair: process 0's files byte-identical to one process's
+     (genome .best after canonicalize_best), process 1's none, and each
+     process's --profile trace names K2' and K3'.
 
 Then a JSON line of per-kernel numbers (with each kernel's bound: the
 larger of its operations over the card's peak rate for their type and its
@@ -100,7 +122,8 @@ say), the card's name and power limit, and, last, the ok line. Any failure
 exits non-zero before the ok line. With no CUDA device it exits 1 at once. Nothing of JAX, of the JAX
 package or of oracle/ is imported.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py (one card; phase 19 starts its two worker
+processes itself)
 """
 
 from __future__ import annotations
@@ -973,6 +996,341 @@ def profile_engine(csr, gps, mode, dev, grid=GRID):
                 kernel_ms_by_S=by_s, lane_rebuilds=rebuilds)
 
 
+def sub_pileup(csr, cells=None, snps=None):
+    """csr restricted to the cells ``cells`` (renumbered in that order: a
+    barcode stripe) or to the observations of SNP ids in [lo, hi) = snps
+    (every cell kept, its counters counting those observations, as
+    synth_pileup's count them: a genome shard)."""
+    from demuxlet_tpu_torch.host.csr import CsrPileup
+
+    obs_cell = np.repeat(np.arange(csr.nbcs), np.diff(csr.cell_ptr))
+    keep = np.ones(len(obs_cell), bool)
+    barcodes, totl = list(csr.barcodes), csr.cell_totl
+    if cells is not None:
+        new_id = np.full(csr.nbcs, -1, np.int64)
+        new_id[cells] = np.arange(len(cells))
+        obs_cell = new_id[obs_cell]
+        keep = obs_cell >= 0
+        barcodes = [csr.barcodes[c] for c in cells]
+        totl = csr.cell_totl[cells]
+    if snps is not None:
+        keep &= (csr.obs_snp >= snps[0]) & (csr.obs_snp < snps[1])
+        totl = np.bincount(obs_cell[keep], minlength=len(barcodes))
+    return CsrPileup.from_arrays(
+        csr.sample_ids, csr.nsnps, barcodes, totl, totl, totl,
+        obs_cell[keep], csr.obs_snp[keep].astype(np.int64),
+        csr.obs_allele[keep], csr.obs_bq[keep])
+
+
+def on_devices(n_b, n_s, devs):
+    """An n_b x n_s mesh whose members take the devices devs in turn."""
+    from demuxlet_tpu_torch.parallel import mesh as pmesh
+
+    n = n_b * n_s
+    return pmesh.make_mesh(n_b, n_s, devices=[devs[i % len(devs)]
+                                              for i in range(n)])
+
+
+def drive_mesh(csr, gps, mode, dev, kernels, every, grid, mesh):
+    """run_compact, then run(), of one mode and pool on a mesh, against
+    the same calls of an engine on one device (both first calls, tables
+    built inside): every launch count set to 0 just before each mesh call
+    and read just after, the route's kernels launched once per block
+    summed over the members and the others never; every output bit-equal
+    to the one device's. Returns the phase fields."""
+    from demuxlet_tpu_torch.models import decision as D
+    from demuxlet_tpu_torch.models.engine import DemuxEngine
+
+    def timed(eng, call):
+        for k in every:
+            k.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        out = eng.run_compact(csr, 0.5) if call == "run_compact" else \
+            eng.run(csr)
+        stats = engine_stats(eng, csr.nbcs, time.monotonic() - t0,
+                             torch.cuda.max_memory_allocated())
+        return out, stats, {k: k.launches for k in every}
+
+    def fields(call, out):
+        if call == "run_compact":
+            llks, llk0s, comp = out
+            return [llks, llk0s] + [getattr(comp, f) for f in
+                                    D.CompactResult.__dataclass_fields__]
+        return [out.llks, out.llk0s, out.llk_ab, out.llk_00]
+
+    one = DemuxEngine(gps, grid, cell_block=CELL_BLOCK, mode=mode, device=dev)
+    want = {c: timed(one, c)[:2] for c in ("run_compact", "run")}
+    n_blocks = len(one._blocks(csr.nbcs, csr)[0])
+    del one
+    torch.cuda.empty_cache()
+    eng = DemuxEngine(gps, grid, cell_block=CELL_BLOCK, mode=mode, mesh=mesh)
+    shape = "%dx%d" % (mesh.shape["b"], mesh.shape["s"])
+    out = dict(mode=mode, samples=gps.shape[1], alphas=len(grid),
+               cells=csr.nbcs, blocks=n_blocks, mesh=shape,
+               members=[str(d) for row in mesh.devices for d in row])
+    for call in ("run_compact", "run"):
+        got, stats, launches = timed(eng, call)
+        named = {k.__name__.rsplit(".", 1)[1]: n for k, n in launches.items()}
+        if any(launches[k] != n_blocks for k in kernels) or any(
+                n for k, n in launches.items() if k not in kernels):
+            fail(f"mesh {shape} {mode} {call}: launches {named} for "
+                 f"{n_blocks} blocks")
+        if not all(np.array_equal(a, b) for a, b in zip(
+                fields(call, got), fields(call, want[call][0]))):
+            fail(f"mesh {shape} {mode} {call}: outputs differ from one "
+                 "device's")
+        out[call] = dict(mesh=stats, one_device=want[call][1],
+                         launches=named, bit_equal_one_device=True)
+    out["route"] = eng.route
+    return out
+
+
+def drive_mesh_dense(gps, dev, every, devs):
+    """Exact run() on (1, 2) and (2, 2) meshes over devs (the dense route
+    split on the slot axis) on the cut pileup, within EXACT_TOL of the
+    unsplit dense route (--exact-kernel xla) on one device; no kernel of
+    the port launched. Returns phase lines."""
+    from demuxlet_tpu_torch.models.engine import DemuxEngine
+
+    cut = synth_pileup(np.random.default_rng(8), DENSE_CELLS)
+    ref = DemuxEngine(gps, GRID, cell_block=DENSE_BLOCK, device=dev,
+                      exact_kernel="xla").run(cut)
+    out = []
+    for n_b, n_s in ((1, 2), (2, 2)):
+        mesh = on_devices(n_b, n_s, devs)
+        eng = DemuxEngine(gps, GRID, cell_block=DENSE_BLOCK, mesh=mesh)
+        for k in every:
+            k.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        res = eng.run(cut)
+        stats = engine_stats(eng, cut.nbcs, time.monotonic() - t0,
+                             torch.cuda.max_memory_allocated())
+        launched = {k.__name__.rsplit(".", 1)[1]: k.launches for k in every}
+        err = max(abs_err(torch.from_numpy(g), torch.from_numpy(w)) for g, w
+                  in zip((res.llks, res.llk0s, res.llk_ab, res.llk_00),
+                         (ref.llks, ref.llk0s, ref.llk_ab, ref.llk_00)))
+        if not err <= EXACT_TOL or any(launched.values()) or \
+                "slot axis" not in eng.route:
+            fail(f"mesh {n_b}x{n_s} dense: max error {err} > {EXACT_TOL} "
+                 f"against the unsplit dense run(), launches {launched}, "
+                 f"route {eng.route}")
+        out.append(dict(mesh=f"{n_b}x{n_s}", cells=cut.nbcs,
+                        members=[str(d) for row in mesh.devices for d in row],
+                        route=eng.route, max_abs_err_vs_unsplit=err,
+                        tol=EXACT_TOL, **stats))
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_pair(argvs, timeout=600):
+    """Start one process per argument list (from the checkout's root, each
+    writing to its own files, so no pipe fills while a peer waits in a
+    collective), wait for all, kill any left on the way out; returns
+    [(rc, stdout, stderr)]."""
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [(open(os.path.join(tmp, f"{i}.out"), "w+"),
+                  open(os.path.join(tmp, f"{i}.err"), "w+"))
+                 for i in range(len(argvs))]
+        procs = [subprocess.Popen(a, cwd=HERE, stdout=o, stderr=e,
+                                  text=True)
+                 for a, (o, e) in zip(argvs, files)]
+        try:
+            rcs = [p.wait(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out = []
+        for rc, (o, e) in zip(rcs, files):
+            o.seek(0)
+            e.seek(0)
+            out.append((rc, o.read(), e.read()))
+            o.close()
+            e.close()
+        return out
+
+
+def multihost_worker(rank: int, port: int) -> int:
+    """One of the multihost phase's two processes (``chip_smoke.py
+    --multihost-worker RANK PORT``), over gloo on 127.0.0.1:PORT: the
+    pileup of phase 4 made again from its seed; (a) this process's barcode
+    stripe through exact run_compact and gather_compact, (b) its half of
+    the SNP ids (a genome shard) through exact run() and both
+    gather_results_sum_compact (decided on the card) and
+    gather_results_sum. Process 0 holds (a) against the one-process
+    run_compact (floats within EXACT_TOL, integer fields equal except
+    counted near ties; bit-equality reported), and (b) against
+    compact_from_result of gather_results_sum and against the
+    one-process run. Each prints one JSON line: its launch counts and
+    times, and on process 0 the comparisons."""
+    from demuxlet_tpu_torch.kernels import front_exact as k2
+    from demuxlet_tpu_torch.kernels import pair_exact as k3
+    from demuxlet_tpu_torch.models import decision as D
+    from demuxlet_tpu_torch.models.engine import DemuxEngine, cell_stats
+    from demuxlet_tpu_torch.parallel import multihost as mh
+    from demuxlet_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("auto")
+    mh.initialize(f"127.0.0.1:{port}", 2, rank)
+    rng = np.random.default_rng(1)
+    csr = synth_pileup(rng, N_CELLS)
+    gps = rng.dirichlet(np.ones(3), size=(NSNPS, V))
+    eng = DemuxEngine(gps, GRID, cell_block=CELL_BLOCK, device=dev)
+    out = dict(rank=rank, device=str(dev))
+
+    def counted(fn):
+        for k in (k2, k3):
+            k.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.monotonic() - t0, dict(k2=k2.launches,
+                                                k3=k3.launches)
+
+    mine = [i for i, b in enumerate(csr.barcodes)
+            if mh.owns_barcode(b, rank, 2)]
+    stripe = sub_pileup(csr, cells=mine)
+    (llks, llk0s, comp), secs, launches = counted(
+        lambda: eng.run_compact(stripe, 0.5))
+    out["stripe"] = dict(cells=stripe.nbcs, seconds=secs, launches=launches,
+                         blocks=len(eng._blocks(stripe.nbcs, stripe)[0]))
+    st = cell_stats(stripe)
+    t0 = time.monotonic()
+    merged = mh.gather_compact(mh.CompactShard(
+        barcodes=st.barcodes, totl=st.totl, pass_=st.pass_, uniq=st.uniq,
+        nsnp=st.nsnp, llks=llks, llk0s=llk0s, compact=comp))
+    out["stripe"]["gather_s"] = time.monotonic() - t0
+
+    half = sub_pileup(csr, snps=(rank * NSNPS // 2, (rank + 1) * NSNPS // 2))
+    res, secs, launches = counted(lambda: eng.run(half))
+    out["genome"] = dict(cells=half.nbcs, seconds=secs, launches=launches,
+                         blocks=len(eng._blocks(half.nbcs, half)[0]))
+    st = cell_stats(half)
+    local = mh.ShardResult(
+        barcodes=st.barcodes, totl=st.totl, pass_=st.pass_, uniq=st.uniq,
+        nsnp=st.nsnp, llks=res.llks, llk0s=res.llk0s, llk_ab=res.llk_ab,
+        llk_00=res.llk_00)
+    t0 = time.monotonic()
+    summed = mh.gather_results_sum_compact(local, GRID, 0.5, device=dev)
+    out["genome"]["gather_sum_compact_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    full = mh.gather_results_sum(local)
+    out["genome"]["gather_sum_s"] = time.monotonic() - t0
+    if rank == 0:
+        one = eng.run_compact(csr, 0.5)
+        want = pack_rows(one[2], one[0], one[1])
+        if merged.barcodes != list(csr.barcodes) or \
+                summed.barcodes != list(csr.barcodes):
+            fail("multihost: merged barcodes differ from the pileup's")
+        rows = pack_rows(merged.compact, merged.llks, merged.llk0s)
+        err, ties = compare_rows(rows, want, V, len(GRID), EXACT_TOL,
+                                 absolute=True)
+        out["stripe"].update(max_abs_err_vs_one_process=err,
+                             near_tie_cells=ties,
+                             bit_equal_one_process=bool(
+                                 np.array_equal(rows, want)))
+        decided = D.compact_from_result(full.llk_ab, full.llk_00, GRID, 0.5)
+        got = pack_rows(summed.compact, summed.llks, summed.llk0s)
+        err_f, ties_f = compare_rows(
+            got, pack_rows(decided, full.llks, full.llk0s), V, len(GRID),
+            EXACT_TOL, absolute=True)
+        err_o, ties_o = compare_rows(got, want, V, len(GRID), EXACT_TOL,
+                                     absolute=True)
+        st = cell_stats(csr)
+        counters = all(np.array_equal(getattr(summed, f), getattr(st, f))
+                       for f in ("totl", "pass_", "uniq", "nsnp"))
+        out["genome"].update(
+            max_abs_err_vs_gather_sum=err_f,
+            near_tie_cells_vs_gather_sum=ties_f,
+            max_abs_err_vs_one_process=err_o,
+            near_tie_cells_vs_one_process=ties_o,
+            counters_equal_one_process=counters)
+        if not (max(err, err_f, err_o) <= EXACT_TOL and counters):
+            fail(f"multihost: {json.dumps(out)}")
+    elif merged is not None or summed is not None or full is not None:
+        fail("multihost: a gather returned rows on process 1")
+    mh.shutdown()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def drive_multihost():
+    """The multihost phase's process pair: both exit 0, each launched K2'
+    and K3' once per block of its stripe and its genome half; process 0's
+    comparisons held (it fails otherwise). Returns its phase fields."""
+    port = free_port()
+    runs = run_pair([[sys.executable, os.path.abspath(__file__),
+                      "--multihost-worker", str(k), str(port)]
+                     for k in range(2)])
+    out = []
+    for rc, stdout, stderr in runs:
+        if rc != 0:
+            fail(f"multihost worker exited {rc}:\n{stderr[-3000:]}")
+        res = json.loads(stdout.strip().splitlines()[-1])
+        for part in ("stripe", "genome"):
+            n = res[part]["blocks"]
+            if res[part]["launches"] != dict(k2=n, k3=n) or not n:
+                fail(f"multihost: rank {res['rank']} {part} launches "
+                     f"{res[part]['launches']} for {n} blocks")
+        out.append(res)
+    return out
+
+
+def cli_pair(base, tmp, name, extra, genome):
+    """The port CLI as two processes (--num-shards 2 --shard-id k
+    --dist-coordinator 127.0.0.1:<port>, each with --profile) against one
+    process with the same options: process 0's .single, .sing2 (and
+    .pair) byte-identical, .best too, or for genome shards after
+    canonicalize_best (the shard sum may order mirrored alpha == 0.5 ties
+    otherwise; raw equality reported); process 1 writes nothing; each
+    process's trace names K2' and K3'."""
+    from parity_utils import canonicalize_best
+
+    want = run_cli(base, tmp, name + "_one", extra=extra)
+    port = free_port()
+    runs = run_pair([
+        [sys.executable, "-m", "demuxlet_tpu_torch.cli"] + base + extra
+        + ["--out", os.path.join(tmp, f"{name}{k}"), "--num-shards", "2",
+           "--shard-id", str(k), "--dist-coordinator", f"127.0.0.1:{port}",
+           "--profile", os.path.join(tmp, f"{name}_trace{k}")]
+        for k in range(2)])
+    traced = []
+    for k, (rc, _, stderr) in enumerate(runs):
+        if rc != 0:
+            fail(f"CLI pair {name}: process {k} exited {rc}:\n"
+                 f"{stderr[-3000:]}")
+        traced.append(profile_trace_kernels(os.path.join(
+            tmp, f"{name}_trace{k}", "torch_trace.json")))
+    if not all(t.get("K2'") and t.get("K3'") for t in traced):
+        fail(f"CLI pair {name}: traced kernels {traced}")
+    if [f for f in os.listdir(tmp) if f.startswith(name + "1.")]:
+        fail(f"CLI pair {name}: process 1 wrote outputs")
+    got = {}
+    for ext in want:
+        with open(os.path.join(tmp, f"{name}0{ext}")) as fh:
+            got[ext] = fh.read().splitlines()
+    raw = {ext: got[ext] == want[ext] for ext in want}
+    strict = [ext for ext in want if ext != ".best" or not genome]
+    if not all(raw[ext] for ext in strict) or canonicalize_best(
+            got[".best"]) != canonicalize_best(want[".best"]):
+        fail(f"CLI pair {name}: files equal to one process's: {raw}")
+    return dict(case=name, cells=len(want[".best"]) - 1, files=sorted(want),
+                byte_identical=raw, traced_kernels=traced)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -1408,6 +1766,42 @@ def main() -> int:
                           ("exact", gps_large, GRID_LARGE),
                           ("fast", gps_large, GRID_LARGE)):
         phase("trace", card=card, **profile_engine(csr, g, mode, dev, grid))
+    torch.cuda.empty_cache()
+
+    # ---- 18. meshes: whole blocks per row (both members on this card),
+    # and the dense route's slot axis
+    runs = (("exact", gps, GRID, [k2, k3]), ("fast", gps, GRID, [pair_fast]),
+            ("exact", gps_large, GRID_LARGE, [k2, k7, k6]),
+            ("fast", gps_large, GRID_LARGE, [k5, k4]))
+    n_cards = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    for devs in ([dev], cards) if n_cards >= 2 else ([dev],):
+        for mode, g, grid, path in runs:
+            phase("mesh", card=card, **drive_mesh(
+                csr, g, mode, dev, path, every, grid, on_devices(2, 1, devs)))
+            torch.cuda.empty_cache()
+        for fields in drive_mesh_dense(gps, dev, every, devs):
+            phase("mesh_dense", card=card, **fields)
+        torch.cuda.empty_cache()
+    if n_cards < 2:
+        phase("mesh_two_cards", run=False, cards=n_cards,
+              reason="this machine shows one CUDA device: the meshes above "
+                     f"put every member on {dev}; a mesh over two cards was "
+                     "not run")
+
+    # ---- 19. two processes over gloo on this card
+    for fields in drive_multihost():
+        phase("multihost", card=card, **fields)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = cli_case(tmp, V, 150, 80)
+        for name, extra, genome in (
+                ("barcode", [], False),
+                ("barcode_write_pair", ["--write-pair"], False),
+                ("genome", ["--shard-by", "genome"], True),
+                ("genome_write_pair", ["--shard-by", "genome",
+                                       "--write-pair"], True)):
+            phase("multihost_cli", card=card,
+                  **cli_pair(base, tmp, name, extra, genome))
 
     def row(key, name, source, replaces):
         s = kstat[key]
@@ -1445,4 +1839,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

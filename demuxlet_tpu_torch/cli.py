@@ -10,11 +10,15 @@ kernel versions (tests), ``tpu`` is an error.
 the port's f64 kernels) and ``--mode fast`` run through
 ``DemuxEngine.run_compact``; ``--write-pair``, ``--spool``, a genome shard
 and the dense route (``--exact-kernel xla``, exact ``--cap-BQ`` > 126,
-exact ``--precision f32``) through ``DemuxEngine.run``, as the JAX CLI
-chooses; ``--mode parity`` runs the host oracle. A NOTICE names the route
-each run took. Multi-device meshes, ``--dist-coordinator`` and ``--device
-tpu`` fail loudly with a DemuxError naming the ROADMAP item that will port
-them; nothing falls back to another mode.
+exact ``--precision f32``, a mesh's slot axis) through
+``DemuxEngine.run``, as the JAX CLI chooses; ``--mode parity`` runs the
+host oracle. A NOTICE names the route each run took. ``--mesh auto|BxS``
+spreads blocks over this process's devices (``parallel/mesh.py``);
+``--dist-coordinator host:port`` with ``--num-shards N --shard-id k``
+joins N processes over gloo, each taking its barcode stripe or genome
+shard, and process 0 writes the merged outputs
+(``parallel/multihost.py``). ``--device tpu`` fails with a DemuxError;
+nothing falls back to another mode.
 """
 
 from __future__ import annotations
@@ -34,39 +38,59 @@ from demuxlet_tpu_torch.cli_common import (
 from demuxlet_tpu_torch.utils.logging_utils import error, notice
 
 
-def _refuse_unported(args) -> None:
-    """DemuxError for every option the port does not cover yet, and for
-    fast mode's cap-BQ > 126 (the JAX engine's refusal) before any input
-    is read."""
-    if args.dist_coordinator:
-        error("--dist-coordinator (multi-host%s) is not ported to PyTorch "
-              "yet (ROADMAP queue 1, item 15)",
-              ", genome shards included" if args.shard_by == "genome"
-              else "")
+def _check_options(args) -> None:
+    """The JAX CLI's refusals, before any input is read: a coordinator
+    without shards, and fast mode's cap-BQ > 126 (the JAX engine's)."""
+    if args.dist_coordinator and args.num_shards < 2:
+        error("--dist-coordinator requires --num-shards >= 2")
     if args.mode == "fast" and args.cap_BQ > 126:
         error("--cap-BQ > 126 is not representable by the fast-mode u8 "
               "observation codes; use --mode exact")
 
 
-def _check_single_device(args) -> None:
-    """A mesh that would use more than one device is refused (ROADMAP
-    queue 1, item 14); 'auto' counts the visible CUDA devices."""
+def _build_mesh(args, device):
+    """The device mesh per --mesh (None: one device), with the JAX CLI's
+    rules: 'auto' takes every CUDA device this process sees as n x 1 (one
+    device on the CPU: no mesh); BxS needs B*S devices, S a power of two
+    and, for S > 1, exact mode. On the CPU a BxS mesh has B*S members,
+    all of them the CPU (the counterpart of the JAX tests' virtual
+    devices). Blocks are whole per mesh row, so --cell-block needs no
+    rounding."""
     if args.mesh == "none":
-        return
-    if args.mesh == "auto":
-        import torch
+        return None
+    import torch
 
-        n = torch.cuda.device_count() if args.device != "cpu" else 1
+    if device.type == "cuda":
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = None  # as many CPU members as the mesh asks for
+    if args.mesh == "auto":
+        n_b, n_s = len(devs) if devs else 1, 1
     else:
         try:
             n_b, n_s = (int(t) for t in args.mesh.lower().split("x"))
         except ValueError:
             error("Cannot parse --mesh %s (expected auto|none|BxS)", args.mesh)
-        n = n_b * n_s
-    if n > 1:
-        error("--mesh %s would use %d devices; multi-GPU is not ported to "
-              "PyTorch yet (ROADMAP queue 1, item 14). Use --mesh none",
-              args.mesh, n)
+    if n_b * n_s <= 1:
+        return None
+    if devs is None:
+        devs = [device] * (n_b * n_s)
+    if n_b * n_s > len(devs):
+        error(
+            "--mesh %dx%d needs %d local devices, have %d",
+            n_b, n_s, n_b * n_s, len(devs),
+        )
+    if args.mode == "fast" and n_s != 1:
+        error("--mesh BxS with S > 1 requires --mode exact (slot-axis sum)")
+    if n_s & (n_s - 1):
+        error("--mesh slot axis must be a power of two (got %d)", n_s)
+    from demuxlet_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(n_b=n_b, n_s=n_s, devices=devs[: n_b * n_s])
+    notice("Device mesh: %d (barcodes) x %d (slots) over %s", n_b, n_s,
+           ", ".join(str(d) for row in mesh.devices for d in row))
+    return mesh
 
 
 def _genome_regions(args):
@@ -81,6 +105,17 @@ def _genome_regions(args):
 
     shards = split_genome_shards(_bam_refs_len(args.sam), args.num_shards)
     return shards[args.shard_id]
+
+
+def _spool_dir(args):
+    """--spool DIR, or for shard k of N > 1 its own DIR/shard<k>of<N>:
+    block files are named by local cell ids, which every shard numbers
+    from 0, so shards sharing DIR would resume each other's blocks (as
+    the JAX CLI's do)."""
+    if args.spool and args.num_shards > 1:
+        return os.path.join(args.spool,
+                            "shard%dof%d" % (args.shard_id, args.num_shards))
+    return args.spool
 
 
 def _load_table(args, genome_regions=None):
@@ -143,17 +178,40 @@ def _profiler(args, device):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if not args.dist_coordinator:
+        return _main(args)
+    from demuxlet_tpu_torch.parallel import multihost as mh
+
+    try:
+        return _main(args)
+    finally:
+        mh.shutdown()
+
+
+def _main(args) -> int:
     t_start = time.time()
     grid_alpha = args.alpha if args.alpha else [0.0, 0.5]
+    _check_options(args)
+    mesh = None
     if args.mode != "parity":
-        _refuse_unported(args)
-        _check_single_device(args)
         from demuxlet_tpu_torch.utils.device import resolve_device
 
         if args.device == "tpu":
             error("--device tpu is not a PyTorch device; use auto (CUDA) "
                   "or cpu")
         device = resolve_device(args.device)
+        mesh = _build_mesh(args, device)
+    n_procs = 1
+    if args.dist_coordinator:
+        from demuxlet_tpu_torch.parallel import multihost as mh
+
+        pid, n_procs = mh.initialize(
+            args.dist_coordinator, args.num_shards, args.shard_id
+        )
+        notice(
+            "torch.distributed (gloo) initialized: process %d of %d (%s)",
+            pid, n_procs, args.dist_coordinator,
+        )
     for tag, name in ((args.tag_group, "group"), (args.tag_UMI, "UMI")):
         if tag and len(tag) != 2:
             error(
@@ -181,11 +239,12 @@ def main(argv=None) -> int:
         args._genome_regions = genome_regions  # read by the ingest
     table = _load_table(args, genome_regions)
     if genome_regions is not None:
-        notice(
-            "WARNING: genome-sharded run without --dist-coordinator "
-            "writes PARTIAL per-shard LLKs (this shard's SNPs only); "
-            "contributions from all shards must be sum-merged"
-        )
+        if not args.dist_coordinator:
+            notice(
+                "WARNING: genome-sharded run without --dist-coordinator "
+                "writes PARTIAL per-shard LLKs (this shard's SNPs only); "
+                "contributions from all shards must be sum-merged"
+            )
         notice(
             "Genome shard %d/%d: %d regions, %d SNPs",
             args.shard_id, args.num_shards, len(genome_regions),
@@ -202,7 +261,8 @@ def main(argv=None) -> int:
             table.gps, grid_alpha, cap_bq=args.cap_BQ,
             cell_block=args.cell_block, slot_chunk=args.slot_chunk,
             dtype=torch.float64 if args.precision == "f64" else torch.float32,
-            mode=args.mode, exact_kernel=args.exact_kernel, device=device)
+            mode=args.mode, exact_kernel=args.exact_kernel, device=device,
+            mesh=mesh)
 
     scl, ctr = _ingest(args, table, group_set)
     ctr.report(scl.nbcs, scl.nsnps)
@@ -223,14 +283,17 @@ def main(argv=None) -> int:
     use_compact = (not args.write_pair and not args.spool
                    and genome_regions is None and eng.dense_reason is None)
     t_eng = time.time()
+    compact = res = None
     with _profiler(args, device) as prof:
         if use_compact:
             llks, llk0s, compact = eng.run_compact(scl, args.doublet_prior)
         else:
-            res = eng.run(scl, spool_dir=args.spool)
+            res = eng.run(scl, spool_dir=_spool_dir(args))
             llks, llk0s = res.llks, res.llk0s
         if prof is not None and device.type == "cuda":
-            torch.cuda.synchronize()
+            for dev in ({d for row in mesh.devices for d in row}
+                        if mesh is not None else (device,)):
+                torch.cuda.synchronize(dev)
     t_eng_done = time.time()
     notice("Route: %s, %s", "run_compact" if use_compact else "run", eng.route)
     if prof is not None:
@@ -246,6 +309,15 @@ def main(argv=None) -> int:
             args.mode, device,
         )
     stats = cell_stats(scl)
+    if n_procs > 1:
+        merged = _gather(args, stats, llks, llk0s, compact, res, grid_alpha,
+                         genome_regions is not None, device)
+        if merged is None:
+            notice("%sShard %d: results gathered to process 0",
+                   "Genome " if genome_regions is not None else "",
+                   args.shard_id)
+            return 0
+        stats, llks, llk0s, compact, res = merged
     filt = dict(
         min_total=args.min_total, min_uniq=args.min_uniq, min_snp=args.min_snp
     )
@@ -254,7 +326,7 @@ def main(argv=None) -> int:
     with contextlib.ExitStack() as files:
         s2 = files.enter_context(_open_out(args.out, ".sing2"))
         sb = files.enter_context(_open_out(args.out, ".best"))
-        if use_compact:
+        if compact is not None:
             out_mod.write_pass2_compact(
                 stats, table.sample_ids, compact, grid_alpha,
                 args.doublet_prior, s2, sb, **filt,
@@ -269,6 +341,56 @@ def main(argv=None) -> int:
     notice("Finished writing output files")
     notice("Total wall-clock time: %.3fs", time.time() - t_start)
     return 0
+
+
+def _gather(args, stats, llks, llk0s, compact, res, grid_alpha, genome,
+            device):
+    """This process's rows merged on process 0, as the JAX CLI merges
+    them: a genome shard's LLKs sum (the full tensors for --write-pair or
+    --spool, else the reduce-scatter and a decision pass per stripe on
+    ``device``), a barcode stripe's rows concatenate (the full tensors for
+    --write-pair or --spool, else the compact rows; the dense route's are
+    decided on the host first). Returns (stats, llks, llk0s, compact,
+    res) on process 0, with compact or res None as the writer takes it,
+    and None on every other process."""
+    from demuxlet_tpu_torch.models import decision as D
+    from demuxlet_tpu_torch.models import outputs as out_mod
+    from demuxlet_tpu_torch.models.engine import EngineResult
+    from demuxlet_tpu_torch.parallel import multihost as mh
+
+    full = args.write_pair or args.spool
+    if genome or full:
+        local = mh.ShardResult(
+            barcodes=stats.barcodes, totl=stats.totl, pass_=stats.pass_,
+            uniq=stats.uniq, nsnp=stats.nsnp, llks=res.llks,
+            llk0s=res.llk0s, llk_ab=res.llk_ab, llk_00=res.llk_00,
+        )
+    if genome and not full:
+        merged = mh.gather_results_sum_compact(
+            local, grid_alpha, args.doublet_prior, device=device)
+    elif full:
+        merged = (mh.gather_results_sum if genome
+                  else mh.gather_results)(local)
+    else:
+        if compact is None:
+            compact = D.compact_from_result(
+                res.llk_ab, res.llk_00, grid_alpha, args.doublet_prior)
+        merged = mh.gather_compact(mh.CompactShard(
+            barcodes=stats.barcodes, totl=stats.totl, pass_=stats.pass_,
+            uniq=stats.uniq, nsnp=stats.nsnp, llks=llks, llk0s=llk0s,
+            compact=compact,
+        ))
+    if merged is None:
+        return None
+    stats = out_mod.CellStats(
+        barcodes=merged.barcodes, totl=merged.totl, pass_=merged.pass_,
+        uniq=merged.uniq, nsnp=merged.nsnp,
+    )
+    if full:
+        res = EngineResult(merged.llks, merged.llk0s, merged.llk_ab,
+                           merged.llk_00)
+        return stats, res.llks, res.llk0s, None, res
+    return stats, merged.llks, merged.llk0s, merged.compact, None
 
 
 if __name__ == "__main__":

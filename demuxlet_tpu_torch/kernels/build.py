@@ -134,6 +134,20 @@ def build_all() -> dict:
         return {name: fut.result() for name, fut in futs.items()}
 
 
+def launch(lib: ctypes.CDLL, entry: str, device, *args) -> None:
+    """Call the C entry point `entry` of `lib` with `args` and then the
+    current stream of `device`, with `device` the current card: the CUDA
+    runtime launches on the thread's current card, whatever card the
+    tensors lie on. A non-zero return code raises."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        msg = lib.dmx_cuda_error_string(rc).decode()
+        raise RuntimeError(
+            f"{entry.removeprefix('dmx_')} launch failed: {msg} ({rc})")
+
+
 def int_table(device, values):
     """A cached int32 tensor of `values` on `device` (a kernel's static
     channel map or mask), uploaded once per device and value tuple."""

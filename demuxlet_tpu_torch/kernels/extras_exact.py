@@ -90,13 +90,10 @@ def extras(t, g, gl, V, A, a0_sep, expand):
     if B and S:
         lib = _lib()
         exp_dev = kbuild.int_table(t.device, expand)
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        rc = lib.dmx_extras_exact(
+        kbuild.launch(
+            lib, "dmx_extras_exact", t.device,
             t.data_ptr(), g.data_ptr(), gl.data_ptr(), exp_dev.data_ptr(),
-            out.data_ptr(), B, S, V, A, int(bool(a0_sep)), stream,
+            out.data_ptr(), B, S, V, A, int(bool(a0_sep)),
         )
-        if rc != 0:
-            msg = lib.dmx_cuda_error_string(rc).decode()
-            raise RuntimeError(f"extras launch failed: {msg} ({rc})")
         launches += 1
     return out

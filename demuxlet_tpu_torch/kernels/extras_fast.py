@@ -93,14 +93,11 @@ def extras_fast(t, gps_t, gp0_t, V, A, a0_sep, expand):
     if B and S:
         lib = _lib()
         exp_dev = kbuild.int_table(t.device, expand)
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        rc = lib.dmx_extras_fast(
+        kbuild.launch(
+            lib, "dmx_extras_fast", t.device,
             t.data_ptr(), gps_t.data_ptr(), gp0_t.data_ptr(),
             exp_dev.data_ptr(), out.data_ptr(), B, S, V, A,
-            int(bool(a0_sep)), stream,
+            int(bool(a0_sep)),
         )
-        if rc != 0:
-            msg = lib.dmx_cuda_error_string(rc).decode()
-            raise RuntimeError(f"extras_fast launch failed: {msg} ({rc})")
         launches += 1
     return out

@@ -107,17 +107,14 @@ def front_exact(dense, lut, msk, cmask, gsel, tail=None, n_deep=0):
     if B * S:
         lib = _lib()
         cm = kbuild.int_table(dense.device, [bool(c) for c in cmask])
-        stream = torch.cuda.current_stream(dense.device).cuda_stream
-        rc = lib.dmx_front_exact(
+        kbuild.launch(
+            lib, "dmx_front_exact", dense.device,
             dense.data_ptr(), tpos.data_ptr() if K2p else None,
             tcode.data_ptr() if K2p else None, lut.data_ptr(),
             msk.data_ptr(), cm.data_ptr(), t.data_ptr(), gl.data_ptr(), B, S,
             U0, K2p, n_deep if K2p else 0, R, C, int(gsel[0]), int(gsel[1]),
             int(gsel[2]), int(R * C * 8 <= SMEM_MAX),
-            int(K2p * 8 <= TAIL_SMEM_MAX), stream,
+            int(K2p * 8 <= TAIL_SMEM_MAX),
         )
-        if rc != 0:
-            msg = lib.dmx_cuda_error_string(rc).decode()
-            raise RuntimeError(f"front_exact launch failed: {msg} ({rc})")
         launches += 1
     return t, gl

@@ -123,15 +123,12 @@ def pair_exact(t, g, gl, V, A, a0_sep, sym_a, expand):
             raise ValueError(f"pair_exact: V={V}, A={A} and C={C} channels "
                              "do not fit the kernel's shared-memory stages")
         exp_dev = kbuild.int_table(t.device, expand)
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        rc = lib.dmx_pair_exact(
+        kbuild.launch(
+            lib, "dmx_pair_exact", t.device,
             t.data_ptr(), g.data_ptr(), gl.data_ptr(), exp_dev.data_ptr(),
             out_ab.data_ptr(), out_00.data_ptr(), out_s.data_ptr(),
             out_s0.data_ptr(), B, S, V, A, C, int(bool(a0_sep)),
-            -1 if sym_a is None else int(sym_a), stream,
+            -1 if sym_a is None else int(sym_a),
         )
-        if rc != 0:
-            msg = lib.dmx_cuda_error_string(rc).decode()
-            raise RuntimeError(f"pair_exact launch failed: {msg} ({rc})")
         launches += 1
     return out_ab.view(B, V, V, A), out_00, out_s, out_s0

@@ -91,14 +91,11 @@ def pair_fast(t, gps_t, V, A, a0_sep, sym_a, expand):
     if B and S:
         lib = _lib()
         exp_dev = kbuild.int_table(t.device, expand)
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        rc = lib.dmx_pair_fast(
+        kbuild.launch(
+            lib, "dmx_pair_fast", t.device,
             t.data_ptr(), gps_t.data_ptr(), exp_dev.data_ptr(),
             out_ab.data_ptr(), out_00.data_ptr(), B, S, V, A,
-            int(bool(a0_sep)), -1 if sym_a is None else int(sym_a), stream,
+            int(bool(a0_sep)), -1 if sym_a is None else int(sym_a),
         )
-        if rc != 0:
-            msg = lib.dmx_cuda_error_string(rc).decode()
-            raise RuntimeError(f"pair_fast launch failed: {msg} ({rc})")
         launches += 1
     return out_ab.view(B, V, V, A), out_00

@@ -94,14 +94,11 @@ def pair_tiled(t, g, V, A, plan, expand):
         items = kbuild.int_table(t.device, [v for it in plan.items
                                             for v in it])
         alist = kbuild.int_table(t.device, plan.alist)
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        rc = lib.dmx_pair_tiled_exact(
+        kbuild.launch(
+            lib, "dmx_pair_tiled_exact", t.device,
             t.data_ptr(), g.data_ptr(), exp_dev.data_ptr(), items.data_ptr(),
             alist.data_ptr(), out.data_ptr(), B, S, V, A, len(plan.items),
-            plan.tile, stream,
+            plan.tile,
         )
-        if rc != 0:
-            msg = lib.dmx_cuda_error_string(rc).decode()
-            raise RuntimeError(f"pair_tiled launch failed: {msg} ({rc})")
         launches += 1
     return out

@@ -96,14 +96,11 @@ def pair_tiled_fast(t, gps_t, V, A, plan, expand):
         items = kbuild.int_table(t.device, [v for it in plan.items
                                             for v in it])
         alist = kbuild.int_table(t.device, plan.alist)
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        rc = lib.dmx_pair_tiled_fast(
+        kbuild.launch(
+            lib, "dmx_pair_tiled_fast", t.device,
             t.data_ptr(), gps_t.data_ptr(), exp_dev.data_ptr(),
             items.data_ptr(), alist.data_ptr(), out.data_ptr(), B, S, V, A,
-            len(plan.items), plan.tile, stream,
+            len(plan.items), plan.tile,
         )
-        if rc != 0:
-            msg = lib.dmx_cuda_error_string(rc).decode()
-            raise RuntimeError(f"pair_tiled_fast launch failed: {msg} ({rc})")
         launches += 1
     return out

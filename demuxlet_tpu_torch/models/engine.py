@@ -1,5 +1,5 @@
 """Demux engine on PyTorch (port of ``demuxlet_tpu/models/engine.py``,
-exact and fast modes, single device).
+exact and fast modes, one device or a mesh of them).
 
 ``run_compact`` follows the JAX engine's single-device branch: host
 block prep on a prefetch pool (native C packer or the Python packer,
@@ -27,6 +27,14 @@ tests/test_torch_engine.py pins each copy to the original.
 Both modes run every pool size: V*V*A > 384 takes the tiled K7' + K6'
 (exact) or K5' + K4' (fast; ``ops/pair_tiled.py``) where smaller pools
 take K3' or K1.
+
+Under a mesh (``parallel/mesh.py``, the JAX engine's ``mesh``) block i
+runs on mesh row i mod n_b: the kernel route on the row's first member,
+the dense route split on the slot axis over the row's members. Each
+member has its own tables; ``run_compact`` reads each row's packed rows
+back in one transfer, ``run`` copies each block back on its member's
+stream. Results equal the single-device run's, bit for bit (the slot
+split of the dense route adds partial sums: within 1e-9).
 """
 
 from __future__ import annotations
@@ -45,13 +53,14 @@ from demuxlet_tpu_torch.host.csr import CsrPileup, build_codes_block
 from demuxlet_tpu_torch.host.pileup import PileupData
 from demuxlet_tpu_torch.host.slots import SlotBlock, build_slots
 from demuxlet_tpu_torch.models.outputs import CellStats
-from demuxlet_tpu_torch.ops import likelihood, luts
+from demuxlet_tpu_torch.ops import luts
 from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 from demuxlet_tpu_torch.models import decision as D
 from demuxlet_tpu_torch.ops.front import fast_front, fast_g_table
 from demuxlet_tpu_torch.ops.front_exact import exact_block
 from demuxlet_tpu_torch.ops.pair import dedup_channels, extend_luts, unrolled
 from demuxlet_tpu_torch.ops.pair_exact import takes_k3
+from demuxlet_tpu_torch.parallel import mesh as pmesh
 
 MODES = ("exact", "fast")
 EXACT_KERNELS = ("auto", "pallas", "xla")
@@ -262,6 +271,7 @@ class DemuxEngine:
         mode: str = "exact",
         exact_kernel: str = "auto",
         device: Optional[torch.device] = None,
+        mesh: Optional[pmesh.Mesh] = None,
     ):
         """mode="exact" (the JAX engine's default): f64 front and pair
         search with the singlet term (K2' and K3' on CUDA, K2', K7' and K6'
@@ -275,7 +285,11 @@ class DemuxEngine:
         slot_chunk: the dense route's slot chunk; dtype: torch.float64 or
         torch.float32.
         device: a torch.device; None resolves "auto" (CUDA or DemuxError,
-        ``utils/device.resolve_device``)."""
+        ``utils/device.resolve_device``).
+        mesh: a ``parallel/mesh.Mesh`` (then ``device`` is its first
+        member): blocks go to its rows in turn; a slot axis (n_s > 1)
+        sends exact mode to the dense route and is refused in fast mode,
+        as the JAX CLI refuses it."""
         if mode not in MODES:
             raise DemuxError(f"--mode {mode} is not a mode of the engine "
                              f"(one of {', '.join(MODES)})")
@@ -311,16 +325,33 @@ class DemuxEngine:
                                      "u8 observation codes")
             elif dtype == torch.float32:
                 self.dense_reason = "--precision f32"
-        if device is None:
+        if mesh is not None and mesh.shape["s"] > 1:
+            shape = "%dx%d" % (mesh.shape["b"], mesh.shape["s"])
+            if mode == "fast":
+                raise DemuxError(f"--mesh {shape} with S > 1 requires --mode "
+                                 "exact (slot-axis sum)")
+            if self.dense_reason is None:
+                # the slot-axis sum belongs to the dense route, as the
+                # JAX engine's psum belongs to its XLA kernel
+                self.dense_reason = f"--mesh {shape} slot axis"
+        if mesh is not None:
+            device = mesh.devices[0][0]
+        elif device is None:
             from demuxlet_tpu_torch.utils.device import resolve_device
 
             device = resolve_device("auto")
         self.device = device
-        self._tables = None
-        self._tables_v2 = None
-        self._exact = None
-        self._exact_v2 = None
-        self._dense = None
+        self.mesh = mesh
+        # the grid the blocks run on: the mesh, or this one device
+        self._grid = mesh if mesh is not None else pmesh.Mesh(((device,),))
+        self._dense_step = pmesh.build_sharded_step(
+            self._grid, self.n_alpha, slot_chunk=slot_chunk, dtype=dtype)
+        # device tables, one set per mesh member (row, s)
+        self._tables = {}
+        self._tables_v2 = {}
+        self._exact = {}
+        self._exact_v2 = {}
+        self._dense = {}
         self.route = None  # set by each run: its kernels, or dense and why
         # wire v2 (host/wire.py): per-run packed H2D format, chosen once
         # per pileup; the (S, U) meta registry keeps same-shape blocks on
@@ -372,8 +403,8 @@ class DemuxEngine:
                 pass
         if cfg != self._wire_cfg:
             self._wire_cfg = cfg
-            self._tables_v2 = None
-            self._exact_v2 = None
+            self._tables_v2 = {}
+            self._exact_v2 = {}
             self._wire_reg = {}
         return self._wire_cfg
 
@@ -488,29 +519,34 @@ class DemuxEngine:
             idx = (u[:, 0::2] | (u[:, 1::2] << 16)).view(np.int32)
         return codes, idx, None
 
-    def _fast_tables(self, cfg=None) -> DeviceTables:
-        """Device tables for the run (cached per wire config)."""
-        if cfg is not None:
-            if self._tables_v2 is None:
-                self._tables_v2 = tables_from_numpy(
-                    self.gps, self.grid_alpha, self.cap_bq, cfg, self.device)
-            return self._tables_v2
-        if self._tables is None:
-            self._tables = tables_from_numpy(
-                self.gps, self.grid_alpha, self.cap_bq, None, self.device)
-        return self._tables
+    def _member(self, member):
+        """The device of mesh member (row, s)."""
+        return self._grid.devices[member[0]][member[1]]
 
-    def _exact_tables(self, cfg=None) -> ExactTables:
-        """Exact-mode device tables for the run (cached per wire config)."""
-        if cfg is not None:
-            if self._exact_v2 is None:
-                self._exact_v2 = exact_tables_from_numpy(
-                    self.gps, self.grid_alpha, self.cap_bq, cfg, self.device)
-            return self._exact_v2
-        if self._exact is None:
-            self._exact = exact_tables_from_numpy(
-                self.gps, self.grid_alpha, self.cap_bq, None, self.device)
-        return self._exact
+    def _fast_tables(self, cfg=None, member=(0, 0)) -> DeviceTables:
+        """Device tables for the run on a mesh member (cached per wire
+        config and member)."""
+        cache = self._tables if cfg is None else self._tables_v2
+        if member not in cache:
+            cache[member] = tables_from_numpy(
+                self.gps, self.grid_alpha, self.cap_bq, cfg,
+                self._member(member))
+        return cache[member]
+
+    def _exact_tables(self, cfg=None, member=(0, 0)) -> ExactTables:
+        """Exact-mode device tables for the run on a mesh member (cached
+        per wire config and member)."""
+        cache = self._exact if cfg is None else self._exact_v2
+        if member not in cache:
+            cache[member] = exact_tables_from_numpy(
+                self.gps, self.grid_alpha, self.cap_bq, cfg,
+                self._member(member))
+        return cache[member]
+
+    def _row_tables(self, cfg):
+        """Per mesh row, its first member's kernel-route tables."""
+        fn = self._exact_tables if self.mode == "exact" else self._fast_tables
+        return [fn(cfg, (r, 0)) for r in range(self._grid.shape["b"])]
 
     def _blocks(self, n: int, scl=None):
         """Cell-id blocks, COVERAGE-SORTED (ascending distinct-SNP count,
@@ -562,10 +598,17 @@ class DemuxEngine:
             names = "K1" if unrolled(V, A) else "K5' + K4'"
         where = ("CUDA" if self.device.type == "cuda"
                  else "their plain versions on the CPU")
-        return f"kernels {names} ({where})"
+        return f"kernels {names} ({where}){self._on_mesh()}"
 
-    def _ship(self, codes, idx, msk, cfg):
-        """One prepped block to the device, in the form the fronts take:
+    def _on_mesh(self) -> str:
+        """The route's mesh suffix: "" on one device."""
+        if self.mesh is None:
+            return ""
+        return " on a %dx%d mesh" % (self.mesh.shape["b"],
+                                     self.mesh.shape["s"])
+
+    def _ship(self, codes, idx, msk, cfg, dev):
+        """One prepped block to device dev, in the form the fronts take:
         returns ((codes, idx, msk) tensors, wire meta or None); counts
         ``h2d_bytes``."""
         wire = None
@@ -581,17 +624,16 @@ class DemuxEngine:
         if cfg is not None and (wire is None or wire[0] != "w2"):
             raise RuntimeError("v1-form block in a wire-v2 run")
         self.h2d_bytes += _nbytes(codes, idx, msk)
-        dev = self.device
         return (_h2d(codes, dev),
                 None if idx is None else _h2d(idx, dev),
                 None if msk is None else _h2d(msk, dev)), wire
 
-    def _dispatch_block(self, codes, idx, msk, cfg, tab):
-        """One block through the kernel route: (llk (B, V), llk0 (B,),
-        llk_ab (B, V, V, A), llk_00 (B, A)) on the device, f64 in exact
-        mode (``ops/front_exact.exact_block``), f32 in fast mode
-        (``ops/front.fast_front``)."""
-        blk, wire = self._ship(codes, idx, msk, cfg)
+    def _dispatch_block(self, codes, idx, msk, cfg, tab, dev):
+        """One block through the kernel route on device dev, whose tables
+        tab are: (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00
+        (B, A)) there, f64 in exact mode (``ops/front_exact.exact_block``),
+        f32 in fast mode (``ops/front.fast_front``)."""
+        blk, wire = self._ship(codes, idx, msk, cfg, dev)
         kw = dict(a0_sep=self.grid_alpha[0] == 0.0, sym_a=self._sym_a(),
                   wire=wire)
         if self.mode == "exact":
@@ -602,36 +644,33 @@ class DemuxEngine:
                           self.n_alpha, self.nv, expand=tab.expand,
                           g_table=tab.g_table, **kw)
 
-    def _dense_tables(self):
-        """The dense route's device tables in the run's dtype (the JAX
-        engine's ``_gps_dev``, ``_gp0_dev``, ``_logf_dev``, ``_w_dev``)."""
-        if self._dense is None:
-            self._dense = tuple(
-                torch.as_tensor(x, dtype=self.dtype, device=self.device)
+    def _dense_tables(self, member=(0, 0)):
+        """The dense route's device tables in the run's dtype on a mesh
+        member (the JAX engine's ``_gps_dev``, ``_gp0_dev``,
+        ``_logf_dev``, ``_w_dev``)."""
+        if member not in self._dense:
+            self._dense[member] = tuple(
+                torch.as_tensor(x, dtype=self.dtype,
+                                device=self._member(member))
                 for x in (self.gps, self.gp0, luts.singlet_lut(self.cap_bq),
                           luts.pair_lut(self.grid_alpha, self.cap_bq)))
-        return self._dense
+        return self._dense[member]
 
-    def _run_block(self, blk: SlotBlock):
-        """One ``build_slots`` block through the dense route
-        (``ops/likelihood.py``; the JAX engine's ``_run_block``): the gps
-        and gp0 rows taken by idx, then the singlet and pair LLKs in the
-        run's dtype. Returns (llk, llk0, llk_ab, llk_00) on the device."""
-        gps, gp0, logf, w = self._dense_tables()
+    def _run_block(self, blk: SlotBlock, row: int = 0):
+        """One ``build_slots`` block through the dense route on mesh row
+        ``row`` (``ops/likelihood.py``; the JAX engine's ``_run_block``):
+        the slot axis in one contiguous part per member of the row, each
+        shipped to its member, which takes the gps and gp0 rows by idx and
+        computes the singlet and pair LLKs in the run's dtype; the row's
+        first member adds the parts (``parallel/mesh.build_sharded_step``).
+        Returns (llk, llk0, llk_ab, llk_00) on that member."""
+        members = self._grid.devices[row]
         self.h2d_bytes += _nbytes(blk.idx, blk.msk, blk.cnt)
-        idx, msk, cnt = _h2d((blk.idx, blk.msk, blk.cnt), self.device)
-        B, S = idx.shape
-        ns, nv = gps.shape[:2]
-        flat = idx.reshape(-1)
-        gps_g = gps.reshape(ns, nv * 3).index_select(0, flat).view(
-            B, S, nv, 3)
-        gp0_g = gp0.index_select(0, flat).view(B, S, 3)
-        llk, llk0 = likelihood.singlet_llks(cnt, msk, gps_g, gp0_g, logf,
-                                            dtype=self.dtype)
-        llk_ab, llk_00 = likelihood.pair_llks(
-            cnt, msk, gps_g, gp0_g, w, self.n_alpha,
-            slot_chunk=self.slot_chunk, dtype=self.dtype)
-        return llk, llk0, llk_ab, llk_00
+        parts = [_h2d(p, dev) for p, dev in zip(
+            pmesh.split_slots(len(members), blk.idx, blk.msk, blk.cnt),
+            members)]
+        tables = [self._dense_tables((row, s)) for s in range(len(members))]
+        return self._dense_step(row, parts, tables)
 
     def run_compact(self, scl, doublet_prior: float):
         """Exact- or fast-mode pipeline with the device-side decision pass
@@ -657,14 +696,15 @@ class DemuxEngine:
             scl = CsrPileup.from_pileup(scl)
         cfg = self._wire_cfg_for(scl)
         exact = self.mode == "exact"
-        tab = self._exact_tables(cfg) if exact else self._fast_tables(cfg)
-        self.route = self._kernel_route(tab)
-        dev = self.device
-        dbl_w = torch.as_tensor(
-            D.doublet_weights(self.nv, self.grid_alpha, doublet_prior),
-            dtype=torch.float64 if exact else self.dtype, device=dev)
-        dbl_msk = torch.as_tensor(D.doublet_mask(self.nv, self.n_alpha),
-                                  device=dev)
+        tabs = self._row_tables(cfg)
+        self.route = self._kernel_route(tabs[0])
+        rows = self._grid.shape["b"]
+        devs = [self._member((r, 0)) for r in range(rows)]
+        dbl_w = D.doublet_weights(self.nv, self.grid_alpha, doublet_prior)
+        dbl_msk = D.doublet_mask(self.nv, self.n_alpha)
+        dbl = [(torch.as_tensor(dbl_w, device=dev,
+                                dtype=torch.float64 if exact else self.dtype),
+                torch.as_tensor(dbl_msk, device=dev)) for dev in devs]
         a0_sep = self.grid_alpha[0] == 0.0
         sym_a = self._sym_a()
 
@@ -672,26 +712,28 @@ class DemuxEngine:
         llks = np.zeros((n, self.nv), dtype=np.float64)
         llk0s = np.zeros(n, dtype=np.float64)
 
-        def dispatch(codes, idx, msk):
-            blk, wire = self._ship(codes, idx, msk, cfg)
+        def dispatch(row, codes, idx, msk):
+            tab, (dw, dm) = tabs[row], dbl[row]
+            blk, wire = self._ship(codes, idx, msk, cfg, devs[row])
             if exact:
                 return D.compact_step_body_exact(
-                    *blk, tab, dbl_w, dbl_msk, self.n_alpha, self.nv,
+                    *blk, tab, dw, dm, self.n_alpha, self.nv,
                     doublet_prior, a0_sep=a0_sep, sym_a=sym_a, wire=wire,
                 )
             return D.compact_step_body(
-                *blk, tab.gps, tab.gp0, tab.w_ext, tab.logf_ext, dbl_w,
-                dbl_msk, self.n_alpha, self.nv, doublet_prior, a0_sep=a0_sep,
+                *blk, tab.gps, tab.gp0, tab.w_ext, tab.logf_ext, dw, dm,
+                self.n_alpha, self.nv, doublet_prior, a0_sep=a0_sep,
                 sym_a=sym_a, expand=tab.expand, wire=wire,
                 g_table=tab.g_table, dtype=self.dtype,
             )
 
-        # defer all device->host readback to ONE transfer at the end
+        # defer all device->host readback to ONE transfer per mesh row at
+        # the end
         dev_parts = []
 
-        def step(cells, prepped):
+        def step(cells, prepped, row):
             t0 = time.monotonic()
-            dev_parts.append((cells, dispatch(*prepped)))
+            dev_parts.append((cells, row, dispatch(row, *prepped)))
             self.phase_s["dispatch"] += time.monotonic() - t0
 
         blocks = self._drive_blocks(
@@ -700,17 +742,21 @@ class DemuxEngine:
         parts = []
         if dev_parts:
             t0 = time.monotonic()
-            host = torch.cat([p for _, p in dev_parts], dim=0).cpu().numpy()
-            self.d2h_bytes = host.nbytes
-            off = 0
-            for cells, p in dev_parts:
+            host = {}
+            for r in range(rows):
+                mine = [p for _, row, p in dev_parts if row == r]
+                if mine:
+                    host[r] = torch.cat(mine, dim=0).cpu().numpy()
+            self.d2h_bytes = sum(h.nbytes for h in host.values())
+            off = [0] * rows
+            for cells, r, p in dev_parts:
                 m = len(cells)
-                a, b, c = D.unpack_block(host[off : off + m], self.nv,
-                                         self.n_alpha)
+                a, b, c = D.unpack_block(host[r][off[r] : off[r] + m],
+                                         self.nv, self.n_alpha)
                 llks[cells] = a
                 llk0s[cells] = b
                 parts.append(c)
-                off += p.shape[0]
+                off[r] += p.shape[0]
             self.phase_s["fetch"] += time.monotonic() - t0
         else:  # zero cells: empty fields of the right shapes
             width = 2 * self.nv + self.n_alpha + 11
@@ -756,18 +802,18 @@ class DemuxEngine:
         if spool_dir:
             os.makedirs(spool_dir, exist_ok=True)
         dense = self.dense_reason is not None
-        cfg = tab = None
+        cfg = tabs = None
         if dense:
-            self.route = f"dense ({self.dtype}; {self.dense_reason})"
+            self.route = (f"dense ({self.dtype}; {self.dense_reason})"
+                          f"{self._on_mesh()}")
         else:
             if not hasattr(scl, "cell_ptr"):
                 scl = CsrPileup.from_pileup(scl)
             # warmed here: else the 4 prep threads each race through the
             # config's pass over all observations
             cfg = self._wire_cfg_for(scl)
-            tab = (self._exact_tables(cfg) if self.mode == "exact"
-                   else self._fast_tables(cfg))
-            self.route = self._kernel_route(tab)
+            tabs = self._row_tables(cfg)
+            self.route = self._kernel_route(tabs[0])
         n, nv, na = scl.nbcs, self.nv, self.n_alpha
         llks = np.zeros((n, nv), dtype=np.float64)
         llk0s = np.zeros(n, dtype=np.float64)
@@ -788,8 +834,10 @@ class DemuxEngine:
                         return "spooled", tuple(z[k] for k in "abcd")
             if dense:
                 blk = build_slots(scl, cells, cap_bq=self.cap_bq)
-                return "slots", _pad_block(blk, self.cell_block,
-                                           _bucket(blk.idx.shape[1]))
+                # a power of two of at least n_s slots splits evenly over
+                # a mesh row's members
+                return "slots", _pad_block(blk, self.cell_block, _bucket(
+                    blk.idx.shape[1], max(8, self._grid.shape["s"])))
             return "codes", self._prep_codes_blk(scl, cells, pad)
 
         def store(cells, arrs):
@@ -801,18 +849,21 @@ class DemuxEngine:
             llk_00[cells] = d[:m]
 
         def start_d2h(outs, m):
-            """Enqueue the copy of the block's m real cells; returns what
-            the worker waits on."""
+            """Enqueue the copy of the block's m real cells on the stream
+            of the device that holds them; returns what the worker waits
+            on."""
             outs = [x[:m] for x in outs]
             self.d2h_bytes += sum(x.numel() * x.element_size() for x in outs)
-            if self.device.type != "cuda":
+            dev = outs[0].device
+            if dev.type != "cuda":
                 return outs, None
             host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
                     for x in outs]
-            for h, x in zip(host, outs):
-                h.copy_(x, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+            with torch.cuda.device(dev):
+                for h, x in zip(host, outs):
+                    h.copy_(x, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
             return host, done
 
         def finish(cells, copy):
@@ -838,7 +889,7 @@ class DemuxEngine:
         # two D2H workers: the outstanding block's and the one just enqueued
         with ThreadPoolExecutor(max_workers=2) as pool:
 
-            def step(cells, prepped):
+            def step(cells, prepped, row):
                 kind, data = prepped
                 t0 = time.monotonic()
                 if kind == "spooled":
@@ -846,9 +897,10 @@ class DemuxEngine:
                     self.phase_s["fetch"] += time.monotonic() - t0
                     return
                 if kind == "slots":
-                    outs = self._run_block(data)
+                    outs = self._run_block(data, row)
                 else:
-                    outs = self._dispatch_block(*data, cfg, tab)
+                    outs = self._dispatch_block(*data, cfg, tabs[row],
+                                                self._member((row, 0)))
                 copy = start_d2h(outs, len(cells))
                 del outs
                 self.phase_s["dispatch"] += time.monotonic() - t0
@@ -865,7 +917,8 @@ class DemuxEngine:
         """The block loop of ``run`` and ``run_compact``: resets the run's
         accounting, blocks the cells (``_blocks``), runs
         ``prep_block(cells, pad)`` on the 4-thread prefetch pool and
-        ``step(cells, prepped)`` on the calling thread in block order.
+        ``step(cells, prepped, row)`` on the calling thread in block order,
+        block i on mesh row i mod n_b (row 0 on one device).
         Times setup (since ``t_setup``), prep (summed over threads) and
         prep_wait; ``step`` times its own dispatch and fetch. Returns the
         blocks."""
@@ -885,16 +938,14 @@ class DemuxEngine:
             return out
 
         self.phase_s["setup"] = time.monotonic() - t_setup
+        rows = self._grid.shape["b"]
         with ThreadPoolExecutor(max_workers=4) as prep_pool:
             it = _prefetched(prep_pool, prep, jobs)
-            while True:
+            for i in range(len(jobs)):
                 t0 = time.monotonic()
-                try:
-                    cells, prepped = next(it)
-                except StopIteration:
-                    break
+                cells, prepped = next(it)
                 self.phase_s["prep_wait"] += time.monotonic() - t0
-                step(cells, prepped)
+                step(cells, prepped, i % rows)
         return blocks
 
 

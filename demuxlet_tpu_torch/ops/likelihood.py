@@ -105,3 +105,21 @@ def pair_llks(cnt, msk, gps_g, gp0_g, w, n_alpha, slot_chunk=0,
             llk_ab, llk_00 = torch.zeros_like(ab), torch.zeros_like(z0)
         llk_ab, llk_00 = llk_ab + ab, llk_00 + z0
     return llk_ab, llk_00
+
+
+def block_llks(idx, msk, cnt, gps, gp0, logf, w, n_alpha, slot_chunk=0,
+               dtype=torch.float64):
+    """One count-slot block from the run's tables (the JAX engine's
+    ``_run_block``): the gps and gp0 rows taken by idx (B, S), then the
+    singlet and pair LLKs. gps (NS, V, 3), gp0 (NS, 3), logf and w in
+    ``dtype`` on the device of idx, msk (B, S) and cnt (B, S, NB).
+    Returns (llk, llk0, llk_ab, llk_00) on that device."""
+    B, S = idx.shape
+    ns, nv = gps.shape[:2]
+    flat = idx.reshape(-1)
+    gps_g = gps.reshape(ns, nv * 3).index_select(0, flat).view(B, S, nv, 3)
+    gp0_g = gp0.index_select(0, flat).view(B, S, 3)
+    llk, llk0 = singlet_llks(cnt, msk, gps_g, gp0_g, logf, dtype=dtype)
+    llk_ab, llk_00 = pair_llks(cnt, msk, gps_g, gp0_g, w, n_alpha,
+                               slot_chunk=slot_chunk, dtype=dtype)
+    return llk, llk0, llk_ab, llk_00

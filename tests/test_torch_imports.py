@@ -1,5 +1,5 @@
 """The port stands without JAX, runs large pools in every mode and
-refuses what it does not cover yet."""
+refuses what the JAX CLI refuses."""
 
 import os
 import re
@@ -57,8 +57,9 @@ def test_port_cli_runs_without_jax_package(tmp_path):
     """With jax, demuxlet_tpu and oracle blocked, the port CLI runs on the
     CPU in parity, exact (the default) and fast modes on one BAM/VCF, with
     --write-pair, --spool and --exact-kernel xla (the full-tensor run()),
-    and in fast mode on a large pool (V=8, 7 alphas: K5' + K4'); the exact
-    .single equals parity's, and so do those of run()."""
+    on a 2x1 mesh (parallel/mesh.py), and in fast mode on a large pool
+    (V=8, 7 alphas: K5' + K4'); the exact .single equals parity's, and so
+    do those of run() and of the mesh."""
     import random
 
     from fixtures import random_workload, write_bam, write_vcf
@@ -77,6 +78,7 @@ def test_port_cli_runs_without_jax_package(tmp_path):
             ("write_pair", base + ["--write-pair"]),
             ("spool", base + ["--spool", str(tmp_path / "spool")]),
             ("xla", base + ["--exact-kernel", "xla"]),
+            ("mesh", base[:-2] + ["--mesh", "2x1"]),
             ("fast_large", _large_pool_case(large, 3) + ["--mode", "fast"])]
     code = (
         _BLOCK + "from demuxlet_tpu_torch import cli\n"
@@ -92,7 +94,7 @@ def test_port_cli_runs_without_jax_package(tmp_path):
     for name, _ in runs:
         n = 11 if name == "fast_large" else 13
         assert len((tmp_path / f"{name}.best").read_text().splitlines()) == n
-    for name in ("exact", "write_pair", "spool", "xla"):
+    for name in ("exact", "write_pair", "spool", "xla", "mesh"):
         assert (tmp_path / f"{name}.single").read_text() == (
             tmp_path / "parity.single").read_text(), name
     assert (tmp_path / "write_pair.pair").stat().st_size > 0
@@ -153,11 +155,11 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mode", "fast", "--dist-coordinator", "localhost:1",
-      "--num-shards", "2"], "item 15"),
-    (["--dist-coordinator", "localhost:1", "--shard-by", "genome",
-      "--num-shards", "2"], "item 15"),
-    (["--mode", "fast", "--mesh", "2x1"], "item 14"),
+    # the JAX CLI's refusals of --dist-coordinator and --mesh
+    (["--dist-coordinator", "localhost:1", "--num-shards", "1"],
+     "requires --num-shards >= 2"),
+    (["--mode", "fast", "--mesh", "1x2"], "requires --mode exact"),
+    (["--mesh", "2x3"], "power of two"),
     (["--mode", "fast", "--cap-BQ", "127"], "use --mode exact"),
     (["--mode", "fast", "--device", "tpu"], "cpu"),
 ])

@@ -117,3 +117,24 @@ def test_matches_oracle(seed, grid):
         o_ab, _, o_00 = pass2_cell(scl, gp0s, c, grid)
         assert np.abs(ab[c].numpy() - o_ab).max() < 1e-9
         assert np.abs(z0[c].numpy() - o_00).max() < 1e-9
+
+
+def test_slot_chunk_not_dividing_s_stays_finite():
+    """A slot chunk that does not divide S (384 of 512 slots, the dense
+    route's --slot-chunk 384): the JAX pair_llks_impl zero-pads the last
+    chunk, whose padded slots give log(0) * 0 = NaN in every LLK (a fault
+    of the reference); the port sums a shorter last chunk and gives finite
+    LLKs within 1e-12 of its own and of JAX's at slot_chunk=512."""
+    cnt, msk, gps, gp0, w, logf = _case(9, 2, 512, 3, 3)
+    tt = [torch.from_numpy(x) for x in (cnt, msk, gps, gp0)]
+    tw = torch.from_numpy(w)
+    jargs = [jnp.asarray(x) for x in (cnt, msk, gps, gp0, w)]
+    j384 = [np.asarray(x) for x in JL.pair_llks(*jargs, 3, slot_chunk=384)]
+    assert all(np.isnan(x).all() for x in j384)
+    j512 = [np.asarray(x) for x in JL.pair_llks(*jargs, 3, slot_chunk=512)]
+    t384 = [x.numpy() for x in TL.pair_llks(*tt, tw, 3, slot_chunk=384)]
+    t512 = [x.numpy() for x in TL.pair_llks(*tt, tw, 3, slot_chunk=512)]
+    for got, own, ref in zip(t384, t512, j512):
+        assert np.isfinite(got).all()
+        assert np.abs(got - own).max() <= 1e-12
+        assert np.abs(got - ref).max() <= 1e-12
