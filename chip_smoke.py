@@ -46,7 +46,14 @@ each against its plain PyTorch version on the card. Phases, one line each:
      .sing2 byte-identical to --mode parity, .best equal after
      canonicalize_best; then with --write-pair (run() on K2' + K3', and no
      other kernel): .pair, .single and .sing2 byte-identical to parity's;
-     and with --profile: its torch.profiler trace names K2' and K3';
+     and with --profile: its torch.profiler trace names K2' and K3'; then
+     the input options on the same BAM/VCF with GP and PL added, one line
+     a case: --field GP, --field PL, --sm (6 of 8 samples), --group-list
+     (every other barcode) and --doublet-prior 0.3 on the 5-point grid,
+     each with no --mode against --mode parity with the same options
+     (.single and .sing2 byte-identical, .best equal after
+     canonicalize_best, K2' and K3' launched; the parity runs are
+     processes of their own, started together);
   9. K7' (pair_tiled_exact) and K6' (extras_exact) against their plain
      versions at B=2048, S=1024 for (V, A) = (32, 5), (32, 2), (20, 2),
      (17, 3), a ragged B=40/S=384 case (V=7, A=8: one 8-tile) and the
@@ -111,9 +118,13 @@ each against its plain PyTorch version on the card. Phases, one line each:
      (1e-9 absolute, near ties counted), K2' and K3' launched once per
      block in each process; then the CLI as two processes on the phase-5
      BAM/VCF, barcode stripes and genome shards, each with and without
-     --write-pair: process 0's files byte-identical to one process's
-     (genome .best after canonicalize_best), process 1's none, and each
-     process's --profile trace names K2' and K3'.
+     --write-pair, then as three processes (barcode stripes) and four
+     (genome shards): process 0's files byte-identical to one process's
+     (genome .best after canonicalize_best; four genome shards: calls and
+     ids equal, other fields within 1.5 rendering quanta), the other
+     processes' none, and each process's --profile trace names K2' and
+     K3'; per process its wall seconds, its merge's seconds and its
+     traced K2' and K3' launches.
 
 Then a JSON line of per-kernel numbers (with each kernel's bound: the
 larger of its operations over the card's peak rate for their type and its
@@ -122,8 +133,8 @@ say), the card's name and power limit, and, last, the ok line. Any failure
 exits non-zero before the ok line. With no CUDA device it exits 1 at once. Nothing of JAX, of the JAX
 package or of oracle/ is imported.
 
-Usage: python3 chip_smoke.py (one card; phase 19 starts its two worker
-processes itself)
+Usage: python3 chip_smoke.py (one card; phases 8 and 19 start their
+processes themselves)
 """
 
 from __future__ import annotations
@@ -474,8 +485,10 @@ def k2_bound(B, S, tab, dense, tail, real, msk, t, gl):
     return bound(ops, nbytes, "f64")
 
 
-def cli_case(tmp, n_samples, n_cells, reads_per_cell):
-    """A BAM/VCF from tests/fixtures.py (200 SNPs) in tmp."""
+def cli_case(tmp, n_samples, n_cells, reads_per_cell, fields=("GT",)):
+    """A BAM/VCF from tests/fixtures.py (200 SNPs) in tmp, the VCF with the
+    FORMAT fields ``fields``: GP and PL are written from the planted
+    genotypes, as tests/test_golden_reference.py writes them."""
     import random
 
     from demuxlet_tpu_torch.io import bgzf
@@ -493,8 +506,17 @@ def cli_case(tmp, n_samples, n_cells, reads_per_cell):
     contigs, names, variants, reads, _truth = random_workload(
         random.Random(7), n_cells=n_cells, n_snps=200, n_samples=n_samples,
         reads_per_cell=reads_per_cell)
+    for v in variants:
+        for smp in v.samples:
+            g = {"0/0": 0, "0/1": 1, "1/1": 2}[smp["GT"]]
+            if "GP" in fields:
+                smp["GP"] = ",".join("0.96" if i == g else "0.02"
+                                     for i in range(3))
+            if "PL" in fields:
+                smp["PL"] = ",".join("0" if i == g else "60"
+                                     for i in range(3))
     vcf = write_vcf(os.path.join(tmp, "w.vcf"), names, variants,
-                    contigs=contigs)
+                    contigs=contigs, fmt_keys=list(fields))
     bam = write_bam(os.path.join(tmp, "w.bam"), contigs, reads)
     return ["--sam", bam, "--vcf", vcf, "--field", "GT"]
 
@@ -563,6 +585,11 @@ def run_cli(base, tmp, name, mode=None, extra=()):
     argv = base + ["--out", out] + ([] if mode is None else ["--mode", mode])
     if cli.main(argv + list(extra)) != 0:
         fail(f"CLI {name} returned non-zero")
+    return read_outputs(out)
+
+
+def read_outputs(out):
+    """The lines of a CLI run's output files (.pair where written)."""
     files = {}
     for ext in (".single", ".sing2", ".best", ".pair"):
         if ext != ".pair" or os.path.exists(out + ext):
@@ -1133,30 +1160,37 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_pair(argvs, timeout=600):
+def run_pair(argvs, timeout=600, env=None):
     """Start one process per argument list (from the checkout's root, each
     writing to its own files, so no pipe fills while a peer waits in a
-    collective), wait for all, kill any left on the way out; returns
-    [(rc, stdout, stderr)]."""
+    collective), wait for all, kill any left at the time limit; returns
+    [(rc, stdout, stderr, seconds)], seconds from the start to each
+    process's exit."""
     with tempfile.TemporaryDirectory() as tmp:
         files = [(open(os.path.join(tmp, f"{i}.out"), "w+"),
                   open(os.path.join(tmp, f"{i}.err"), "w+"))
                  for i in range(len(argvs))]
+        t0 = time.monotonic()
         procs = [subprocess.Popen(a, cwd=HERE, stdout=o, stderr=e,
-                                  text=True)
+                                  text=True, env=env)
                  for a, (o, e) in zip(argvs, files)]
+        secs = [None] * len(procs)
         try:
-            rcs = [p.wait(timeout=timeout) for p in procs]
+            while None in secs and time.monotonic() - t0 < timeout:
+                for i, p in enumerate(procs):
+                    if secs[i] is None and p.poll() is not None:
+                        secs[i] = time.monotonic() - t0
+                time.sleep(0.02)
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
         out = []
-        for rc, (o, e) in zip(rcs, files):
+        for p, sec, (o, e) in zip(procs, secs, files):
             o.seek(0)
             e.seek(0)
-            out.append((rc, o.read(), e.read()))
+            out.append((p.returncode, o.read(), e.read(), sec))
             o.close()
             e.close()
         return out
@@ -1276,7 +1310,7 @@ def drive_multihost():
                       "--multihost-worker", str(k), str(port)]
                      for k in range(2)])
     out = []
-    for rc, stdout, stderr in runs:
+    for rc, stdout, stderr, _ in runs:
         if rc != 0:
             fail(f"multihost worker exited {rc}:\n{stderr[-3000:]}")
         res = json.loads(stdout.strip().splitlines()[-1])
@@ -1289,46 +1323,150 @@ def drive_multihost():
     return out
 
 
-def cli_pair(base, tmp, name, extra, genome):
-    """The port CLI as two processes (--num-shards 2 --shard-id k
+def render_quantum(s: str) -> float:
+    """Smallest rendered step of a printf-formatted number: one unit in
+    the last printed decimal (fixed) or significant (e-notation) digit."""
+    s = s.strip()
+    if "e" in s or "E" in s:
+        mant, _, exp = s.lower().partition("e")
+        dec = len(mant.split(".")[1]) if "." in mant else 0
+        return 10.0 ** (int(exp) - dec)
+    dec = len(s.split(".")[1]) if "." in s else 0
+    return 10.0 ** (-dec)
+
+
+def rows_close(want_line, got_line, exact_cols=()):
+    """Two rendered rows equal in the columns exact_cols and, elsewhere,
+    to 1.5 rendering quanta per float field (tests/test_multihost.py's
+    rule for more than two genome shards, whose sum adds in another
+    order than one process's)."""
+    cw, cg = want_line.split("\t"), got_line.split("\t")
+    if len(cw) != len(cg) or any(cw[c] != cg[c] for c in exact_cols):
+        return False
+    for a, b in zip(cw, cg):
+        if a == b:
+            continue
+        try:
+            fa, fb = float(a), float(b)
+        except ValueError:
+            return False
+        if abs(fa - fb) > 1.5 * max(render_quantum(a), render_quantum(b)):
+            return False
+    return True
+
+
+def cli_procs(base, tmp, name, extra, genome, n=2):
+    """The port CLI as n processes (--num-shards n --shard-id k
     --dist-coordinator 127.0.0.1:<port>, each with --profile) against one
-    process with the same options: process 0's .single, .sing2 (and
-    .pair) byte-identical, .best too, or for genome shards after
+    process with the same options: process 0's .single, .sing2 (and .pair)
+    byte-identical, .best too, or for genome shards after
     canonicalize_best (the shard sum may order mirrored alpha == 0.5 ties
-    otherwise; raw equality reported); process 1 writes nothing; each
-    process's trace names K2' and K3'."""
+    otherwise; raw equality reported); beyond two genome shards, the
+    calls and ids of .best equal (columns 0, 5, 6, 8, 11, 12 after
+    canonicalize_best) and every other field of the three files within
+    1.5 rendering quanta (the n-way sum adds in another order); the other
+    processes write nothing; each process's trace names K2' and K3'.
+    Returns the phase fields, with each process's wall seconds (start to
+    exit), the seconds of its merge and its K2' and K3' launches."""
+    import re
+
     from parity_utils import canonicalize_best
 
     want = run_cli(base, tmp, name + "_one", extra=extra)
     port = free_port()
     runs = run_pair([
         [sys.executable, "-m", "demuxlet_tpu_torch.cli"] + base + extra
-        + ["--out", os.path.join(tmp, f"{name}{k}"), "--num-shards", "2",
+        + ["--out", os.path.join(tmp, f"{name}{k}"), "--num-shards", str(n),
            "--shard-id", str(k), "--dist-coordinator", f"127.0.0.1:{port}",
            "--profile", os.path.join(tmp, f"{name}_trace{k}")]
-        for k in range(2)])
-    traced = []
-    for k, (rc, _, stderr) in enumerate(runs):
+        for k in range(n)])
+    procs = []
+    for k, (rc, _, stderr, secs) in enumerate(runs):
         if rc != 0:
-            fail(f"CLI pair {name}: process {k} exited {rc}:\n"
+            fail(f"CLI processes {name}: process {k} exited {rc}:\n"
                  f"{stderr[-3000:]}")
-        traced.append(profile_trace_kernels(os.path.join(
-            tmp, f"{name}_trace{k}", "torch_trace.json")))
-    if not all(t.get("K2'") and t.get("K3'") for t in traced):
-        fail(f"CLI pair {name}: traced kernels {traced}")
-    if [f for f in os.listdir(tmp) if f.startswith(name + "1.")]:
-        fail(f"CLI pair {name}: process 1 wrote outputs")
-    got = {}
-    for ext in want:
-        with open(os.path.join(tmp, f"{name}0{ext}")) as fh:
-            got[ext] = fh.read().splitlines()
+        traced = profile_trace_kernels(os.path.join(
+            tmp, f"{name}_trace{k}", "torch_trace.json"))
+        merge = re.search(r"Merge across \d+ processes: ([0-9.]+)s", stderr)
+        procs.append(dict(process=k, wall_s=secs,
+                          merge_s=merge and float(merge.group(1)),
+                          traced_kernels=traced))
+    if not all(p["traced_kernels"].get("K2'")
+               and p["traced_kernels"].get("K3'") and p["merge_s"] is not None
+               for p in procs):
+        fail(f"CLI processes {name}: {procs}")
+    if [f for f in os.listdir(tmp) for k in range(1, n)
+            if f.startswith(f"{name}{k}.")]:
+        fail(f"CLI processes {name}: a process other than 0 wrote outputs")
+    got = read_outputs(os.path.join(tmp, f"{name}0"))
+    if sorted(got) != sorted(want):
+        fail(f"CLI processes {name}: files {sorted(got)}, {sorted(want)}")
     raw = {ext: got[ext] == want[ext] for ext in want}
-    strict = [ext for ext in want if ext != ".best" or not genome]
-    if not all(raw[ext] for ext in strict) or canonicalize_best(
-            got[".best"]) != canonicalize_best(want[".best"]):
-        fail(f"CLI pair {name}: files equal to one process's: {raw}")
-    return dict(case=name, cells=len(want[".best"]) - 1, files=sorted(want),
-                byte_identical=raw, traced_kernels=traced)
+    if genome and n > 2:
+        ok = True
+        for ext in want:
+            w, g = want[ext], got[ext]
+            if ext == ".best":
+                w, g = canonicalize_best(w), canonicalize_best(g)
+            cols = (0, 5, 6, 8, 11, 12) if ext == ".best" else ()
+            ok = ok and len(w) == len(g) and all(
+                rows_close(a, b, cols) for a, b in zip(w, g))
+    else:
+        strict = [ext for ext in want if ext != ".best" or not genome]
+        ok = all(raw[ext] for ext in strict) and canonicalize_best(
+            got[".best"]) == canonicalize_best(want[".best"])
+    if not ok:
+        fail(f"CLI processes {name}: files equal to one process's: {raw}")
+    return dict(case=name, processes=n, cells=len(want[".best"]) - 1,
+                files=sorted(want), byte_identical=raw, per_process=procs)
+
+
+# phase 8's option matrix: (case, options); None is the --group-list file
+CLI_OPTIONS = (
+    ("field GP", ["--field", "GP"]),
+    ("field PL", ["--field", "PL"]),
+    ("sm 6 of 8", [a for i in range(1, 7) for a in ("--sm", f"S{i}")]),
+    ("group-list half", ["--group-list", None]),
+    ("doublet-prior 0.3, 5 alphas",
+     ["--doublet-prior", "0.3"] + [a for x in GRID for a in ("--alpha",
+                                                             repr(x))]),
+)
+
+
+def cli_options_vs_parity(tmp, barcodes, kernels):
+    """Phase 8's option matrix on the phase-5 BAM/VCF with GP and PL added
+    (``cli_case``): per case of CLI_OPTIONS, the CLI with no --mode
+    against --mode parity with the same options, as ``cli_vs_parity``
+    holds them; --group-list names every other one of ``barcodes``. The
+    parity runs are processes of their own, all started together. Returns
+    one phase-field dict a case."""
+    tmp = os.path.join(tmp, "options")
+    os.makedirs(tmp)
+    base = cli_case(tmp, V, 150, 80, fields=("GT", "GP", "PL"))
+    groups = os.path.join(tmp, "groups.txt")
+    with open(groups, "w") as fh:
+        fh.write("".join(b + "\n" for b in sorted(barcodes)[::2]))
+    cases = [(name, [groups if a is None else a for a in args])
+             for name, args in CLI_OPTIONS]
+    runs = run_pair(
+        [[sys.executable, "-m", "demuxlet_tpu_torch.cli"] + base + args
+         + ["--mode", "parity", "--out", os.path.join(tmp, f"parity{i}")]
+         for i, (_, args) in enumerate(cases)],
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    out = []
+    for i, ((name, args), (rc, _, stderr, secs)) in enumerate(
+            zip(cases, runs)):
+        if rc != 0:
+            fail(f"CLI parity {name} exited {rc}:\n{stderr[-3000:]}")
+        case_tmp = os.path.join(tmp, f"case{i}")
+        os.makedirs(case_tmp)
+        t0 = time.monotonic()
+        cells, named = cli_vs_parity(
+            base + args, case_tmp, kernels,
+            parity=read_outputs(os.path.join(tmp, f"parity{i}")))
+        out.append(dict(case=name, cells=cells, parity_s=secs,
+                        exact_s=time.monotonic() - t0, launches=named))
+    return out
 
 
 def main() -> int:
@@ -1590,6 +1728,14 @@ def main() -> int:
               pair_single_sing2_byte_identical=True, launches=named,
               profile_trace_kernels=traced)
 
+        # the input options, each against --mode parity with the same
+        for fields in cli_options_vs_parity(
+                tmp, [l.split("\t")[0] for l in parity[".best"][1:]],
+                [k2, k3]):
+            phase("cli", mode="exact (default)", samples=V,
+                  single_sing2_byte_identical=True, best_equal_parity=True,
+                  **fields)
+
     # ---- 9. K7' and K6' against their plain versions
     rng = np.random.default_rng(4)
     # and the engine's deepest slot pad
@@ -1794,14 +1940,16 @@ def main() -> int:
         phase("multihost", card=card, **fields)
     with tempfile.TemporaryDirectory() as tmp:
         base = cli_case(tmp, V, 150, 80)
-        for name, extra, genome in (
-                ("barcode", [], False),
-                ("barcode_write_pair", ["--write-pair"], False),
-                ("genome", ["--shard-by", "genome"], True),
+        for name, extra, genome, n in (
+                ("barcode", [], False, 2),
+                ("barcode_write_pair", ["--write-pair"], False, 2),
+                ("genome", ["--shard-by", "genome"], True, 2),
                 ("genome_write_pair", ["--shard-by", "genome",
-                                       "--write-pair"], True)):
+                                       "--write-pair"], True, 2),
+                ("barcode_p3", [], False, 3),
+                ("genome_p4", ["--shard-by", "genome"], True, 4)):
             phase("multihost_cli", card=card,
-                  **cli_pair(base, tmp, name, extra, genome))
+                  **cli_procs(base, tmp, name, extra, genome, n))
 
     def row(key, name, source, replaces):
         s = kstat[key]

@@ -18,5 +18,11 @@ copy of ``oracle/numpy_oracle.py``); only their import paths differ, and
 tests/test_torch_host.py pins each to its original. Nothing here imports
 JAX, ``demuxlet_tpu`` or ``oracle``, and importing the package builds
 nothing: each CUDA kernel is compiled by nvcc at its first launch
-(``kernels/build.py``).
+(``kernels/build.py``). Importing it makes one single-threaded call into
+the CPU's vector math (``utils/device.settle_host_math``), so that no
+threaded exp or log is the process's first.
 """
+
+from demuxlet_tpu_torch.utils.device import settle_host_math
+
+settle_host_math()

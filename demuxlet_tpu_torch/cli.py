@@ -310,8 +310,11 @@ def _main(args) -> int:
         )
     stats = cell_stats(scl)
     if n_procs > 1:
+        t_merge = time.time()
         merged = _gather(args, stats, llks, llk0s, compact, res, grid_alpha,
                          genome_regions is not None, device)
+        notice("Merge across %d processes: %.3fs", n_procs,
+               time.time() - t_merge)
         if merged is None:
             notice("%sShard %d: results gathered to process 0",
                    "Genome " if genome_regions is not None else "",

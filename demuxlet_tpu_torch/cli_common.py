@@ -1,8 +1,10 @@
 """The CLI's host helpers, copied from ``demuxlet_tpu/cli.py`` (which
 imports JAX in ``main``): the parser, the parameter echo, the pileup
 ingest, the output opener and the host-oracle parity mode. Only the
-import paths differ from the originals (tests/test_torch_host.py pins
-each copy); ``demuxlet_tpu_torch/cli.py`` is the entry point.
+import paths differ from the originals, and the parser's help strings,
+which describe this package (tests/test_torch_host.py pins each copy and
+names each string that differs); ``demuxlet_tpu_torch/cli.py`` is the
+entry point.
 """
 
 from __future__ import annotations
@@ -48,11 +50,11 @@ def _open_out(prefix: str, ext: str):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="demuxlet-tpu",
+        prog="demuxlet-torch",
         description=(
-            "TPU-native droplet demultiplexing: deconvolute sample identity "
-            "and detect doublets from pooled single-cell data using natural "
-            "genetic variation."
+            "Droplet demultiplexing on a CUDA card (PyTorch): deconvolute "
+            "sample identity and detect doublets from pooled single-cell "
+            "data using natural genetic variation."
         ),
     )
     g = p.add_argument_group("Options for input SAM/BAM/CRAM")
@@ -130,7 +132,7 @@ def build_parser() -> argparse.ArgumentParser:
         default=1,
         help=(
             "Split barcodes into N deterministic stripes (crc32 hash); this "
-            "process handles stripe --shard-id. The TPU-native analog of "
+            "process handles stripe --shard-id. The built-in analog of "
             "manual --group-list sharding"
         ),
     )
@@ -152,8 +154,9 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         metavar="HOST:PORT",
         help=(
-            "jax.distributed coordinator address; with --num-shards N and "
-            "--shard-id k this process joins an N-process run (process k), "
+            "torch.distributed (gloo) rendezvous address; with --num-shards "
+            "N and --shard-id k this process joins an N-process run (process "
+            "k), "
             "shard results all-gather compactly, and process 0 writes the "
             "single merged output set"
         ),
@@ -162,7 +165,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--min-uniq", type=int, default=0)
     g.add_argument("--min-snp", type=int, default=0)
 
-    g = p.add_argument_group("TPU engine options")
+    g = p.add_argument_group("Engine options (CUDA)")
     g.add_argument(
         "--mesh",
         default="auto",
@@ -178,7 +181,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--device",
         default="auto",
         choices=["auto", "tpu", "cpu"],
-        help="Execution platform (auto = default JAX backend)",
+        help=(
+            "Execution platform: auto = the current CUDA card (an error "
+            "when there is none), cpu = the kernels' plain PyTorch "
+            "versions; tpu is refused"
+        ),
     )
     g.add_argument(
         "--precision",
@@ -193,8 +200,8 @@ def build_parser() -> argparse.ArgumentParser:
         help=(
             "exact: f64 device kernels (printed values reference-identical; "
             "exact ulp-ties between mirrored (j,k,0.5) doublet pairs may "
-            "resolve to the mirrored order). fast: f32 Pallas pair-search "
-            "kernel (TPU production mode; calls identical, LLKs approximate "
+            "resolve to the mirrored order). fast: f32 CUDA pair-search "
+            "kernels (calls identical, LLKs approximate "
             "in the last printed digit). parity: bit-faithful host oracle "
             "replicating the reference's per-UMI scalar loop order — "
             "byte-exact outputs incl. tie direction (small inputs)"
@@ -205,14 +212,13 @@ def build_parser() -> argparse.ArgumentParser:
         default="auto",
         choices=["auto", "pallas", "xla"],
         help=(
-            "Exact-mode kernel: pallas = df32 (double-single f32) Pallas "
-            "pair kernel (TPU; ~1e-10 of f64), xla = f64 XLA kernels; "
-            "auto picks pallas on TPU"
+            "Exact-mode kernel: pallas (and auto) = the f64 CUDA kernels "
+            "(front and pair search), xla = the dense f64 route in plain "
+            "PyTorch"
         ),
     )
     g.add_argument("--cell-block", type=int, default=2048,
-                   help="Cells per device batch (2048 peaks both Pallas "
-                        "kernels' throughput on v5e; 4096 regresses)")
+                   help="Cells per device batch")
     g.add_argument(
         "--slot-chunk", type=int, default=512, help="SNP-slot chunk per scan step"
     )
@@ -226,7 +232,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--profile",
         default=None,
         metavar="DIR",
-        help="Write a JAX profiler trace of the device passes to DIR",
+        help=(
+            "Write a torch.profiler trace of the device passes to "
+            "DIR/torch_trace.json"
+        ),
     )
     g.add_argument(
         "--spool",

@@ -101,6 +101,25 @@ def test_port_cli_runs_without_jax_package(tmp_path):
     assert os.listdir(tmp_path / "spool")
 
 
+def test_package_import_settles_host_math():
+    """Importing the port calls torch.exp once, on one f64 on the importing
+    thread (utils/device.settle_host_math), before any threaded math: MKL's
+    vector math, first called from several of torch's threads at once, ran
+    one thread's share of an exp or log at reduced accuracy in about 3 of
+    100 fresh processes."""
+    code = (
+        "import torch\ncalls = []\nexp = torch.exp\n"
+        "def spy(x, *a, **k):\n"
+        "    calls.append((x.numel(), str(x.dtype)))\n"
+        "    return exp(x, *a, **k)\n"
+        "torch.exp = spy\nimport demuxlet_tpu_torch\nprint(calls)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[(1, 'torch.float64')]"
+
+
 def test_chip_smoke_fixtures_without_jax_package(tmp_path):
     """chip_smoke.py (which blocks jax, demuxlet_tpu and oracle) writes its
     CLI BAM/VCF through tests/fixtures.py with the port's bgzf bound under

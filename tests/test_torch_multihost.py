@@ -2,9 +2,11 @@
 multihost.py``) on the CPU: the copied helpers and merges against the JAX
 module's on the same seeded shards, the ingest's barcode stripe against
 the JAX owns_barcode, each gather with one process against its merge,
-gather_results_sum_compact over several chunks in two processes, and two
-CLI processes joined over gloo on localhost, whose process 0 writes what
-one process writes, as tests/test_multihost.py holds the JAX CLI."""
+gather_results_sum_compact over several chunks in two processes, and two,
+three and four CLI processes joined over gloo on localhost, whose process
+0 writes what one process writes, as tests/test_multihost.py holds the
+JAX CLI; and two port processes against two JAX CLI processes on the same
+BAM/VCF."""
 
 import dataclasses
 import os
@@ -12,6 +14,7 @@ import random
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -171,22 +174,29 @@ def test_gather_with_one_process_is_its_merge(gather):
 
 # ------------------------------------------------------- two processes
 def _workload(tmp_path, case):
-    """The BAM/VCF of a two-process case (tests/test_multihost.py's
-    inputs): 24 cells on one contig; two contigs of 14 cells each for the
-    genome shards; a second contig with reads and no SNP for the empty
-    shard."""
+    """The BAM/VCF of a multi-process case (tests/test_multihost.py's
+    inputs): 24 cells on one contig (27 of seed 43 for three processes);
+    two contigs of 14 cells each for the genome shards (15 of seeds 87 and
+    88 for four processes); a second contig with reads and no SNP for the
+    empty shard."""
     from fixtures import SimRead, random_workload, write_bam, write_vcf
 
     if case.startswith("genome"):
+        seed, cells, snps = (87, 15, 24) if case == "genome_p4" else (
+            77, 14, 20)
         parts, contigs = [], []
         for c in range(2):
             cg, names, variants, reads, _ = random_workload(
-                random.Random(77 + c), n_cells=14, n_snps=20, n_samples=3,
-                reads_per_cell=40, chrom=f"chr{c + 1}")
+                random.Random(seed + c), n_cells=cells, n_snps=snps,
+                n_samples=3, reads_per_cell=40, chrom=f"chr{c + 1}")
             contigs.append((f"chr{c + 1}", cg[0][1]))
             parts.append((variants, reads))
         variants = [v for vs, _ in parts for v in vs]
         reads = [r for _, rs in parts for r in rs]
+    elif case == "barcode_p3":
+        contigs, names, variants, reads, _ = random_workload(
+            random.Random(43), n_cells=27, n_snps=40, n_samples=3,
+            reads_per_cell=50)
     elif case == "zero_snp_shard":
         cg, names, variants, reads, _ = random_workload(
             random.Random(7), n_cells=10, n_snps=20, n_samples=3,
@@ -220,27 +230,46 @@ CASES = {
 }
 
 
-def _two_processes(base, extra, out):
-    """The port CLI as processes 0 and 1 of 2 over gloo on a free
-    localhost port, process k writing to out + str(k); returns their
-    stderr, after both exit 0."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "demuxlet_tpu_torch.cli"] + base + extra
-        + ["--out", out + str(k), "--num-shards", "2", "--shard-id", str(k),
-           "--dist-coordinator", f"127.0.0.1:{port}"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for k in range(2)]
-    errs = []
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=120)
-            errs.append(err)
-    finally:
-        for p in procs:
-            p.kill()
+def _processes(n, base, extra, out, module="demuxlet_tpu_torch.cli",
+               env=None, timeout=120):
+    """A CLI (the port's, or the JAX package's with env) as processes 0..n-1
+    of n on a free localhost port, process k writing to out + str(k), each
+    with OMP_NUM_THREADS=2; returns their stderr, after all exit 0. The
+    port comes from a bind to port 0 and its release, so another process
+    can take it first: then the run is made once more on a fresh port.
+    Output goes to files, so no pipe fills while a peer waits in a
+    collective; a process that fails ends the others."""
+    env = dict(os.environ if env is None else env, OMP_NUM_THREADS="2")
+    for attempt in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        logs = [open(f"{out}.stderr{k}", "w+") for k in range(n)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", module] + base + extra
+            + ["--out", out + str(k), "--num-shards", str(n), "--shard-id",
+               str(k), "--dist-coordinator", f"127.0.0.1:{port}"],
+            env=env, stdout=subprocess.DEVNULL, stderr=log, text=True)
+            for k, log in enumerate(logs)]
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs) and not any(
+                    p.poll() for p in procs) and time.monotonic() < deadline:
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=30)
+        errs = []
+        for log in logs:
+            log.seek(0)
+            errs.append(log.read())
+            log.close()
+        taken = any("EADDRINUSE" in e or "ddress already in use" in e
+                    for e in errs)
+        if attempt or not taken or not any(p.returncode for p in procs):
+            break
     for p, err in zip(procs, errs):
         assert p.returncode == 0, err[-3000:]
     return errs
@@ -263,7 +292,7 @@ def test_two_processes_write_what_one_writes(tmp_path, case):
     ref = str(tmp_path / "ref")
     assert cli.main(base + ["--out", ref, "--mesh", "none"]) == 0
     dist = str(tmp_path / "dist")
-    errs = _two_processes(base, procs_only, dist)
+    errs = _processes(2, base, procs_only, dist)
     assert "initialized: process 1 of 2" in errs[1]
     assert "gathered to process 0" in errs[1]
     assert not [f for f in os.listdir(tmp_path) if f.startswith("dist1")]
@@ -274,6 +303,126 @@ def test_two_processes_write_what_one_writes(tmp_path, case):
             got = fh.read()
         assert got == want, f"{case}: {ext} differs\n{errs[0][-1500:]}"
         assert len(want.splitlines()) > 5
+
+
+def _read(prefix, ext):
+    with open(prefix + ext) as fh:
+        return fh.read()
+
+
+def test_three_processes_barcode_stripes_write_what_one_writes(tmp_path):
+    """P=3 barcode stripes (tests/test_multihost.py's P=3 case, on its
+    inputs, exact): every barcode's rows are computed whole by the process
+    that owns it, so process 0's .single, .sing2 and .best are
+    byte-identical to one process's, and processes 1 and 2 write none."""
+    from demuxlet_tpu_torch import cli
+
+    base = _workload(tmp_path, "barcode_p3") + ["--mesh", "none"]
+    ref = str(tmp_path / "ref")
+    assert cli.main(base + ["--out", ref]) == 0
+    dist = str(tmp_path / "dist")
+    errs = _processes(3, base, [], dist)
+    assert all("gathered to process 0" in e for e in errs[1:])
+    assert not [f for f in os.listdir(tmp_path)
+                if f.startswith(("dist1.", "dist2."))]
+    for ext in (".single", ".sing2", ".best"):
+        want = _read(ref, ext)
+        assert _read(dist + "0", ext) == want, f"P=3 {ext} differs"
+        assert len(want.splitlines()) > 20
+
+
+def _render_quantum(s: str) -> float:
+    """Smallest rendered step of a printf-formatted number: one unit in
+    the last printed decimal (fixed) or significant (e-notation) digit."""
+    s = s.strip()
+    if "e" in s or "E" in s:
+        mant, _, exp = s.lower().partition("e")
+        dec = len(mant.split(".")[1]) if "." in mant else 0
+        return 10.0 ** (int(exp) - dec)
+    dec = len(s.split(".")[1]) if "." in s else 0
+    return 10.0 ** (-dec)
+
+
+def _assert_rows_close(want_line: str, got_line: str, ctx):
+    """Rendered rows equal up to 1.5 rendering quanta per float field: the
+    P-way shard sum's last-bit reordering may move a printed digit, a
+    merge fault (a shard's contribution lost or doubled) moves many."""
+    cw, cg = want_line.split("\t"), got_line.split("\t")
+    assert len(cw) == len(cg), ctx
+    for a, b in zip(cw, cg):
+        if a == b:
+            continue
+        fa, fb = float(a), float(b)  # a mismatch that is not a float fails
+        tol = 1.5 * max(_render_quantum(a), _render_quantum(b))
+        assert abs(fa - fb) <= tol, (ctx, a, b, tol)
+
+
+def test_four_processes_genome_shards_match_one(tmp_path):
+    """P=4 genome shards (tests/test_multihost.py's P=4 case, on its
+    two-contig inputs, exact): each process sums its quarter of the genome
+    into the reduce-scatter of gather_results_sum_compact, so the LLKs add
+    in another order than one process's. Calls and ids (columns 0, 5, 6,
+    8, 11 and 12 of .best after canonicalize_best) equal one process's;
+    every other field of .single, .sing2 and .best within 1.5 rendering
+    quanta."""
+    from parity_utils import canonicalize_best
+
+    from demuxlet_tpu_torch import cli
+
+    base = _workload(tmp_path, "genome_p4") + ["--mesh", "none"]
+    ref = str(tmp_path / "ref")
+    assert cli.main(base + ["--out", ref]) == 0
+    dist = str(tmp_path / "dist")
+    errs = _processes(4, base, ["--shard-by", "genome"], dist)
+    assert "initialized: process 3 of 4" in errs[3]
+    for ext in (".single", ".sing2", ".best"):
+        want = _read(ref, ext).splitlines()
+        got = _read(dist + "0", ext).splitlines()
+        if ext == ".best":
+            want, got = canonicalize_best(want), canonicalize_best(got)
+        assert len(want) == len(got) > 10, (ext, errs[0][-1500:])
+        for lw, lg in zip(want, got):
+            if lw == lg:
+                continue
+            if ext == ".best":
+                cw, cg = lw.split("\t"), lg.split("\t")
+                for col in (0, 5, 6, 8, 11, 12):
+                    assert cw[col] == cg[col], (ext, lw, lg)
+            _assert_rows_close(lw, lg, (ext, lw[:60]))
+
+
+def _jax_env():
+    """The environment of a JAX CLI process as tests/test_multihost.py
+    gives it (CPU, x64, one host device), XLA's CPU work on one thread."""
+    env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"
+    env["JAX_ENABLE_X64"] = "true"
+    env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=1 "
+                        "--xla_cpu_multi_thread_eigen=false")
+    return env
+
+
+@pytest.mark.parametrize("case", ["barcode_exact", "genome"])
+def test_two_processes_match_two_jax_processes(tmp_path, case):
+    """Two port CLI processes over gloo against two JAX CLI processes over
+    jax.distributed, on the same BAM/VCF in exact mode, barcode stripes
+    (gather_compact) or genome shards (gather_results_sum_compact):
+    process 0's .single and .sing2 byte-identical, .best equal after
+    canonicalize_best."""
+    from parity_utils import canonicalize_best
+
+    both, procs_only, _ = CASES[case]
+    base = _workload(tmp_path, case) + both + ["--mesh", "none"]
+    port, jax = str(tmp_path / "port"), str(tmp_path / "jax")
+    _processes(2, base, procs_only, jax, module="demuxlet_tpu.cli",
+               env=_jax_env(), timeout=300)
+    _processes(2, base, procs_only, port)
+    for ext in (".single", ".sing2"):
+        want = _read(jax + "0", ext)
+        assert _read(port + "0", ext) == want, f"{case}: {ext} differs"
+        assert len(want.splitlines()) > 20
+    assert canonicalize_best(_read(port + "0", ".best").splitlines()) == \
+        canonicalize_best(_read(jax + "0", ".best").splitlines())
 
 
 def test_two_processes_resume_their_own_spool(tmp_path):
@@ -294,9 +443,9 @@ def test_two_processes_resume_their_own_spool(tmp_path):
         return {os.path.join(d, f): os.stat(os.path.join(d, f)).st_ino
                 for d, _, files in os.walk(spool) for f in files}
 
-    _two_processes(base, ["--spool", spool], str(tmp_path / "first"))
+    _processes(2, base, ["--spool", spool], str(tmp_path / "first"))
     written = blocks()
-    _two_processes(base, ["--spool", spool], str(tmp_path / "again"))
+    _processes(2, base, ["--spool", spool], str(tmp_path / "again"))
     assert blocks() == written and len(written) >= 2
     assert sorted(os.listdir(spool)) == ["shard0of2", "shard1of2"]
     for ext in (".single", ".sing2", ".best"):
