@@ -4,7 +4,7 @@
 Drives the port's device paths, fast-mode and exact-mode (the CLI default)
 ``DemuxEngine.run_compact``, the full-tensor ``DemuxEngine.run`` (with
 its spool and its dense route), both on meshes, the multi-process merges
-and the CLI, at the full width of the repo's
+(over gloo and over NCCL) and the CLI, at the full width of the repo's
 realistic configuration (V=8 donors, the 5-point alpha grid, 50,000 SNPs,
 ~1,000 covered SNPs per cell, --cell-block 2048), and both modes on a
 large pool (V=32 donors on the CLI's default grid [0, 0.5], V*V*A = 2048:
@@ -104,13 +104,17 @@ each against its plain PyTorch version on the card. Phases, one line each:
      engine on a 2x1 mesh whose two members are this card: run_compact
      and run() bit-equal to one device's, the route's kernels launched
      once per block summed over the members and every other kernel never,
-     rate, phase seconds and peak device memory beside one device's; exact
-     run() on 1x2 and 2x2 meshes (the dense route split on the slot axis)
-     on the cut pileup of phase 16 within 1e-9 of the unsplit dense run,
+     rate, phase seconds and peak device memory beside one device's, the
+     set-up seconds of the first call beside one device's and the host
+     table builds per wire config (each must be 1: every member's tables
+     are placed from one host build); exact run() on 1x2 and 2x2 meshes
+     (the dense route split on the slot axis) on the cut pileup of phase
+     16 within 1e-9 of the unsplit dense run,
      no kernel launched; with two or more cards the same over
      cuda:0/cuda:1, else a line that says it was not run;
  19. two processes over gloo on 127.0.0.1 (``parallel/multihost.py``),
-     both on this card (``chip_smoke.py --multihost-worker RANK PORT``):
+     both on this card (``chip_smoke.py --multihost-worker RANK PORT
+     PILEUP``, the pileup and genotypes in a file the script writes):
      the pileup's barcode stripes through run_compact + gather_compact
      against the one-process run_compact, its two halves of SNP ids (genome
      shards) through run() + gather_results_sum_compact against
@@ -124,7 +128,27 @@ each against its plain PyTorch version on the card. Phases, one line each:
      ids equal, other fields within 1.5 rendering quanta), the other
      processes' none, and each process's --profile trace names K2' and
      K3'; per process its wall seconds, its merge's seconds and its
-     traced K2' and K3' launches.
+     traced K2' and K3' launches. Both processes drive this card, so their
+     merge keys are equal and every process, worker and CLI, must name
+     the "host" route (gloo on host tensors); the workers also run
+     genome_merges on it (below);
+ 20. the genome-shard reduce-scatter over NCCL (``multihost_nccl``): two
+     processes (``chip_smoke.py --nccl-worker RANK PORT PILEUP``), each with a
+     card of its own as NCCL sees it: its own card through
+     CUDA_VISIBLE_DEVICES where there are two, else this one card with a
+     distinct NCCL_HOSTID a process (NCCL's host hash) and
+     NCCL_SOCKET_IFNAME=lo; each must take the "nccl" route.
+     genome_merges: per pool, exact V=8/A=5 (K2' + K3') and exact
+     V=32/A=2 (K2' + K7' + K6'), each process's genome half of the
+     pileup through run() (its route's kernels once per block, every
+     other kernel never) and gather_results_sum_compact, timed from a
+     barrier, with the bytes reduced (3 chunks of 2 x 4,096 rows at V=8,
+     7 of 2 x 1,510 at V=32); process 0's merged rows bit-equal to the
+     one-process merge (merge_shards_sum of both halves, decided on the
+     card over the same stripes) and within 1e-9 of compact_from_result;
+     the card (name, UUID, environment) of each process; then the CLI as
+     two genome-shard processes so placed, byte-identical to one process,
+     each NOTICE naming the "nccl" route.
 
 Then a JSON line of per-kernel numbers (with each kernel's bound: the
 larger of its operations over the card's peak rate for their type and its
@@ -133,7 +157,7 @@ say), the card's name and power limit, and, last, the ok line. Any failure
 exits non-zero before the ok line. With no CUDA device it exits 1 at once. Nothing of JAX, of the JAX
 package or of oracle/ is imported.
 
-Usage: python3 chip_smoke.py (one card; phases 8 and 19 start their
+Usage: python3 chip_smoke.py (one card; phases 8, 19 and 20 start their
 processes themselves)
 """
 
@@ -1110,7 +1134,14 @@ def drive_mesh(csr, gps, mode, dev, kernels, every, grid, mesh):
                  "device's")
         out[call] = dict(mesh=stats, one_device=want[call][1],
                          launches=named, bit_equal_one_device=True)
-    out["route"] = eng.route
+    # the first call builds the tables: once on the host for every member
+    builds = {f"{kind} {'v1' if cfg is None else 'v2'}": n
+              for (kind, cfg), n in eng.host_table_builds.items()}
+    if not builds or any(n != 1 for n in builds.values()):
+        fail(f"mesh {shape} {mode}: host table builds {builds}")
+    out.update(route=eng.route, host_table_builds=builds, setup_s=dict(
+        mesh=out["run_compact"]["mesh"]["phase_s"]["setup"],
+        one_device=out["run_compact"]["one_device"]["phase_s"]["setup"]))
     return out
 
 
@@ -1160,10 +1191,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_pair(argvs, timeout=600, env=None):
+def run_pair(argvs, timeout=600, env=None, envs=None):
     """Start one process per argument list (from the checkout's root, each
     writing to its own files, so no pipe fills while a peer waits in a
-    collective), wait for all, kill any left at the time limit; returns
+    collective), in the environment env, or envs[k] for process k, wait
+    for all, kill any left at the time limit; returns
     [(rc, stdout, stderr, seconds)], seconds from the start to each
     process's exit."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -1171,9 +1203,10 @@ def run_pair(argvs, timeout=600, env=None):
                   open(os.path.join(tmp, f"{i}.err"), "w+"))
                  for i in range(len(argvs))]
         t0 = time.monotonic()
+        envs = envs or [env] * len(argvs)
         procs = [subprocess.Popen(a, cwd=HERE, stdout=o, stderr=e,
-                                  text=True, env=env)
-                 for a, (o, e) in zip(argvs, files)]
+                                  text=True, env=ev)
+                 for a, (o, e), ev in zip(argvs, files, envs)]
         secs = [None] * len(procs)
         try:
             while None in secs and time.monotonic() - t0 < timeout:
@@ -1196,10 +1229,34 @@ def run_pair(argvs, timeout=600, env=None):
         return out
 
 
-def multihost_worker(rank: int, port: int) -> int:
+def save_pileup(path, csr, gps):
+    """The pileup csr (a CsrPileup) and its genotypes gps in the .npz
+    path, for the process pairs of phases 19 and 20 (``load_pileup``):
+    making the pileup again takes each process about 8 s."""
+    import dataclasses
+
+    np.savez(path, gps=gps, **{f.name: np.asarray(getattr(csr, f.name))
+                               for f in dataclasses.fields(csr)})
+
+
+def load_pileup(path):
+    """(csr, gps) as ``save_pileup`` wrote them."""
+    from demuxlet_tpu_torch.host.csr import CsrPileup
+
+    with np.load(path) as z:
+        f = {k: z[k] for k in z.files}
+    return CsrPileup(
+        sample_ids=[str(x) for x in f.pop("sample_ids")],
+        nsnps=int(f.pop("nsnps")),
+        barcodes=[str(x) for x in f.pop("barcodes")],
+        **{k: v for k, v in f.items() if k != "gps"}), f["gps"]
+
+
+def multihost_worker(rank: int, port: int, pileup: str) -> int:
     """One of the multihost phase's two processes (``chip_smoke.py
-    --multihost-worker RANK PORT``), over gloo on 127.0.0.1:PORT: the
-    pileup of phase 4 made again from its seed; (a) this process's barcode
+    --multihost-worker RANK PORT PILEUP``), over gloo on 127.0.0.1:PORT:
+    the pileup of phase 4 and its genotypes from the .npz PILEUP
+    (``save_pileup``); (a) this process's barcode
     stripe through exact run_compact and gather_compact, (b) its half of
     the SNP ids (a genome shard) through exact run() and both
     gather_results_sum_compact (decided on the card) and
@@ -1217,12 +1274,10 @@ def multihost_worker(rank: int, port: int) -> int:
     from demuxlet_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("auto")
-    mh.initialize(f"127.0.0.1:{port}", 2, rank)
-    rng = np.random.default_rng(1)
-    csr = synth_pileup(rng, N_CELLS)
-    gps = rng.dirichlet(np.ones(3), size=(NSNPS, V))
+    mh.initialize(f"127.0.0.1:{port}", 2, rank, device=dev)
+    csr, gps = load_pileup(pileup)
     eng = DemuxEngine(gps, GRID, cell_block=CELL_BLOCK, device=dev)
-    out = dict(rank=rank, device=str(dev))
+    out = dict(rank=rank, route=mh.current_route(), **card_of(dev))
 
     def counted(fn):
         for k in (k2, k3):
@@ -1296,24 +1351,227 @@ def multihost_worker(rank: int, port: int) -> int:
             fail(f"multihost: {json.dumps(out)}")
     elif merged is not None or summed is not None or full is not None:
         fail("multihost: a gather returned rows on process 1")
+    del eng
+    out["genome_merge"] = genome_merges(csr, gps, rank, dev)
     mh.shutdown()
     print(json.dumps(out), flush=True)
     return 0
 
 
-def drive_multihost():
-    """The multihost phase's process pair: both exit 0, each launched K2'
-    and K3' once per block of its stripe and its genome half; process 0's
-    comparisons held (it fails otherwise). Returns its phase fields."""
+def card_of(dev):
+    """The card a process drives, as its merge key and NCCL see it."""
+    return dict(device=str(dev),
+                device_name=torch.cuda.get_device_name(dev),
+                uuid=str(torch.cuda.get_device_properties(dev).uuid),
+                **{k: os.environ[k] for k in (
+                    "CUDA_VISIBLE_DEVICES", "NCCL_HOSTID",
+                    "NCCL_SOCKET_IFNAME") if k in os.environ})
+
+
+def decided_in_stripes(m, grid, rows, dev):
+    """The one-process merge m (merge_shards_sum) decided on dev over the
+    stripes of ``rows`` rows that a two-process
+    gather_results_sum_compact decides (the last chunk padded with zero
+    rows): the packed (N, 2V+A+11) rows."""
+    from demuxlet_tpu_torch.models import decision as D
+
+    n, nv, _, na = m.llk_ab.shape
+    pad = lambda x: torch.from_numpy(np.concatenate(
+        [x, np.zeros((-n % (2 * rows),) + x.shape[1:], x.dtype)])).to(dev)
+    ab, a00, llks, llk0s = (pad(x) for x in
+                            (m.llk_ab, m.llk_00, m.llks, m.llk0s))
+    dbl_w = torch.as_tensor(D.doublet_weights(nv, grid, 0.5), device=dev)
+    dbl_msk = torch.as_tensor(D.doublet_mask(nv, na), device=dev)
+    packed = []
+    for i in range(0, len(ab), rows):
+        sl = slice(i, i + rows)
+        out = D.decide(ab[sl], a00[sl], dbl_w, dbl_msk, 0.5)
+        packed.append(D.pack_rows(out, llks[sl], llk0s[sl]).cpu().numpy())
+    return np.concatenate(packed)[:n]
+
+
+def genome_merge(eng, csr, rank, grid, dev, kernels):
+    """This process's genome half of csr (SNP ids below or above
+    NSNPS / 2) through eng.run() and gather_results_sum_compact on this
+    process's reduce-scatter route (two processes): the route's kernels
+    launched once per block and every other kernel never; the merge
+    timed from a barrier, with the bytes this process reduces. Process 0
+    then runs the other half too, sums both (merge_shards_sum) and
+    decides them on the card over the same stripes: the merged rows must
+    equal those bit for bit (P = 2: a sum of two terms commutes) and lie
+    within EXACT_TOL of compact_from_result's. Returns the fields."""
+    import torch.distributed as dist
+
+    from demuxlet_tpu_torch.kernels import (
+        extras_exact,
+        extras_fast,
+        front_exact,
+        pair_exact,
+        pair_fast,
+        pair_tiled_exact,
+        pair_tiled_fast,
+    )
+    from demuxlet_tpu_torch.models import decision as D
+    from demuxlet_tpu_torch.models.engine import cell_stats
+    from demuxlet_tpu_torch.parallel import multihost as mh
+
+    every = (pair_fast, front_exact, pair_exact, pair_tiled_exact,
+             extras_exact, pair_tiled_fast, extras_fast)
+    halves = [sub_pileup(csr, snps=(k * NSNPS // 2, (k + 1) * NSNPS // 2))
+              for k in range(2)]
+
+    def local_of(half):
+        for k in every:
+            k.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = eng.run(half)
+        secs = time.monotonic() - t0
+        st = cell_stats(half)
+        return mh.ShardResult(
+            barcodes=st.barcodes, totl=st.totl, pass_=st.pass_,
+            uniq=st.uniq, nsnp=st.nsnp, llks=res.llks, llk0s=res.llk0s,
+            llk_ab=res.llk_ab, llk_00=res.llk_00), secs, {
+                k.__name__.rsplit(".", 1)[1]: k.launches for k in every}
+
+    local, run_s, launched = local_of(halves[rank])
+    n_blocks = len(eng._blocks(halves[rank].nbcs, halves[rank])[0])
+    names = [k.__name__.rsplit(".", 1)[1] for k in kernels]
+    if any(launched[k] != (n_blocks if k in names else 0) for k in launched):
+        fail(f"genome merge: rank {rank} launches {launched} for "
+             f"{n_blocks} blocks of {names}")
+    nv, na = eng.nv, eng.n_alpha
+    F = nv * nv * na + na + nv + 1
+    rows = mh.stripe_rows(2, F)
+    chunks = -(-csr.nbcs // (2 * rows))
+    dist.barrier()
+    t0 = time.monotonic()
+    merged = mh.gather_results_sum_compact(local, grid, 0.5, device=dev)
+    merge_s = time.monotonic() - t0
+    out = dict(samples=nv, alphas=na, cells=csr.nbcs, blocks=n_blocks,
+               launches=launched, run_s=run_s, route=mh.current_route(),
+               merge_s=merge_s, bytes_reduced=chunks * 2 * rows * F * 8,
+               chunks=chunks, stripe_rows=rows)
+    if rank != 0:
+        if merged is not None:
+            fail("genome merge: process 1 returned rows")
+        return out
+    other = local_of(halves[1])[0]
+    m = mh.merge_shards_sum([local, other])
+    got = pack_rows(merged.compact, merged.llks, merged.llk0s)
+    want = decided_in_stripes(m, grid, rows, dev)
+    counters = all(np.array_equal(getattr(merged, f), getattr(m, f))
+                   for f in ("totl", "pass_", "uniq", "nsnp"))
+    bit = bool(merged.barcodes == m.barcodes and counters
+               and np.array_equal(got, want))
+    err, ties = compare_rows(
+        got, pack_rows(D.compact_from_result(m.llk_ab, m.llk_00, grid, 0.5),
+                       m.llks, m.llk0s), nv, na, EXACT_TOL, absolute=True)
+    out.update(bit_equal_one_process=bit,
+               max_abs_err_vs_compact_from_result=err,
+               near_tie_cells_vs_compact_from_result=ties)
+    if not (bit and err <= EXACT_TOL):
+        fail(f"genome merge: {json.dumps(out)}")
+    return out
+
+
+def genome_merges(csr, gps, rank, dev):
+    """genome_merge at V=8/A=5 (K2' + K3') and V=32/A=2 (K2' + K7' +
+    K6'), exact mode, on the pileup csr."""
+    from demuxlet_tpu_torch.kernels import extras_exact as k6
+    from demuxlet_tpu_torch.kernels import front_exact as k2
+    from demuxlet_tpu_torch.kernels import pair_exact as k3
+    from demuxlet_tpu_torch.kernels import pair_tiled_exact as k7
+    from demuxlet_tpu_torch.models.engine import DemuxEngine
+
+    out = []
+    for g, grid, kernels in ((gps, GRID, (k2, k3)),
+                             (gps_large_of(), GRID_LARGE, (k2, k7, k6))):
+        eng = DemuxEngine(g, grid, cell_block=CELL_BLOCK, device=dev)
+        out.append(genome_merge(eng, csr, rank, grid, dev, kernels))
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def gps_large_of():
+    """The V=32 pool's genotypes (phases 10-18)."""
+    return np.random.default_rng(5).dirichlet(np.ones(3),
+                                              size=(NSNPS, V_LARGE))
+
+
+def nccl_worker(rank: int, port: int, pileup: str) -> int:
+    """One of phase 20's two processes (``chip_smoke.py --nccl-worker RANK
+    PORT PILEUP``), each driving a card of its own as NCCL sees it (its
+    own card, or a distinct NCCL_HOSTID on the one card): joins on
+    127.0.0.1:PORT, where the route must be "nccl"; the pileup of phase 4
+    from PILEUP (``save_pileup``); genome_merges. Prints one JSON line."""
+    from demuxlet_tpu_torch.parallel import multihost as mh
+    from demuxlet_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("auto")
+    mh.initialize(f"127.0.0.1:{port}", 2, rank, device=dev)
+    out = dict(rank=rank, route=mh.current_route(), **card_of(dev))
+    if out["route"] != "nccl":
+        fail(f"nccl worker: route {json.dumps(out)}")
+    csr, gps = load_pileup(pileup)
+    out["genome_merge"] = genome_merges(csr, gps, rank, dev)
+    mh.shutdown()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def own_card_envs(n=2):
+    """Per process, the environment that gives it a card of its own as
+    NCCL sees it: its own card where there are n, else, on one card, a
+    distinct NCCL_HOSTID (NCCL's host hash) over sockets on loopback."""
+    if torch.cuda.device_count() >= n:
+        return [dict(os.environ, CUDA_VISIBLE_DEVICES=str(k))
+                for k in range(n)]
+    return [dict(os.environ, NCCL_HOSTID=f"chip-smoke-{k}",
+                 NCCL_SOCKET_IFNAME="lo") for k in range(n)]
+
+
+def drive_nccl(pileup):
+    """Phase 20's process pair on the pileup file ``pileup``, each with a
+    card of its own (own_card_envs): both exit 0 on the "nccl" route,
+    each launched the pools' kernels once per block, process 0's merges
+    bit-equal to the one-process merge (it fails otherwise). Returns its
+    phase fields."""
     port = free_port()
     runs = run_pair([[sys.executable, os.path.abspath(__file__),
-                      "--multihost-worker", str(k), str(port)]
+                      "--nccl-worker", str(k), str(port), pileup]
+                     for k in range(2)], timeout=300, envs=own_card_envs())
+    out = []
+    for rc, stdout, stderr, secs in runs:
+        if rc != 0:
+            fail(f"nccl worker exited {rc}:\n{stderr[-3000:]}")
+        res = json.loads(stdout.strip().splitlines()[-1])
+        if res["route"] != "nccl" or any(
+                p["route"] != "nccl" for p in res["genome_merge"]):
+            fail(f"nccl worker: {json.dumps(res)}")
+        out.append(dict(res, wall_s=secs))
+    return out
+
+
+def drive_multihost(pileup):
+    """The multihost phase's process pair on the pileup file ``pileup``:
+    both exit 0, each launched K2' and K3' once per block of its stripe
+    and its genome half; process 0's comparisons held (it fails
+    otherwise). Returns its phase fields."""
+    port = free_port()
+    runs = run_pair([[sys.executable, os.path.abspath(__file__),
+                      "--multihost-worker", str(k), str(port), pileup]
                      for k in range(2)])
     out = []
     for rc, stdout, stderr, _ in runs:
         if rc != 0:
             fail(f"multihost worker exited {rc}:\n{stderr[-3000:]}")
         res = json.loads(stdout.strip().splitlines()[-1])
+        if res["route"] != "host" or any(
+                p["route"] != "host" for p in res["genome_merge"]):
+            fail(f"multihost: processes on one card took the route "
+                 f"{res['route']}, not host")
         for part in ("stripe", "genome"):
             n = res[part]["blocks"]
             if res[part]["launches"] != dict(k2=n, k3=n) or not n:
@@ -1355,7 +1613,8 @@ def rows_close(want_line, got_line, exact_cols=()):
     return True
 
 
-def cli_procs(base, tmp, name, extra, genome, n=2):
+def cli_procs(base, tmp, name, extra, genome, n=2, route="host",
+              envs=None):
     """The port CLI as n processes (--num-shards n --shard-id k
     --dist-coordinator 127.0.0.1:<port>, each with --profile) against one
     process with the same options: process 0's .single, .sing2 (and .pair)
@@ -1365,7 +1624,9 @@ def cli_procs(base, tmp, name, extra, genome, n=2):
     calls and ids of .best equal (columns 0, 5, 6, 8, 11, 12 after
     canonicalize_best) and every other field of the three files within
     1.5 rendering quanta (the n-way sum adds in another order); the other
-    processes write nothing; each process's trace names K2' and K3'.
+    processes write nothing; each process's trace names K2' and K3';
+    each process's NOTICE names the reduce-scatter's route ``route``;
+    process k runs in the environment envs[k] (None: this one's).
     Returns the phase fields, with each process's wall seconds (start to
     exit), the seconds of its merge and its K2' and K3' launches."""
     import re
@@ -1379,7 +1640,7 @@ def cli_procs(base, tmp, name, extra, genome, n=2):
         + ["--out", os.path.join(tmp, f"{name}{k}"), "--num-shards", str(n),
            "--shard-id", str(k), "--dist-coordinator", f"127.0.0.1:{port}",
            "--profile", os.path.join(tmp, f"{name}_trace{k}")]
-        for k in range(n)])
+        for k in range(n)], envs=envs)
     procs = []
     for k, (rc, _, stderr, secs) in enumerate(runs):
         if rc != 0:
@@ -1388,12 +1649,14 @@ def cli_procs(base, tmp, name, extra, genome, n=2):
         traced = profile_trace_kernels(os.path.join(
             tmp, f"{name}_trace{k}", "torch_trace.json"))
         merge = re.search(r"Merge across \d+ processes: ([0-9.]+)s", stderr)
+        took = re.search(r"reduce-scatter on the (\w+) route", stderr)
         procs.append(dict(process=k, wall_s=secs,
                           merge_s=merge and float(merge.group(1)),
+                          route=took and took.group(1),
                           traced_kernels=traced))
     if not all(p["traced_kernels"].get("K2'")
                and p["traced_kernels"].get("K3'") and p["merge_s"] is not None
-               for p in procs):
+               and p["route"] == route for p in procs):
         fail(f"CLI processes {name}: {procs}")
     if [f for f in os.listdir(tmp) for k in range(1, n)
             if f.startswith(f"{name}{k}.")]:
@@ -1795,8 +2058,7 @@ def main() -> int:
 
     # ---- 10. the exact engine on a large pool: the same pileup scored
     # against 32 donors on the default grid (K2', K7', K6'; never K3')
-    gps_large = np.random.default_rng(5).dirichlet(np.ones(3),
-                                                   size=(NSNPS, V_LARGE))
+    gps_large = gps_large_of()
     fields, counts = drive_engine(csr, gps_large, "exact", dev, [k2, k7, k6],
                                   grid=GRID_LARGE, absent=[k3])
     launches.update(k7=counts[k7], k6=counts[k6])
@@ -1936,9 +2198,11 @@ def main() -> int:
                      "not run")
 
     # ---- 19. two processes over gloo on this card
-    for fields in drive_multihost():
-        phase("multihost", card=card, **fields)
     with tempfile.TemporaryDirectory() as tmp:
+        pileup = os.path.join(tmp, "pileup.npz")
+        save_pileup(pileup, csr, gps)
+        for fields in drive_multihost(pileup):
+            phase("multihost", card=card, **fields)
         base = cli_case(tmp, V, 150, 80)
         for name, extra, genome, n in (
                 ("barcode", [], False, 2),
@@ -1950,6 +2214,15 @@ def main() -> int:
                 ("genome_p4", ["--shard-by", "genome"], True, 4)):
             phase("multihost_cli", card=card,
                   **cli_procs(base, tmp, name, extra, genome, n))
+
+        # ---- 20. the genome-shard reduce-scatter over NCCL, each process
+        # with a card of its own (its own card, or on one card its own
+        # NCCL_HOSTID)
+        for fields in drive_nccl(pileup):
+            phase("multihost_nccl", card=card, cards=n_cards, **fields)
+        phase("multihost_nccl_cli", card=card, cards=n_cards,
+              **cli_procs(base, tmp, "genome_nccl", ["--shard-by", "genome"],
+                          True, route="nccl", envs=own_card_envs()))
 
     def row(key, name, source, replaces):
         s = kstat[key]
@@ -1988,5 +2261,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-worker"]:
-        sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3])))
+        sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                  sys.argv[4]))
+    if sys.argv[1:2] == ["--nccl-worker"]:
+        sys.exit(nccl_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4]))
     sys.exit(main())

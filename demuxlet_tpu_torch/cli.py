@@ -17,7 +17,9 @@ spreads blocks over this process's devices (``parallel/mesh.py``);
 ``--dist-coordinator host:port`` with ``--num-shards N --shard-id k``
 joins N processes over gloo, each taking its barcode stripe or genome
 shard, and process 0 writes the merged outputs
-(``parallel/multihost.py``). ``--device tpu`` fails with a DemuxError;
+(``parallel/multihost.py``); the genome shards' reduce-scatter runs over
+NCCL on the cards when each process has a card of its own, and a NOTICE
+names its route. ``--device tpu`` fails with a DemuxError;
 nothing falls back to another mode.
 """
 
@@ -192,7 +194,7 @@ def _main(args) -> int:
     t_start = time.time()
     grid_alpha = args.alpha if args.alpha else [0.0, 0.5]
     _check_options(args)
-    mesh = None
+    mesh = device = None
     if args.mode != "parity":
         from demuxlet_tpu_torch.utils.device import resolve_device
 
@@ -206,11 +208,13 @@ def _main(args) -> int:
         from demuxlet_tpu_torch.parallel import multihost as mh
 
         pid, n_procs = mh.initialize(
-            args.dist_coordinator, args.num_shards, args.shard_id
+            args.dist_coordinator, args.num_shards, args.shard_id,
+            device=device,
         )
         notice(
-            "torch.distributed (gloo) initialized: process %d of %d (%s)",
-            pid, n_procs, args.dist_coordinator,
+            "torch.distributed initialized: process %d of %d (%s); gathers "
+            "over gloo, the genome-shard reduce-scatter on the %s route",
+            pid, n_procs, args.dist_coordinator, mh.current_route(),
         )
     for tag, name in ((args.tag_group, "group"), (args.tag_UMI, "UMI")):
         if tag and len(tag) != 2:

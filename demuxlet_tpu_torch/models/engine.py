@@ -31,14 +31,16 @@ take K3' or K1.
 Under a mesh (``parallel/mesh.py``, the JAX engine's ``mesh``) block i
 runs on mesh row i mod n_b: the kernel route on the row's first member,
 the dense route split on the slot axis over the row's members. Each
-member has its own tables; ``run_compact`` reads each row's packed rows
-back in one transfer, ``run`` copies each block back on its member's
-stream. Results equal the single-device run's, bit for bit (the slot
-split of the dense route adds partial sums: within 1e-9).
+member has its own tables, placed from one host build per wire config;
+``run_compact`` reads each row's packed rows back in one transfer,
+``run`` copies each block back on its member's stream. Results equal
+the single-device run's, bit for bit (the slot split of the dense route
+adds partial sums: within 1e-9).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
@@ -153,12 +155,13 @@ def _pad_gps(gps: np.ndarray) -> np.ndarray:
     return gps
 
 
-def tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
-    """Device tables from the numpy inputs the JAX engine takes
-    (``DemuxEngine.__init__`` :124-145 and ``_fast_tables`` :429): f32
-    gps and gp0, and the pair/singlet LUTs (``ops/luts.py``) with the
-    A*9 columns deduplicated and, under a wire-v2 config, the rows cut to
-    the run's code dictionary."""
+def host_tables(gps, grid_alpha, cap_bq, wire_cfg) -> DeviceTables:
+    """The fast-mode tables on the host (CPU tensors), from the numpy
+    inputs the JAX engine takes (``DemuxEngine.__init__`` :124-145 and
+    ``_fast_tables`` :429): f32 gps and gp0, and the pair/singlet LUTs
+    (``ops/luts.py``) with the A*9 columns deduplicated and, under a
+    wire-v2 config, the rows cut to the run's code dictionary. ``place``
+    puts them on a device."""
     gps = _pad_gps(gps)
     gp0 = compute_gp0(gps)
     logf = luts.singlet_lut(cap_bq)
@@ -169,12 +172,27 @@ def tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
         w, logf = w[rows], logf[rows]
     w_ext, logf_ext = extend_luts(w[:, list(cols)], logf)
 
-    def dev(x):
-        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32))
 
-    gps_d, gp0_d = dev(gps), dev(gp0)
-    return DeviceTables(gps_d, gp0_d, dev(w_ext), dev(logf_ext), expand,
-                        fast_g_table(gps_d, gp0_d))
+    gps_h, gp0_h = f32(gps), f32(gp0)
+    return DeviceTables(gps_h, gp0_h, f32(w_ext), f32(logf_ext), expand,
+                        fast_g_table(gps_h, gp0_h))
+
+
+def place(tables, device):
+    """A host table set (``host_tables``, ``exact_host_tables``) on
+    ``device``: each tensor copied there, bit for bit; the same tensors on
+    the CPU."""
+    return dataclasses.replace(tables, **{
+        f.name: getattr(tables, f.name).to(device)
+        for f in dataclasses.fields(tables)
+        if isinstance(getattr(tables, f.name), torch.Tensor)})
+
+
+def tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
+    """Fast-mode device tables: ``host_tables`` placed on ``device``."""
+    return place(host_tables(gps, grid_alpha, cap_bq, wire_cfg), device)
 
 
 @dataclass
@@ -188,8 +206,9 @@ class ExactTables:
     cmask: tuple  # C bools: the columns some mixture channel uses
 
 
-def exact_tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
-    """Exact-mode device tables from the numpy inputs the JAX engine takes
+def exact_host_tables(gps, grid_alpha, cap_bq, wire_cfg) -> ExactTables:
+    """Exact-mode tables on the host (CPU tensors; ``place`` puts them on
+    a device) from the numpy inputs the JAX engine takes
     (``_exact_tables`` :503 and ``pallas_pair_exact.split_tables`` :1166),
     in the log domain and f64:
 
@@ -232,10 +251,17 @@ def exact_tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
     g[:ns, 3 * nv :] = gp0
     g[ns, 0 : 3 * nv + 3 : 3] = 1.0
     return ExactTables(
-        torch.as_tensor(np.ascontiguousarray(g.T), device=device),
-        torch.as_tensor(np.ascontiguousarray(logc[:, cols]), device=device),
+        torch.as_tensor(np.ascontiguousarray(g.T)),
+        torch.as_tensor(np.ascontiguousarray(logc[:, cols])),
         expand, gsel, cmask,
     )
+
+
+def exact_tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
+    """Exact-mode device tables: ``exact_host_tables`` placed on
+    ``device``."""
+    return place(exact_host_tables(gps, grid_alpha, cap_bq, wire_cfg),
+                 device)
 
 
 def _h2d(x, device):
@@ -346,7 +372,11 @@ class DemuxEngine:
         self._grid = mesh if mesh is not None else pmesh.Mesh(((device,),))
         self._dense_step = pmesh.build_sharded_step(
             self._grid, self.n_alpha, slot_chunk=slot_chunk, dtype=dtype)
-        # device tables, one set per mesh member (row, s)
+        # host tables, built once per (kind, wire config) and counted
+        # there; device tables, one set per mesh member (row, s), placed
+        # from them
+        self._host = {}
+        self.host_table_builds = {}
         self._tables = {}
         self._tables_v2 = {}
         self._exact = {}
@@ -405,6 +435,8 @@ class DemuxEngine:
             self._wire_cfg = cfg
             self._tables_v2 = {}
             self._exact_v2 = {}
+            self._host = {k: v for k, v in self._host.items()
+                          if k[1] is None}
             self._wire_reg = {}
         return self._wire_cfg
 
@@ -523,14 +555,33 @@ class DemuxEngine:
         """The device of mesh member (row, s)."""
         return self._grid.devices[member[0]][member[1]]
 
+    def _host_tables(self, kind, cfg=None):
+        """The host build of one kind of tables ("fast", "exact" or
+        "dense") for wire config cfg, made once and counted in
+        ``host_table_builds``; every mesh member's tables are placed from
+        it (the JAX engine's cached LUTs, which its mesh ``replicate``s)."""
+        key = (kind, cfg)
+        if key not in self._host:
+            if kind == "dense":
+                self._host[key] = tuple(
+                    torch.as_tensor(x, dtype=self.dtype) for x in
+                    (self.gps, self.gp0, luts.singlet_lut(self.cap_bq),
+                     luts.pair_lut(self.grid_alpha, self.cap_bq)))
+            else:
+                build = host_tables if kind == "fast" else exact_host_tables
+                self._host[key] = build(self.gps, self.grid_alpha,
+                                        self.cap_bq, cfg)
+            self.host_table_builds[key] = \
+                self.host_table_builds.get(key, 0) + 1
+        return self._host[key]
+
     def _fast_tables(self, cfg=None, member=(0, 0)) -> DeviceTables:
         """Device tables for the run on a mesh member (cached per wire
         config and member)."""
         cache = self._tables if cfg is None else self._tables_v2
         if member not in cache:
-            cache[member] = tables_from_numpy(
-                self.gps, self.grid_alpha, self.cap_bq, cfg,
-                self._member(member))
+            cache[member] = place(self._host_tables("fast", cfg),
+                                  self._member(member))
         return cache[member]
 
     def _exact_tables(self, cfg=None, member=(0, 0)) -> ExactTables:
@@ -538,9 +589,8 @@ class DemuxEngine:
         per wire config and member)."""
         cache = self._exact if cfg is None else self._exact_v2
         if member not in cache:
-            cache[member] = exact_tables_from_numpy(
-                self.gps, self.grid_alpha, self.cap_bq, cfg,
-                self._member(member))
+            cache[member] = place(self._host_tables("exact", cfg),
+                                  self._member(member))
         return cache[member]
 
     def _row_tables(self, cfg):
@@ -650,10 +700,8 @@ class DemuxEngine:
         ``_logf_dev``, ``_w_dev``)."""
         if member not in self._dense:
             self._dense[member] = tuple(
-                torch.as_tensor(x, dtype=self.dtype,
-                                device=self._member(member))
-                for x in (self.gps, self.gp0, luts.singlet_lut(self.cap_bq),
-                          luts.pair_lut(self.grid_alpha, self.cap_bq)))
+                x.to(self._member(member))
+                for x in self._host_tables("dense"))
         return self._dense[member]
 
     def _run_block(self, blk: SlotBlock, row: int = 0):

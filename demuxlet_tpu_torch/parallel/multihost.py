@@ -14,12 +14,27 @@ first-class:
      ``gather_results_sum``), sorted by barcode to reproduce the
      reference's std::map output order (cmd_cram_demuxlet.cpp:472,576).
 
-The process group is gloo's, and every collective moves host (CPU)
-tensors, as the JAX package's ``process_allgather`` moves host arrays:
-gloo lets several processes share one card, which NCCL does not, and the
-merges are host work. The decision pass of the genome-shard merge still
-runs on each process's device. The merges are pure (arrays in, arrays
-out) and equal their one-process form: one process merges its own shard.
+The JAX package runs two kinds of collective. Its gathers
+(``mhu.process_allgather``) move host arrays; the genome-shard merge's
+reduce-scatter (``lax.psum_scatter`` over a mesh of each process's lead
+device) and the decision after it run on the devices. The port does the
+same. The default process group is gloo's, and every gather moves host
+(CPU) tensors over it. The reduce-scatter takes one of two routes, which
+``initialize`` decides once from every process's merge key
+(``merge_key``, ``merge_route``):
+
+  * ``nccl``: every process drives a card and no two share one (by
+    NCCL's own test: the host, or ``NCCL_HOSTID`` where it is set, and
+    the card's UUID). The LLK chunks go to the card and are reduced over
+    an NCCL group into device tensors, which the decision pass reads
+    where they lie;
+  * ``host``: any process on the CPU, or two on one card (which NCCL
+    refuses). The chunks are reduced over gloo as host tensors, then
+    copied to the device for the decision pass.
+
+Nothing falls back: an NCCL error fails the run. The merges are pure
+(arrays in, arrays out) and equal their one-process form: one process
+merges its own shard.
 
 ``owns_barcode``, ``shard_filter``, ``ShardResult``, ``merge_shards``,
 ``CompactShard``, ``merge_compact_shards``, ``merge_shards_sum``,
@@ -31,6 +46,8 @@ so one Python function defines it.
 
 from __future__ import annotations
 
+import os
+import socket
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -43,24 +60,69 @@ from demuxlet_tpu_torch.host.pileup import _owns
 # the most bytes of one chunk of gather_results_sum_compact's reduce-scatter
 _MAX_CHUNK_BYTES = 48 << 20
 
+# the joined group's reduce-scatter route: (route, NCCL group or None,
+# the device the chunks are reduced on); set by initialize
+_merge = ("host", None, torch.device("cpu"))
+
+
+def merge_key(device: Optional[torch.device]) -> str:
+    """This process's merge key: "cpu" unless ``device`` is a card; for a
+    card, the host (``NCCL_HOSTID`` if set, else the hostname) and the
+    card's UUID, the pair NCCL tells ranks' devices apart by."""
+    if device is None or torch.device(device).type != "cuda":
+        return "cpu"
+    host = os.environ.get("NCCL_HOSTID") or socket.gethostname()
+    return f"{host}/{torch.cuda.get_device_properties(device).uuid}"
+
+
+def merge_route(keys: Sequence[str]) -> str:
+    """The reduce-scatter's route from every process's ``merge_key``:
+    "nccl" when every process drives a card and no two keys are equal,
+    else "host"."""
+    keys = list(keys)
+    if "cpu" not in keys and len(set(keys)) == len(keys):
+        return "nccl"
+    return "host"
+
 
 def initialize(
-    coordinator_address: str, num_processes: int, process_id: int
+    coordinator_address: str, num_processes: int, process_id: int,
+    device: Optional[torch.device] = None,
 ) -> tuple[int, int]:
     """Join the gloo process group at ``tcp://<coordinator_address>``
-    (host:port) as process ``process_id`` of ``num_processes``. Returns
+    (host:port) as process ``process_id`` of ``num_processes``, this
+    process driving ``device`` (None: the CPU); then all-gather the merge
+    keys and decide the reduce-scatter's route (``merge_route``), joining
+    an NCCL group on every process when it is "nccl". Returns
     (process_id, n_processes)."""
+    global _merge
     dist.init_process_group(
         "gloo", init_method=f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id,
     )
+    keys = [None] * num_processes
+    dist.all_gather_object(keys, merge_key(device))
+    if merge_route(keys) == "nccl":
+        _merge = ("nccl", dist.new_group(backend="nccl"),
+                  torch.device(device))
+    else:
+        _merge = ("host", None, torch.device("cpu"))
     return process_index(), process_count()
 
 
+def current_route() -> str:
+    """The route ``initialize`` chose for the reduce-scatter: "nccl" or
+    "host" ("host" outside a process group)."""
+    return _merge[0]
+
+
 def shutdown() -> None:
-    """Leave the process group, if this process joined one."""
+    """Leave the process group (and the NCCL group), if this process
+    joined one."""
+    global _merge
     if dist.is_initialized():
         dist.destroy_process_group()
+    _merge = ("host", None, torch.device("cpu"))
 
 
 def process_count() -> int:
@@ -346,6 +408,14 @@ def merge_shards_sum(shards: Sequence[ShardResult]) -> ShardResult:
     return out
 
 
+def stripe_rows(nproc: int, F: int) -> int:
+    """RS, the rows of one process's stripe in each chunk of
+    gather_results_sum_compact's reduce-scatter of an (N, F) f64 matrix
+    over nproc processes: a chunk of nproc * RS rows holds at most
+    _MAX_CHUNK_BYTES, and RS stays within [16, 4096]."""
+    return max(16, min(4096, _MAX_CHUNK_BYTES // max(nproc * F * 8, 1)))
+
+
 def gather_results_sum_compact(
     local: ShardResult,
     grid_alpha: Sequence[float],
@@ -360,14 +430,20 @@ def gather_results_sum_compact(
 
       1. all-gather barcode NAMES + integer counters (O(n) bytes) and
          derive the global sorted barcode order on every process;
-      2. reduce-scatter (gloo, host tensors) of the barcode-aligned
-         (N, V*V*A + A + V + 1) f64 LLK matrix, in chunks of P stripes of
-         RS rows (RS sized by _MAX_CHUNK_BYTES): each process
-         ends holding the SUMMED stripe of 1/P of the barcodes;
+      2. reduce-scatter of the barcode-aligned (N, V*V*A + A + V + 1)
+         f64 LLK matrix, in chunks of P stripes of RS rows
+         (``stripe_rows``): each process ends holding the SUMMED stripe
+         of 1/P of the barcodes. JAX runs it on the devices
+         (``lax.psum_scatter``); so does the port on the "nccl" route
+         (each chunk copied to ``device`` from pinned memory, reduced
+         over NCCL into a device tensor), while the "host" route reduces
+         host tensors over gloo and copies each stripe to ``device``
+         (``initialize`` chose the route);
       3. the decision pass (models/decision.decide, the multi-host analog
          of cmd_cram_demuxlet.cpp:713-828) runs on ``device`` per stripe,
          packing compact rows;
-      4. ONE all-gather of the (N/P, 2V+A+11) compact stripes.
+      4. ONE all-gather of the (N/P, 2V+A+11) compact stripes, host
+         arrays over gloo, as JAX's ``process_allgather``.
 
     Merged CompactShard on process 0, None elsewhere. Output order and
     values match gather_results_sum + compact_from_result; the P-way sum
@@ -416,7 +492,7 @@ def gather_results_sum_compact(
 
     # barcode-aligned local LLK matrix (zeros where this shard has no row)
     F = V * V * A + A + V + 1
-    RS = max(16, min(4096, _MAX_CHUNK_BYTES // max(nproc * F * 8, 1)))
+    RS = stripe_rows(nproc, F)
     CH = nproc * RS
     n_chunks = max(1, -(-max(N, 1) // CH))
     N_pad = n_chunks * CH
@@ -432,11 +508,15 @@ def gather_results_sum_compact(
     dbl_w = torch.as_tensor(D.doublet_weights(V, grid_alpha, doublet_prior),
                             device=device)
     dbl_msk = torch.as_tensor(D.doublet_mask(V, A), device=device)
+    _, group, where = _merge
     my_stripes = []
     for c in range(n_chunks):
         chunk = torch.from_numpy(loc[c * CH : (c + 1) * CH])
-        y = torch.empty((RS, F), dtype=torch.float64)
-        dist.reduce_scatter_tensor(y, chunk, op=dist.ReduceOp.SUM)
+        if where.type == "cuda":
+            chunk = chunk.pin_memory().to(where, non_blocking=True)
+        y = torch.empty((RS, F), dtype=torch.float64, device=where)
+        dist.reduce_scatter_tensor(y, chunk, op=dist.ReduceOp.SUM,
+                                   group=group)
         y = y.to(device)
         o = V * V * A
         out = D.decide(y[:, :o].reshape(RS, V, V, A), y[:, o : o + A],

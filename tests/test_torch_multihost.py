@@ -2,7 +2,9 @@
 multihost.py``) on the CPU: the copied helpers and merges against the JAX
 module's on the same seeded shards, the ingest's barcode stripe against
 the JAX owns_barcode, each gather with one process against its merge,
-gather_results_sum_compact over several chunks in two processes, and two,
+gather_results_sum_compact over several chunks in two processes, the
+reduce-scatter's route rule and its host route in two and three
+processes on the CPU, and two,
 three and four CLI processes joined over gloo on localhost, whose process
 0 writes what one process writes, as tests/test_multihost.py holds the
 JAX CLI; and two port processes against two JAX CLI processes on the same
@@ -15,6 +17,7 @@ import socket
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -560,4 +563,128 @@ def test_two_processes_sum_compact_over_several_chunks(tmp_path):
         else:
             np.testing.assert_array_equal(g, w, err_msg=f.name)
     want.compact = got.compact
+    _assert_same(got, want)
+
+
+# ------------------------------------------------ the reduce-scatter route
+@pytest.mark.parametrize("hostids,uuids,route", [
+    # one card per process: two cards of one host, or one card that
+    # distinct NCCL_HOSTIDs show NCCL as two hosts' cards
+    ((None, None), ("GPU-0", "GPU-1"), "nccl"),
+    (("node0", "node1"), ("GPU-0", "GPU-0"), "nccl"),
+    ((None, None, None), ("GPU-0", "GPU-1", "GPU-2"), "nccl"),
+    # two processes on one card, seen as NCCL sees them
+    ((None, None), ("GPU-0", "GPU-0"), "host"),
+    (("node0", "node0"), ("GPU-0", "GPU-0"), "host"),
+    ((None, None, None), ("GPU-0", "GPU-1", "GPU-0"), "host"),
+    # any process on the CPU
+    ((None, None), (None, "GPU-0"), "host"),
+    ((None, None), (None, None), "host"),
+])
+def test_merge_route_rule(monkeypatch, hostids, uuids, route):
+    """merge_route of the processes' merge_keys: "nccl" exactly when every
+    process drives a card and no two share a key (the host, NCCL_HOSTID
+    where set, and the card's UUID); each key as merge_key makes it in
+    that process's environment."""
+    keys = []
+    for hostid, uuid in zip(hostids, uuids):
+        if hostid is None:
+            monkeypatch.delenv("NCCL_HOSTID", raising=False)
+        else:
+            monkeypatch.setenv("NCCL_HOSTID", hostid)
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda dev, u=uuid: types.SimpleNamespace(uuid=u))
+        keys.append(tmh.merge_key(
+            torch.device("cpu") if uuid is None else torch.device("cuda", 0)))
+    if uuids[0] is not None and hostids[0] is None:
+        assert keys[0] == f"{socket.gethostname()}/{uuids[0]}"
+    assert tmh.merge_key(None) == "cpu"
+    assert tmh.merge_route(keys) == route
+
+
+_ROUTE_WORKER = """
+import dataclasses
+import sys
+import numpy as np
+import torch
+from demuxlet_tpu_torch.parallel import multihost as mh
+rank, n, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+src, dst = sys.argv[4], sys.argv[5]
+mh.initialize(f"127.0.0.1:{port}", n, rank, device=torch.device("cpu"))
+assert mh.current_route() == "host", mh.current_route()
+z = np.load(src.format(rank))
+local = mh.ShardResult(barcodes=[str(b) for b in z["barcodes"]],
+                       **{f: z[f] for f in z.files if f != "barcodes"})
+got = mh.gather_results_sum_compact(local, %r, 0.5, torch.device("cpu"))
+mh.shutdown()
+assert mh.current_route() == "host"
+if rank == 0:
+    c = got.compact
+    np.savez(dst, barcodes=np.asarray(got.barcodes),
+             **{f: getattr(got, f) for f in
+                ("totl", "pass_", "uniq", "nsnp", "llks", "llk0s")},
+             **{"c_" + f.name: getattr(c, f.name)
+                for f in dataclasses.fields(c)})
+else:
+    assert got is None
+"""
+
+
+@pytest.mark.parametrize("n_procs", [2, 3])
+def test_processes_on_the_cpu_reduce_on_the_host_route(tmp_path, n_procs):
+    """gather_results_sum_compact in 2 and 3 processes that initialize on
+    the CPU: the route is "host" (every merge key is "cpu"), the one code
+    path reduces on the CPU as the route's device, and process 0's merge
+    equals the JAX merge_shards_sum + compact_from_result of the same
+    genome shards (calls, ids and counters exact, the decision's floats
+    within 1e-12 relative); at P=2 it equals, bit for bit, the port's
+    decide over the same stripes of merge_shards_sum."""
+    shards = _shards(9, n_shards=n_procs, overlap=True, n_cells=60)
+    for k, (t, _) in enumerate(shards):
+        np.savez(tmp_path / f"shard{k}.npz",
+                 barcodes=np.asarray(t.barcodes),
+                 **{f.name: getattr(t, f.name)
+                    for f in dataclasses.fields(t) if f.name != "barcodes"})
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dst = str(tmp_path / "merged.npz")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _ROUTE_WORKER % (GRID,), str(k),
+         str(n_procs), str(port), str(tmp_path / "shard{}.npz"), dst],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for k in range(n_procs)]
+    try:
+        errs = [p.communicate(timeout=120)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    z = np.load(dst)
+    got = tmh.CompactShard(
+        barcodes=[str(b) for b in z["barcodes"]],
+        **{f: z[f] for f in ("totl", "pass_", "uniq", "nsnp", "llks",
+                             "llk0s")},
+        compact=TD.CompactResult(
+            **{f[2:]: z[f] for f in z.files if f.startswith("c_")}))
+    if n_procs == 2:
+        merged = tmh.merge_shards_sum([t for t, _ in shards])
+        F = V * V * A + A + V + 1
+        _assert_same(got, _decided_in_stripes(
+            merged, tmh.stripe_rows(n_procs, F)))
+    want = _compact(jmh.merge_shards_sum([j for _, j in shards]), "jax")
+    for f in ("llks", "llk0s"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=1e-12, atol=0, err_msg=f)
+    for f in dataclasses.fields(want.compact):
+        g, w = getattr(got.compact, f.name), getattr(want.compact, f.name)
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-12, atol=0,
+                                       err_msg=f.name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f.name)
+    want.compact, want.llks, want.llk0s = got.compact, got.llks, got.llk0s
     _assert_same(got, want)

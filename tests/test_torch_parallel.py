@@ -2,7 +2,8 @@
 CPU: the slot-axis step against the JAX sharded step on the 8 virtual CPU
 devices of tests/conftest.py, ``make_mesh`` and ``pad_to_mesh`` against
 JAX's, the engine under a mesh of CPU members against the engine on one
-device, and the CLI's ``--mesh`` against ``--mesh none`` and the JAX
+device (its host tables built once per wire config and placed on every
+member), and the CLI's ``--mesh`` against ``--mesh none`` and the JAX
 CLI's ``--mesh 2x2``."""
 
 import os
@@ -275,3 +276,60 @@ def test_cli_mesh_2x2_matches_jax_cli(cli_base):
     assert got[".single"] == want[".single"]
     assert got[".sing2"] == want[".sing2"]
     assert canonicalize_best(got[".best"]) == canonicalize_best(want[".best"])
+
+
+def _tables_of(eng):
+    """Every table set the engine placed: {(kind, member): tensors}."""
+    out = {}
+    for kind, caches in (("fast", (eng._tables, eng._tables_v2)),
+                         ("exact", (eng._exact, eng._exact_v2)),
+                         ("dense", (eng._dense,))):
+        for cache in caches:
+            for member, tab in cache.items():
+                out[kind, member] = (
+                    tab if isinstance(tab, tuple) else
+                    tuple(getattr(tab, f) for f in tab.__dataclass_fields__))
+    return out
+
+
+def _same_tables(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(y, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        else:
+            assert x == y
+
+
+@pytest.mark.parametrize("mode,pool,n_b,n_s", [
+    ("exact", "unrolled", 2, 1), ("fast", "unrolled", 2, 1),
+    ("exact", "tiled", 2, 1), ("fast", "tiled", 2, 1),
+    ("exact", "unrolled", 2, 2)])
+def test_mesh_builds_host_tables_once(pools, mode, pool, n_b, n_s):
+    """On 2x1 and 2x2 CPU meshes, run_compact and run() build each kind
+    of host table once per wire config (``host_table_builds``), and every
+    member's tables equal one device's bit for bit: the kernel route's
+    on each row's first member, the dense route's (2x2, the slot axis)
+    on every member."""
+    spec, gps = pools[pool]
+    V, grid = POOLS[pool]
+    dense = n_s > 1
+    one = TE.DemuxEngine(gps, grid, cell_block=8, mode=mode, device=CPU,
+                         exact_kernel="xla" if dense else "auto")
+    eng = TE.DemuxEngine(gps, grid, cell_block=8, mode=mode,
+                         mesh=_cpu_mesh(n_b, n_s))
+    for e in (one, eng):
+        if not dense:
+            e.run_compact(_csr(spec), 0.5)
+        e.run(_csr(spec))
+    cfg = eng._wire_cfg
+    kind = "dense" if dense else mode
+    assert eng.host_table_builds == {(kind, None if dense else cfg): 1}
+    assert one.host_table_builds == eng.host_table_builds
+    want = _tables_of(one)[kind, (0, 0)]
+    placed = _tables_of(eng)
+    members = [(r, s) for r in range(n_b) for s in range(n_s if dense
+                                                          else 1)]
+    assert sorted(placed) == [(kind, m) for m in members]
+    for m in members:
+        _same_tables(placed[kind, m], want)
