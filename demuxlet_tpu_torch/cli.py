@@ -166,16 +166,21 @@ def _load_table(args, genome_regions=None):
 
 
 def _profiler(args, device):
-    """torch.profiler over the device passes under --profile (CPU and
-    CUDA activities on the card, CPU on the CPU), else a null context."""
+    """torch.profiler over the device passes, ``cell_stats`` and the
+    output writes under --profile (CPU and CUDA activities on the card,
+    CPU on the CPU; every thread's ranges, so the engine's prefetch
+    threads' prep spans too, where this torch records them), else a null
+    context."""
     if not args.profile:
         return contextlib.nullcontext()
     from torch.profiler import ProfilerActivity, profile
 
+    from demuxlet_tpu_torch.utils.spans import profiler_config
+
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    return profile(activities=acts)
+    return profile(activities=acts, experimental_config=profiler_config())
 
 
 def main(argv=None) -> int:
@@ -278,33 +283,47 @@ def _main(args) -> int:
     if args.mode == "parity":
         return _run_parity(args, scl, table, grid_alpha, t_start)
 
-    from demuxlet_tpu_torch.models import outputs as out_mod
-    from demuxlet_tpu_torch.models.engine import cell_stats
-
     # the compact device decision pass unless the full tensors are needed
     # (the .pair file, the spool, a shard's partial LLKs) or the engine
     # takes the dense route, which has no compact step
     use_compact = (not args.write_pair and not args.spool
                    and genome_regions is None and eng.dense_reason is None)
-    t_eng = time.time()
-    compact = res = None
     with _profiler(args, device) as prof:
-        if use_compact:
-            llks, llk0s, compact = eng.run_compact(scl, args.doublet_prior)
-        else:
-            res = eng.run(scl, spool_dir=_spool_dir(args))
-            llks, llk0s = res.llks, res.llk0s
-        if prof is not None and device.type == "cuda":
-            for dev in ({d for row in mesh.devices for d in row}
-                        if mesh is not None else (device,)):
-                torch.cuda.synchronize(dev)
-    t_eng_done = time.time()
-    notice("Route: %s, %s", "run_compact" if use_compact else "run", eng.route)
+        wrote = _demux(args, eng, scl, table, grid_alpha, use_compact, mesh,
+                       device, n_procs, genome_regions, prof)
     if prof is not None:
         os.makedirs(args.profile, exist_ok=True)
         path = os.path.join(args.profile, "torch_trace.json")
         prof.export_chrome_trace(path)
         notice("Profiler trace written to %s", path)
+    if wrote:
+        notice("Total wall-clock time: %.3fs", time.time() - t_start)
+    return 0
+
+
+def _demux(args, eng, scl, table, grid_alpha, use_compact, mesh, device,
+           n_procs, genome_regions, prof):
+    """The device passes, ``cell_stats``, the merge across processes and
+    the output writes: True once this process has written the outputs,
+    False on a process whose results went to process 0."""
+    import torch
+
+    from demuxlet_tpu_torch.models import outputs as out_mod
+    from demuxlet_tpu_torch.models.engine import cell_stats
+
+    t_eng = time.time()
+    compact = res = None
+    if use_compact:
+        llks, llk0s, compact = eng.run_compact(scl, args.doublet_prior)
+    else:
+        res = eng.run(scl, spool_dir=_spool_dir(args))
+        llks, llk0s = res.llks, res.llk0s
+    if prof is not None and device.type == "cuda":
+        for dev in ({d for row in mesh.devices for d in row}
+                    if mesh is not None else (device,)):
+            torch.cuda.synchronize(dev)
+    t_eng_done = time.time()
+    notice("Route: %s, %s", "run_compact" if use_compact else "run", eng.route)
     if scl.nbcs:
         notice(
             "Device passes: %.2fs (%.0f barcodes/s, mode=%s, device=%s)",
@@ -323,7 +342,7 @@ def _main(args) -> int:
             notice("%sShard %d: results gathered to process 0",
                    "Genome " if genome_regions is not None else "",
                    args.shard_id)
-            return 0
+            return False
         stats, llks, llk0s, compact, res = merged
     filt = dict(
         min_total=args.min_total, min_uniq=args.min_uniq, min_snp=args.min_snp
@@ -346,8 +365,7 @@ def _main(args) -> int:
                 args.doublet_prior, s2, sb, wpair, **filt,
             )
     notice("Finished writing output files")
-    notice("Total wall-clock time: %.3fs", time.time() - t_start)
-    return 0
+    return True
 
 
 def _gather(args, stats, llks, llk0s, compact, res, grid_alpha, genome,

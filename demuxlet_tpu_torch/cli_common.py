@@ -233,8 +233,9 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         metavar="DIR",
         help=(
-            "Write a torch.profiler trace of the device passes to "
-            "DIR/torch_trace.json"
+            "Write a torch.profiler trace of the device passes, the "
+            "per-cell statistics and the output writes, every thread's "
+            "spans included, to DIR/torch_trace.json"
         ),
     )
     g.add_argument(

@@ -43,7 +43,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -63,9 +62,15 @@ from demuxlet_tpu_torch.ops.front_exact import exact_block
 from demuxlet_tpu_torch.ops.pair import dedup_channels, extend_luts, unrolled
 from demuxlet_tpu_torch.ops.pair_exact import takes_k3
 from demuxlet_tpu_torch.parallel import mesh as pmesh
+from demuxlet_tpu_torch.utils.spans import span
 
 MODES = ("exact", "fast")
 EXACT_KERNELS = ("auto", "pallas", "xla")
+# a run's phase_s keys, each the summed seconds of its span (utils/spans):
+# set-up and the parts the benchmark reads, prep (thread-summed),
+# prep_wait, dispatch and fetch; the other spans are on the trace only
+PHASES = ("setup", "setup.nsnp", "setup.wire_cfg", "setup.tables", "prep",
+          "prep_wait", "dispatch", "fetch")
 
 
 def compute_gp0(gps: np.ndarray) -> np.ndarray:
@@ -286,6 +291,7 @@ def _nbytes(*bufs):
 
 
 class DemuxEngine:
+    @span("engine_init")
     def __init__(
         self,
         gps: np.ndarray,  # (nsnps, nv, 3) float64
@@ -389,6 +395,17 @@ class DemuxEngine:
         self._wire_cfg = None
         self._wire_reg = {}
         self._wire_reg_lock = threading.Lock()
+        self._reset_accounting()
+
+    def _reset_accounting(self):
+        """A run's accounting, zeroed at its start: ``h2d_bytes``,
+        ``d2h_bytes``, ``phase_s`` (``PHASES``) and ``counts``: the slots
+        of its blocks as shipped, padded cells times padded slots
+        (slots_kernel)."""
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        self.phase_s = dict.fromkeys(PHASES, 0.0)
+        self.counts = dict(slots_kernel=0)
 
     def _sym_a(self):
         """Index of alpha == 0.5 in the grid (the (j,k)-symmetric doublet
@@ -396,27 +413,21 @@ class DemuxEngine:
         return (self.grid_alpha.index(0.5)
                 if 0.5 in self.grid_alpha else None)
 
-    def _wire_cfg_for(self, scl):
+    def _wire_cfg_for(self, scl, acct=None):
         """The run's wire-v2 config, or None when the packed wire does
         not apply (cap-BQ > 126 breaks the u8 code bytes; dict-based
         pileups lack the CSR arrays). Cached per pileup; recomputing
         invalidates the dict LUT caches. DEMUX_TPU_WIRE=v1 forces the
-        round-4 format."""
+        round-4 format. A run's set-up passes its ``phase_s`` as acct:
+        the two passes over the observations a new pileup takes are the
+        spans setup.nsnp (``n_snps_all``) and setup.wire_cfg
+        (``choose_cfg``); a cached config takes neither."""
         if (
             self.cap_bq > 126
             or not hasattr(scl, "cell_ptr")
             or os.environ.get("DEMUX_TPU_WIRE", "v2") == "v1"
         ):
             return None
-        # u16 fix/tail positions bound the slot axis: if ANY block could
-        # pad past 65535 slots, disable v2 for the whole RUN (uniform
-        # wire form)
-        if hasattr(scl, "n_snps_all"):
-            smax = int(np.max(scl.n_snps_all(), initial=0))
-            # conservative pow2 bucket: coverage-sorted blocking pads
-            # slot axes to powers of two
-            if _bucket(max(smax, 1), minimum=128) > 0xFFFF:
-                return None
         # the cfg cache rides ON the pileup (an id(scl)-keyed engine
         # cache could serve a stale dictionary to a different pileup
         # allocated at a reused address)
@@ -424,9 +435,20 @@ class DemuxEngine:
         if cache is not None and cache[0] == self.cap_bq:
             cfg = cache[1]
         else:
+            # u16 fix/tail positions bound the slot axis: if ANY block
+            # could pad past 65535 slots, disable v2 for the whole RUN
+            # (uniform wire form); such a pileup is never cached
+            if hasattr(scl, "n_snps_all"):
+                with span("setup.nsnp", acct):
+                    smax = int(np.max(scl.n_snps_all(), initial=0))
+                # conservative pow2 bucket: coverage-sorted blocking pads
+                # slot axes to powers of two
+                if _bucket(max(smax, 1), minimum=128) > 0xFFFF:
+                    return None
             from demuxlet_tpu_torch.host.wire import choose_cfg
 
-            cfg = choose_cfg(scl, self.cap_bq)
+            with span("setup.wire_cfg", acct):
+                cfg = choose_cfg(scl, self.cap_bq)
             try:
                 scl._wire_cfg_cache = (self.cap_bq, cfg)
             except AttributeError:
@@ -660,23 +682,30 @@ class DemuxEngine:
     def _ship(self, codes, idx, msk, cfg, dev):
         """One prepped block to device dev, in the form the fronts take:
         returns ((codes, idx, msk) tensors, wire meta or None); counts
-        ``h2d_bytes``."""
-        wire = None
-        if msk is None and isinstance(idx, tuple) and isinstance(idx[0], str):
-            wire, idx = idx, None  # v2 packed wire: codes IS the buffer
-        elif msk is None and isinstance(idx, tuple):
-            codes, wire = _to_wire(codes, idx)
-            idx = None
-        # with a v2 cfg active the run's LUTs are the dict-narrowed
-        # tables: a v1-form block would be scored against the wrong
-        # rows. _wire_cfg_for's run-level gate makes mixing
-        # unreachable; fail loudly if it ever is not.
-        if cfg is not None and (wire is None or wire[0] != "w2"):
-            raise RuntimeError("v1-form block in a wire-v2 run")
-        self.h2d_bytes += _nbytes(codes, idx, msk)
-        return (_h2d(codes, dev),
-                None if idx is None else _h2d(idx, dev),
-                None if msk is None else _h2d(msk, dev)), wire
+        ``h2d_bytes`` and the block's padded slots (``counts``), and is
+        the span dispatch.h2d."""
+        with span("dispatch.h2d"):
+            wire = None
+            if (msk is None and isinstance(idx, tuple)
+                    and isinstance(idx[0], str)):
+                wire, idx = idx, None  # v2 packed wire: codes IS the buffer
+                slots = codes.shape[0] * wire[1]
+            else:
+                slots = codes.shape[0] * codes.shape[1]
+                if msk is None and isinstance(idx, tuple):
+                    codes, wire = _to_wire(codes, idx)
+                    idx = None
+            # with a v2 cfg active the run's LUTs are the dict-narrowed
+            # tables: a v1-form block would be scored against the wrong
+            # rows. _wire_cfg_for's run-level gate makes mixing
+            # unreachable; fail loudly if it ever is not.
+            if cfg is not None and (wire is None or wire[0] != "w2"):
+                raise RuntimeError("v1-form block in a wire-v2 run")
+            self.h2d_bytes += _nbytes(codes, idx, msk)
+            self.counts["slots_kernel"] += slots
+            return (_h2d(codes, dev),
+                    None if idx is None else _h2d(idx, dev),
+                    None if msk is None else _h2d(msk, dev)), wire
 
     def _dispatch_block(self, codes, idx, msk, cfg, tab, dev):
         """One block through the kernel route on device dev, whose tables
@@ -713,10 +742,12 @@ class DemuxEngine:
         first member adds the parts (``parallel/mesh.build_sharded_step``).
         Returns (llk, llk0, llk_ab, llk_00) on that member."""
         members = self._grid.devices[row]
-        self.h2d_bytes += _nbytes(blk.idx, blk.msk, blk.cnt)
-        parts = [_h2d(p, dev) for p, dev in zip(
-            pmesh.split_slots(len(members), blk.idx, blk.msk, blk.cnt),
-            members)]
+        with span("dispatch.h2d"):
+            self.h2d_bytes += _nbytes(blk.idx, blk.msk, blk.cnt)
+            self.counts["slots_kernel"] += blk.idx.shape[0] * blk.idx.shape[1]
+            parts = [_h2d(p, dev) for p, dev in zip(
+                pmesh.split_slots(len(members), blk.idx, blk.msk, blk.cnt),
+                members)]
         tables = [self._dense_tables((row, s)) for s in range(len(members))]
         return self._dense_step(row, parts, tables)
 
@@ -727,38 +758,49 @@ class DemuxEngine:
         those pools): returns
         (llks, llk0s, decision.CompactResult). Per-run accounting:
         ``h2d_bytes`` (block buffers shipped), ``d2h_bytes`` (the packed
-        rows read back) and ``phase_s`` (setup = wire
-        config, tables and blocking, on the first call for a pileup also
-        its one pass over all observations; prep = host packing on the
-        prefetch pool, summed over threads; prep_wait = main-thread stall
-        on prep; dispatch = H2D + enqueue; fetch = the one readback, which
-        waits for the device, + unpacking). Fast mode decides in the
-        engine's dtype (f32 is the JAX CLI's ``--precision f32``); the
-        dense route has no compact step (use ``run``)."""
+        rows read back), ``counts`` (the slots shipped) and ``phase_s``,
+        each key a span (``utils/spans``): setup = wire config, tables and
+        blocking, on the first call for a pileup also its passes over all
+        observations (setup.nsnp, setup.wire_cfg; then setup.tables and
+        the trace's setup.blocks; the doublet weights' upload is setup's
+        own time); prep = host packing on the prefetch pool, summed over
+        threads; prep_wait = main-thread stall on prep; dispatch = H2D
+        (the trace's dispatch.h2d) + enqueue; fetch = the one readback,
+        which waits for the device (fetch.readback), + unpacking
+        (fetch.unpack). The trace's finish is the concatenation and the
+        inverse permutation. Fast mode
+        decides in the engine's dtype (f32 is the JAX CLI's
+        ``--precision f32``); the dense route has no compact step (use
+        ``run``)."""
         if self.dense_reason is not None:
             raise DemuxError("run_compact takes the kernel route; this "
                              f"engine takes the dense route "
                              f"({self.dense_reason}): use run()")
-        t_setup = time.monotonic()
-        if not hasattr(scl, "cell_ptr"):
-            scl = CsrPileup.from_pileup(scl)
-        cfg = self._wire_cfg_for(scl)
-        exact = self.mode == "exact"
-        tabs = self._row_tables(cfg)
-        self.route = self._kernel_route(tabs[0])
-        rows = self._grid.shape["b"]
-        devs = [self._member((r, 0)) for r in range(rows)]
-        dbl_w = D.doublet_weights(self.nv, self.grid_alpha, doublet_prior)
-        dbl_msk = D.doublet_mask(self.nv, self.n_alpha)
-        dbl = [(torch.as_tensor(dbl_w, device=dev,
-                                dtype=torch.float64 if exact else self.dtype),
-                torch.as_tensor(dbl_msk, device=dev)) for dev in devs]
-        a0_sep = self.grid_alpha[0] == 0.0
-        sym_a = self._sym_a()
+        self._reset_accounting()
+        acct = self.phase_s
+        with span("setup", acct):
+            if not hasattr(scl, "cell_ptr"):
+                scl = CsrPileup.from_pileup(scl)
+            cfg = self._wire_cfg_for(scl, acct)
+            exact = self.mode == "exact"
+            with span("setup.tables", acct):
+                tabs = self._row_tables(cfg)
+            self.route = self._kernel_route(tabs[0])
+            rows = self._grid.shape["b"]
+            devs = [self._member((r, 0)) for r in range(rows)]
+            dbl_w = D.doublet_weights(self.nv, self.grid_alpha, doublet_prior)
+            dbl_msk = D.doublet_mask(self.nv, self.n_alpha)
+            dbl = [(torch.as_tensor(dbl_w, device=dev,
+                                    dtype=torch.float64 if exact
+                                    else self.dtype),
+                    torch.as_tensor(dbl_msk, device=dev)) for dev in devs]
+            a0_sep = self.grid_alpha[0] == 0.0
+            sym_a = self._sym_a()
 
-        n = scl.nbcs
-        llks = np.zeros((n, self.nv), dtype=np.float64)
-        llk0s = np.zeros(n, dtype=np.float64)
+            n = scl.nbcs
+            llks = np.zeros((n, self.nv), dtype=np.float64)
+            llk0s = np.zeros(n, dtype=np.float64)
+            jobs = self._setup_blocks(scl)
 
         def dispatch(row, codes, idx, msk):
             tab, (dw, dm) = tabs[row], dbl[row]
@@ -780,44 +822,46 @@ class DemuxEngine:
         dev_parts = []
 
         def step(cells, prepped, row):
-            t0 = time.monotonic()
-            dev_parts.append((cells, row, dispatch(row, *prepped)))
-            self.phase_s["dispatch"] += time.monotonic() - t0
+            with span("dispatch", acct):
+                dev_parts.append((cells, row, dispatch(row, *prepped)))
 
-        blocks = self._drive_blocks(
-            scl, t_setup,
-            lambda cells, pad: self._prep_codes_blk(scl, cells, pad), step)
+        self._drive_blocks(
+            jobs, lambda cells, pad: self._prep_codes_blk(scl, cells, pad),
+            step)
         parts = []
         if dev_parts:
-            t0 = time.monotonic()
-            host = {}
-            for r in range(rows):
-                mine = [p for _, row, p in dev_parts if row == r]
-                if mine:
-                    host[r] = torch.cat(mine, dim=0).cpu().numpy()
-            self.d2h_bytes = sum(h.nbytes for h in host.values())
-            off = [0] * rows
-            for cells, r, p in dev_parts:
-                m = len(cells)
-                a, b, c = D.unpack_block(host[r][off[r] : off[r] + m],
-                                         self.nv, self.n_alpha)
-                llks[cells] = a
-                llk0s[cells] = b
-                parts.append(c)
-                off[r] += p.shape[0]
-            self.phase_s["fetch"] += time.monotonic() - t0
+            with span("fetch", acct):
+                host = {}
+                with span("fetch.readback"):
+                    for r in range(rows):
+                        mine = [p for _, row, p in dev_parts if row == r]
+                        if mine:
+                            host[r] = torch.cat(mine, dim=0).cpu().numpy()
+                self.d2h_bytes = sum(h.nbytes for h in host.values())
+                off = [0] * rows
+                with span("fetch.unpack"):
+                    for cells, r, p in dev_parts:
+                        m = len(cells)
+                        a, b, c = D.unpack_block(
+                            host[r][off[r] : off[r] + m], self.nv,
+                            self.n_alpha)
+                        llks[cells] = a
+                        llk0s[cells] = b
+                        parts.append(c)
+                        off[r] += p.shape[0]
         else:  # zero cells: empty fields of the right shapes
             width = 2 * self.nv + self.n_alpha + 11
             parts.append(D.unpack_block(np.zeros((0, width)), self.nv,
                                         self.n_alpha)[2])
-        comp = D.concat(parts)
-        perm = np.concatenate(
-            [np.asarray(b, np.int64) for b in blocks]
-        ) if blocks else np.zeros(0, np.int64)
-        if not np.array_equal(perm, np.arange(n)):
-            inv = np.empty(n, np.int64)
-            inv[perm] = np.arange(n)
-            comp = D.take(comp, inv)
+        with span("finish"):
+            comp = D.concat(parts)
+            perm = np.concatenate(
+                [np.asarray(b, np.int64) for b, _ in jobs]
+            ) if jobs else np.zeros(0, np.int64)
+            if not np.array_equal(perm, np.arange(n)):
+                inv = np.empty(n, np.int64)
+                inv[perm] = np.arange(n)
+                comp = D.take(comp, inv)
         return llks, llk0s, comp
 
     def run(self, scl: PileupData,
@@ -842,31 +886,36 @@ class DemuxEngine:
         block's, else the block is recomputed.
 
         Accounting as in ``run_compact``: ``h2d_bytes``, ``d2h_bytes``
-        (outputs copied back) and ``phase_s`` (setup; prep, thread-summed;
-        prep_wait; dispatch = H2D + enqueue + the copy's enqueue; fetch =
-        the calling thread's waits for finished blocks and their
-        stores)."""
-        t_setup = time.monotonic()
-        if spool_dir:
-            os.makedirs(spool_dir, exist_ok=True)
-        dense = self.dense_reason is not None
-        cfg = tabs = None
-        if dense:
-            self.route = (f"dense ({self.dtype}; {self.dense_reason})"
-                          f"{self._on_mesh()}")
-        else:
-            if not hasattr(scl, "cell_ptr"):
-                scl = CsrPileup.from_pileup(scl)
-            # warmed here: else the 4 prep threads each race through the
-            # config's pass over all observations
-            cfg = self._wire_cfg_for(scl)
-            tabs = self._row_tables(cfg)
-            self.route = self._kernel_route(tabs[0])
-        n, nv, na = scl.nbcs, self.nv, self.n_alpha
-        llks = np.zeros((n, nv), dtype=np.float64)
-        llk0s = np.zeros(n, dtype=np.float64)
-        llk_ab = np.zeros((n, nv, nv, na), dtype=np.float64)
-        llk_00 = np.zeros((n, na), dtype=np.float64)
+        (outputs copied back), ``counts`` and ``phase_s`` (setup and its
+        parts; prep, thread-summed; prep_wait; dispatch = H2D
+        (dispatch.h2d) + enqueue + the copy's enqueue; fetch = the calling
+        thread's waits for finished blocks (fetch.readback) and their
+        stores (fetch.unpack), and a spooled block's store)."""
+        self._reset_accounting()
+        acct = self.phase_s
+        with span("setup", acct):
+            if spool_dir:
+                os.makedirs(spool_dir, exist_ok=True)
+            dense = self.dense_reason is not None
+            cfg = tabs = None
+            if dense:
+                self.route = (f"dense ({self.dtype}; {self.dense_reason})"
+                              f"{self._on_mesh()}")
+            else:
+                if not hasattr(scl, "cell_ptr"):
+                    scl = CsrPileup.from_pileup(scl)
+                # warmed here: else the 4 prep threads each race through
+                # the config's pass over all observations
+                cfg = self._wire_cfg_for(scl, acct)
+                with span("setup.tables", acct):
+                    tabs = self._row_tables(cfg)
+                self.route = self._kernel_route(tabs[0])
+            n, nv, na = scl.nbcs, self.nv, self.n_alpha
+            llks = np.zeros((n, nv), dtype=np.float64)
+            llk0s = np.zeros(n, dtype=np.float64)
+            llk_ab = np.zeros((n, nv, nv, na), dtype=np.float64)
+            llk_00 = np.zeros((n, na), dtype=np.float64)
+            jobs = self._setup_blocks(scl)
 
         def spool_path(cells):
             return os.path.join(
@@ -929,9 +978,11 @@ class DemuxEngine:
 
         def collect(pending):
             cells, fut = pending
-            t0 = time.monotonic()
-            store(cells, fut.result())
-            self.phase_s["fetch"] += time.monotonic() - t0
+            with span("fetch", acct):
+                with span("fetch.readback"):
+                    arrs = fut.result()
+                with span("fetch.unpack"):
+                    store(cells, arrs)
 
         pending = []
         # two D2H workers: the outstanding block's and the one just enqueued
@@ -939,62 +990,54 @@ class DemuxEngine:
 
             def step(cells, prepped, row):
                 kind, data = prepped
-                t0 = time.monotonic()
                 if kind == "spooled":
-                    store(cells, data)
-                    self.phase_s["fetch"] += time.monotonic() - t0
+                    with span("fetch", acct):
+                        store(cells, data)
                     return
-                if kind == "slots":
-                    outs = self._run_block(data, row)
-                else:
-                    outs = self._dispatch_block(*data, cfg, tabs[row],
-                                                self._member((row, 0)))
-                copy = start_d2h(outs, len(cells))
-                del outs
-                self.phase_s["dispatch"] += time.monotonic() - t0
+                with span("dispatch", acct):
+                    if kind == "slots":
+                        outs = self._run_block(data, row)
+                    else:
+                        outs = self._dispatch_block(*data, cfg, tabs[row],
+                                                    self._member((row, 0)))
+                    copy = start_d2h(outs, len(cells))
+                    del outs
                 pending.append((cells, pool.submit(finish, cells, copy)))
                 if len(pending) > 1:
                     collect(pending.pop(0))
 
-            self._drive_blocks(scl, t_setup, prep, step)
+            self._drive_blocks(jobs, prep, step)
             for p in pending:
                 collect(p)
         return EngineResult(llks, llk0s, llk_ab, llk_00)
 
-    def _drive_blocks(self, scl, t_setup, prep_block, step):
-        """The block loop of ``run`` and ``run_compact``: resets the run's
-        accounting, blocks the cells (``_blocks``), runs
-        ``prep_block(cells, pad)`` on the 4-thread prefetch pool and
-        ``step(cells, prepped, row)`` on the calling thread in block order,
-        block i on mesh row i mod n_b (row 0 on one device).
-        Times setup (since ``t_setup``), prep (summed over threads) and
-        prep_wait; ``step`` times its own dispatch and fetch. Returns the
-        blocks."""
-        self.h2d_bytes = 0
-        self.d2h_bytes = 0
-        self.phase_s = {"setup": 0.0, "prep": 0.0, "prep_wait": 0.0,
-                        "dispatch": 0.0, "fetch": 0.0}
-        blocks, pads = self._blocks(scl.nbcs, scl)
-        jobs = list(zip(blocks, pads or [None] * len(blocks)))
-        lock = threading.Lock()
+    def _setup_blocks(self, scl):
+        """The run's blocks as (cells, slot pad or None) jobs, the span
+        setup.blocks (``_blocks``)."""
+        with span("setup.blocks"):
+            blocks, pads = self._blocks(scl.nbcs, scl)
+        return list(zip(blocks, pads or [None] * len(blocks)))
+
+    def _drive_blocks(self, jobs, prep_block, step):
+        """The block loop of ``run`` and ``run_compact`` over ``jobs``
+        (``_setup_blocks``): runs ``prep_block(cells, pad)`` on the
+        4-thread prefetch pool, one span prep a block, and
+        ``step(cells, prepped, row)`` on the calling thread in block
+        order, block i on mesh row i mod n_b (row 0 on one device), after
+        a span prep_wait; ``step`` spans its own dispatch and fetch."""
+        acct = self.phase_s
 
         def prep(job):
-            t0 = time.monotonic()
-            out = job[0], prep_block(*job)
-            with lock:
-                self.phase_s["prep"] += time.monotonic() - t0
-            return out
+            with span("prep", acct):
+                return job[0], prep_block(*job)
 
-        self.phase_s["setup"] = time.monotonic() - t_setup
         rows = self._grid.shape["b"]
         with ThreadPoolExecutor(max_workers=4) as prep_pool:
             it = _prefetched(prep_pool, prep, jobs)
             for i in range(len(jobs)):
-                t0 = time.monotonic()
-                cells, prepped = next(it)
-                self.phase_s["prep_wait"] += time.monotonic() - t0
+                with span("prep_wait", acct):
+                    cells, prepped = next(it)
                 step(cells, prepped, i % rows)
-        return blocks
 
 
 def _pad_block(blk: SlotBlock, n_cells: int, n_slots: int) -> SlotBlock:
@@ -1009,6 +1052,8 @@ def _pad_block(blk: SlotBlock, n_cells: int, n_slots: int) -> SlotBlock:
         cnt=np.pad(blk.cnt, ((0, pb), (0, ps), (0, 0))),
     )
 
+
+@span("cell_stats")
 def cell_stats(scl: PileupData) -> CellStats:
     if hasattr(scl, "n_snps_all"):  # CSR form: vectorized distinct counts
         nsnp = scl.n_snps_all()

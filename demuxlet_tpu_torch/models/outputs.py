@@ -18,6 +18,8 @@ from typing import IO, List, Optional, Sequence
 
 import numpy as np
 
+from demuxlet_tpu_torch.utils.spans import span
+
 
 @dataclass
 class CellStats:
@@ -41,6 +43,7 @@ def _passes(stats: CellStats, i: int, min_total: int, min_uniq: int, min_snp: in
     )
 
 
+@span("render.single")
 def write_single(
     fh: IO[str],
     stats: CellStats,
@@ -308,6 +311,7 @@ def write_pass2(
         )
 
 
+@span("render.pass2")
 def write_pass2_compact(
     stats: CellStats,
     sample_ids: Sequence[str],

@@ -14,6 +14,8 @@ import subprocess
 
 import numpy as np
 
+from demuxlet_tpu_torch.utils.spans import span
+
 _LIB = None
 _LOAD_FAILED = False
 
@@ -113,31 +115,36 @@ def write_pass2_compact(
     if lib is None:
         return False
     Cc = compact
-    order = np.asarray([i for _, i in stats.bc_order()], np.int64)
-    bc_concat, bc_off = _concat(stats.barcodes)
-    sm_concat, sm_off = _concat(list(sample_ids))
-    f64 = lambda a: np.ascontiguousarray(a, np.float64)
-    i64 = lambda a: np.ascontiguousarray(a, np.int64)
-    out2, len2 = C.c_char_p(), C.c_int64()
-    outb, lenb = C.c_char_p(), C.c_int64()
-    rc = lib.dmx_render_pass2_compact(
-        len(order), order, bc_concat, bc_off, sm_concat, sm_off,
-        len(sample_ids), len(grid_alpha),
-        f64(list(grid_alpha)), float(doublet_prior),
-        i64(stats.totl), i64(stats.pass_), i64(stats.uniq), i64(stats.nsnp),
-        f64(Cc.max_llk), f64(Cc.sum_single), f64(Cc.sum_double),
-        f64(Cc.sing_col), f64(Cc.llk_00),
-        i64(Cc.i_sing1), i64(Cc.i_sing2), i64(Cc.best_flat),
-        f64(Cc.max_sing2), f64(Cc.pair_llk12), f64(Cc.pair_llk10),
-        f64(Cc.pair_llk20),
-        int(min_total), int(min_uniq), int(min_snp),
-        C.byref(out2), C.byref(len2), C.byref(outb), C.byref(lenb),
-    )
+    with span("render.order"):
+        order = np.asarray([i for _, i in stats.bc_order()], np.int64)
+    with span("render.pack"):
+        bc_concat, bc_off = _concat(stats.barcodes)
+        sm_concat, sm_off = _concat(list(sample_ids))
+        f64 = lambda a: np.ascontiguousarray(a, np.float64)
+        i64 = lambda a: np.ascontiguousarray(a, np.int64)
+        out2, len2 = C.c_char_p(), C.c_int64()
+        outb, lenb = C.c_char_p(), C.c_int64()
+        args = (
+            len(order), order, bc_concat, bc_off, sm_concat, sm_off,
+            len(sample_ids), len(grid_alpha),
+            f64(list(grid_alpha)), float(doublet_prior),
+            i64(stats.totl), i64(stats.pass_), i64(stats.uniq), i64(stats.nsnp),
+            f64(Cc.max_llk), f64(Cc.sum_single), f64(Cc.sum_double),
+            f64(Cc.sing_col), f64(Cc.llk_00),
+            i64(Cc.i_sing1), i64(Cc.i_sing2), i64(Cc.best_flat),
+            f64(Cc.max_sing2), f64(Cc.pair_llk12), f64(Cc.pair_llk10),
+            f64(Cc.pair_llk20),
+            int(min_total), int(min_uniq), int(min_snp),
+            C.byref(out2), C.byref(len2), C.byref(outb), C.byref(lenb),
+        )
+    with span("render.native"):
+        rc = lib.dmx_render_pass2_compact(*args)
     if rc != 0:
         return False
     try:
-        wsing2.write(C.string_at(out2, len2.value).decode())
-        wbest.write(C.string_at(outb, lenb.value).decode())
+        with span("render.emit"):
+            wsing2.write(C.string_at(out2, len2.value).decode())
+            wbest.write(C.string_at(outb, lenb.value).decode())
     finally:
         lib.dmx_render_free(out2)
         lib.dmx_render_free(outb)
@@ -152,24 +159,29 @@ def write_single(
     lib = _load()
     if lib is None:
         return False
-    order = np.asarray([i for _, i in stats.bc_order()], np.int64)
-    bc_concat, bc_off = _concat(stats.barcodes)
-    sm_concat, sm_off = _concat(list(sample_ids))
-    f64 = lambda a: np.ascontiguousarray(a, np.float64)
-    i64 = lambda a: np.ascontiguousarray(a, np.int64)
-    out, ln = C.c_char_p(), C.c_int64()
-    rc = lib.dmx_render_single(
-        len(order), order, bc_concat, bc_off, sm_concat, sm_off,
-        len(sample_ids),
-        i64(stats.totl), i64(stats.pass_), i64(stats.uniq), i64(stats.nsnp),
-        f64(llks), f64(llk0s),
-        int(min_total), int(min_uniq), int(min_snp),
-        C.byref(out), C.byref(ln),
-    )
+    with span("render.order"):
+        order = np.asarray([i for _, i in stats.bc_order()], np.int64)
+    with span("render.pack"):
+        bc_concat, bc_off = _concat(stats.barcodes)
+        sm_concat, sm_off = _concat(list(sample_ids))
+        f64 = lambda a: np.ascontiguousarray(a, np.float64)
+        i64 = lambda a: np.ascontiguousarray(a, np.int64)
+        out, ln = C.c_char_p(), C.c_int64()
+        args = (
+            len(order), order, bc_concat, bc_off, sm_concat, sm_off,
+            len(sample_ids),
+            i64(stats.totl), i64(stats.pass_), i64(stats.uniq), i64(stats.nsnp),
+            f64(llks), f64(llk0s),
+            int(min_total), int(min_uniq), int(min_snp),
+            C.byref(out), C.byref(ln),
+        )
+    with span("render.native"):
+        rc = lib.dmx_render_single(*args)
     if rc != 0:
         return False
     try:
-        fh.write(C.string_at(out, ln.value).decode())
+        with span("render.emit"):
+            fh.write(C.string_at(out, ln.value).decode())
     finally:
         lib.dmx_render_free(out)
     return True

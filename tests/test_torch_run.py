@@ -122,8 +122,9 @@ def test_exact_run_matches_jax(jax_runs, pool):
         assert g.shape == w.shape and g.dtype == np.float64
         assert np.abs(g - w).max() < EXACT_TOL
     assert eng.d2h_bytes == sum(x.nbytes for x in _fields(got))
-    assert set(eng.phase_s) == {"setup", "prep", "prep_wait", "dispatch",
-                                "fetch"}
+    assert set(eng.phase_s) == {
+        "setup", "setup.nsnp", "setup.wire_cfg", "setup.tables", "prep",
+        "prep_wait", "dispatch", "fetch"}
     assert eng.h2d_bytes > 0
 
 
@@ -422,7 +423,9 @@ def test_cli_precision_f32_matches_jax_cli(cli_case, mode):
 
 
 def test_cli_profile_writes_a_trace(cli_case):
-    """--profile DIR writes a torch.profiler Chrome trace into DIR."""
+    """--profile DIR writes a torch.profiler Chrome trace into DIR, which
+    holds the program's spans from the engine's pass to the writes, the
+    prep spans on the prefetch threads."""
     import json
 
     from demuxlet_tpu_torch import cli
@@ -433,7 +436,17 @@ def test_cli_profile_writes_a_trace(cli_case):
     files = os.listdir(tmp / "trace")
     assert files == ["torch_trace.json"]
     with open(tmp / "trace" / files[0]) as fh:
-        assert json.load(fh)["traceEvents"]
+        events = json.load(fh)["traceEvents"]
+    assert events
+    # the engine's pass, cell_stats and the writes, the prefetch threads'
+    # prep spans too
+    tids = {}
+    for e in events:
+        tids.setdefault(e.get("name"), set()).add(e.get("tid"))
+    for name in ("setup", "dispatch", "fetch", "cell_stats",
+                 "render.single", "render.pass2"):
+        assert "demux." + name in tids, name
+    assert tids["demux.prep"] - tids["demux.setup"]
     assert got[".single"] == parity[".single"]
 
 

@@ -1,0 +1,258 @@
+"""The port's spans and counters (``demuxlet_tpu_torch/utils/spans.py``) on
+the CPU: a job under torch.profiler holds every span of the engine, the
+set-up's parts inside the set-up and one prep span a block on the
+prefetch threads; each ``phase_s`` key is its spans' summed time and the
+other spans are on the trace alone; ``counts`` holds the slots of the
+blocks as shipped; with no profiler running no range is entered."""
+
+import io
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from demuxlet_tpu_torch.host.csr import CsrPileup
+from demuxlet_tpu_torch.models import decision as TD
+from demuxlet_tpu_torch.models import engine as TE
+from demuxlet_tpu_torch.models import outputs
+from demuxlet_tpu_torch.utils import spans
+
+torch.set_num_threads(2)
+
+CPU = torch.device("cpu")
+GRID = [0.0, 0.5]
+# the spans of a run_compact job, cell_stats and the native render
+JOB_SPANS = ("engine_init", "setup", "setup.nsnp", "setup.wire_cfg",
+             "setup.tables", "setup.blocks", "prep", "prep_wait",
+             "dispatch", "dispatch.h2d", "fetch", "fetch.readback",
+             "fetch.unpack", "finish", "cell_stats", "render.single",
+             "render.pass2", "render.order", "render.pack", "render.native",
+             "render.emit")
+
+
+def _pileup(seed, skewed, n_cells=40, NS=400, V=3):
+    """A pileup whose cells cover 10-30 or 150-250 SNPs in turn (skewed:
+    ``_blocks``' coverage sort engages on blocks of 8) or 100-120 each
+    (it does not); 1-4 UMIs a slot."""
+    rng = np.random.default_rng(seed)
+    obs = []
+    for c in range(n_cells):
+        lo, hi = ((10, 31) if c % 2 else (150, 251)) if skewed else (100, 121)
+        snps = np.sort(rng.choice(NS, size=int(rng.integers(lo, hi)),
+                                  replace=False))
+        for s in snps:
+            for _ in range(1 + (rng.random() < 0.3) * int(rng.integers(1, 4))):
+                obs.append((c, s, int(rng.random() < 0.5),
+                            int(rng.integers(13, 41))))
+    obs = np.asarray(obs, dtype=np.int64)
+    z = np.zeros(n_cells)
+    csr = CsrPileup.from_arrays(
+        [f"S{i}" for i in range(V)], NS, ["B%04d" % i for i in range(n_cells)],
+        z, z, z, obs[:, 0], obs[:, 1], obs[:, 2].astype(np.uint8),
+        obs[:, 3].astype(np.uint8))
+    return csr, rng.dirichlet(np.ones(3), size=(NS, V))
+
+
+def _job(csr, gps):
+    """One CLI job after ingest: the engine, run_compact, cell_stats, the
+    two renders into memory."""
+    eng = TE.DemuxEngine(gps, GRID, cell_block=8, device=CPU)
+    llks, llk0s, comp = eng.run_compact(csr, 0.5)
+    stats = TE.cell_stats(csr)
+    ids = csr.sample_ids
+    outputs.write_single(io.StringIO(), stats, ids, llks, llk0s)
+    outputs.write_pass2_compact(stats, ids, comp, GRID, 0.5, io.StringIO(),
+                                io.StringIO())
+    return eng
+
+
+def _traced(tmp_path, fn):
+    """fn() under torch.profiler with every thread recorded: (its result,
+    the trace's demux.* events by name without the prefix, the calling
+    thread's tid)."""
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=spans.profiler_config()) as prof:
+        with torch.autograd.profiler.record_function("caller"):
+            out = fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    caller = next(e["tid"] for e in events if e.get("name") == "caller")
+    by = {}
+    for e in events:
+        if e.get("name", "").startswith(spans.PREFIX) and "dur" in e:
+            by.setdefault(e["name"][len(spans.PREFIX):], []).append(e)
+    return out, by, caller
+
+
+@pytest.fixture(scope="module")
+def traced_job(tmp_path_factory):
+    csr, gps = _pileup(5, skewed=True)
+    return _traced(tmp_path_factory.mktemp("spans"), lambda: _job(csr, gps))
+
+
+def test_every_span_of_a_job_is_traced(traced_job):
+    _, by, caller = traced_job
+    assert set(by) == set(JOB_SPANS)
+    blocks = 5  # 40 cells in blocks of 8
+    for name in ("prep_wait", "dispatch", "dispatch.h2d"):
+        assert len(by[name]) == blocks, name
+        assert {e["tid"] for e in by[name]} == {caller}, name
+    assert len(by["prep"]) == blocks
+    assert caller not in {e["tid"] for e in by["prep"]}
+    for name in JOB_SPANS:
+        if name != "prep":
+            assert {e["tid"] for e in by[name]} == {caller}, name
+
+
+def _inside(inner, outer):
+    return (outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+
+def test_spans_nest_as_the_job_does(traced_job):
+    _, by, _ = traced_job
+    (setup,) = by["setup"]
+    for name in ("setup.nsnp", "setup.wire_cfg", "setup.tables",
+                 "setup.blocks"):
+        (part,) = by[name]
+        assert _inside(part, setup), name
+    for h2d in by["dispatch.h2d"]:
+        assert any(_inside(h2d, d) for d in by["dispatch"])
+    (fetch,) = by["fetch"]
+    for name in ("fetch.readback", "fetch.unpack"):
+        assert _inside(by[name][0], fetch), name
+    assert by["finish"][0]["ts"] >= fetch["ts"] + fetch["dur"]
+    (single,), (pass2,) = by["render.single"], by["render.pass2"]
+    for name in ("render.order", "render.pack", "render.native",
+                 "render.emit"):
+        assert len(by[name]) == 2, name
+        assert sum(_inside(e, single) for e in by[name]) == 1, name
+        assert sum(_inside(e, pass2) for e in by[name]) == 1, name
+
+
+def test_phase_s_is_its_spans_time(traced_job):
+    """Each phase_s key equals its spans' summed duration to within 1 ms
+    (the clock is read inside the range); the other spans have no key."""
+    eng, by, _ = traced_job
+    assert set(eng.phase_s) == set(TE.PHASES) < set(JOB_SPANS)
+    for name in TE.PHASES:
+        traced = sum(e["dur"] for e in by.get(name, ())) / 1e6
+        assert eng.phase_s[name] == pytest.approx(traced, abs=1e-3), name
+        assert eng.phase_s[name] <= traced, name
+    assert eng.phase_s["setup"] >= sum(
+        eng.phase_s[k] for k in TE.PHASES if k.startswith("setup."))
+
+
+@pytest.mark.parametrize("skewed", [True, False], ids=["sorted", "natural"])
+def test_counts_are_the_runs_slots(monkeypatch, skewed):
+    """slots_kernel is the padded cells times padded slots of the blocks
+    as the block step gets them, more than the covered slots of the run's
+    cells, with coverage sorting engaged and not."""
+    csr, gps = _pileup(7, skewed)
+    eng = TE.DemuxEngine(gps, GRID, cell_block=8, device=CPU)
+    blocks, pads = eng._blocks(csr.nbcs, csr)
+    assert (pads is not None) == skewed
+    shipped = []
+    step = TD.compact_step_body_exact
+
+    def spy(codes, *args, wire=None, **kw):
+        shipped.append((codes.shape[0], wire[1]))
+        return step(codes, *args, wire=wire, **kw)
+
+    monkeypatch.setattr(TD, "compact_step_body_exact", spy)
+    eng.run_compact(csr, 0.5)
+    nsnp = csr.n_snps_all()
+    assert eng.counts == {"slots_kernel": sum(b * s for b, s in shipped)}
+    assert len(shipped) == len(blocks)
+    for (b, s), cells, pad in zip(shipped, blocks,
+                                  pads or [None] * len(blocks)):
+        # the native packer pads a block to a multiple of 32 cells
+        assert b >= len(cells) and s >= nsnp[cells].max()
+        if pad is not None:
+            assert s == pad
+    assert eng.counts["slots_kernel"] > nsnp.sum()
+
+
+def test_a_second_run_resets_the_accounting():
+    """The accounting starts anew with each run; a pileup whose wire
+    config is cached takes no pass over its observations again."""
+    csr, gps = _pileup(9, skewed=True)
+    eng = TE.DemuxEngine(gps, GRID, cell_block=8, device=CPU)
+    eng.run_compact(csr, 0.5)
+    first = dict(eng.counts)
+    assert eng.phase_s["setup.wire_cfg"] > 0.0
+    eng.run_compact(csr, 0.5)
+    assert eng.counts == first
+    assert eng.phase_s["setup.nsnp"] == eng.phase_s["setup.wire_cfg"] == 0.0
+    res = eng.run(csr)
+    assert eng.counts == first
+    assert eng.phase_s["fetch"] > 0.0
+    assert res.llks.shape == (csr.nbcs, 3)
+
+
+def test_no_record_function_without_a_profiler(monkeypatch):
+    """With no profiler running a span enters no range (neither
+    record_function nor the C++ one), and its accounting still adds up."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a range entered with no profiler")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(spans, "_RANGE", refuse)
+    csr, gps = _pileup(11, skewed=True)
+    eng = _job(csr, gps)
+    assert eng.phase_s["prep"] > 0.0 and eng.phase_s["setup"] > 0.0
+    with spans.span("x") as s:
+        pass
+    assert s._range is None
+
+
+def test_python_render_has_no_native_span(tmp_path, monkeypatch):
+    """Without the native renderer each render is its one span, with none
+    of the native renderer's parts inside."""
+    from demuxlet_tpu_torch.native import render
+
+    monkeypatch.setattr(render, "available", lambda: False)
+    csr, gps = _pileup(13, skewed=False, n_cells=8)
+    _, by, _ = _traced(tmp_path, lambda: _job(csr, gps))
+    assert len(by["render.single"]) == len(by["render.pass2"]) == 1
+    assert not {k for k in by if k.startswith("render.")} - {
+        "render.single", "render.pass2"}
+
+
+def test_span_decorates_and_accounts_on_threads(monkeypatch):
+    """A decorated function's calls are each a span; spans on more threads
+    than cores, switching often, add into one accounting entry without
+    losing an update: on a clock that advances by 1 a reading on each
+    thread, every span lasts exactly 1."""
+    import sys
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    local = threading.local()
+
+    def clock():
+        local.t = getattr(local, "t", 0.0) + 1.0
+        return local.t
+
+    monkeypatch.setattr(spans, "perf_counter", clock)
+    acct = {}
+
+    @spans.span("work", acct)
+    def work(x):
+        return x + 1
+
+    n = 20000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(4 * (os.cpu_count() or 1)) as pool:
+            got = list(pool.map(work, range(n), timeout=120))
+    finally:
+        sys.setswitchinterval(interval)
+    assert got == list(range(1, n + 1))
+    assert acct == {"work": float(n)}
+    assert work.__name__ == "work"
