@@ -20,7 +20,10 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "demuxlet_tpu_torch"
 
-# (port file, original): the port's copies of the JAX-free host modules
+# (port file, original): the port's copies of the JAX-free host modules.
+# native/render.cpp is not one: the port's renderer is its own design (fields
+# by std::to_chars, rows in stripes on threads), held to the same bytes by
+# test_renderer_bytes_equal_jax_package below and tests/test_torch_render.py.
 COPIES = [(f"{PORT}/{p}", f"demuxlet_tpu/{p}") for p in (
     "io/__init__.py", "io/bgzf.py", "io/bam.py", "io/cram.py", "io/rans.py",
     "io/vcf.py", "io/bcf.py",
@@ -28,7 +31,7 @@ COPIES = [(f"{PORT}/{p}", f"demuxlet_tpu/{p}") for p in (
     "host/wire.py", "host/genotypes.py",
     "native/__init__.py", "native/build.py", "native/ingest.py",
     "native/ingest.cpp", "native/cram_reader.inc", "native/prep.py",
-    "native/prep.cpp", "native/render.py", "native/render.cpp",
+    "native/prep.cpp", "native/render.py",
     "utils/logging_utils.py", "utils/phred.py", "utils/intervals.py",
     "models/outputs.py", "ops/luts.py",
 )] + [(f"{PORT}/oracle.py", "oracle/numpy_oracle.py")]
