@@ -25,9 +25,14 @@ import numpy as np
 import torch
 
 from demuxlet_tpu_torch.ops.front import fast_front
-from demuxlet_tpu_torch.ops.front_exact import exact_block, front_exact
+from demuxlet_tpu_torch.ops.front_exact import (
+    exact_front,
+    exact_pair,
+    front_exact,
+)
 from demuxlet_tpu_torch.ops.pair import pair_llks
 from demuxlet_tpu_torch.ops.pair_exact import pair_exact
+from demuxlet_tpu_torch.utils.spans import span
 
 
 @dataclass
@@ -260,16 +265,21 @@ def compact_step_body(
 def compact_step_body_exact(
     codes, idx, msk, tab, dbl_w, dbl_msk, n_alpha, n_samples,
     doublet_prior, a0_sep=False, sym_a=None, wire=None,
-    front_fn=front_exact, pair_fn=pair_exact,
+    front_fn=front_exact, pair_fn=pair_exact, acct=None,
 ):
     """Fused exact block step (f64 throughout) + decision pass, packed
     into ONE (B, 2V+A+11) f64 tensor like ``compact_step_body``. tab: the
     engine's ``ExactTables``. front_fn/pair_fn: K2' and K3' (the engine),
-    or their plain versions (a check)."""
-    llk, llk0, llk_ab, llk_00 = exact_block(
-        codes, idx, msk, tab.g_table, tab.lut, tab.cmask, tab.gsel,
-        tab.expand, n_alpha, n_samples, a0_sep=a0_sep, sym_a=sym_a,
-        wire=wire, front_fn=front_fn, pair_fn=pair_fn,
-    )
-    out = decide(llk_ab, llk_00, dbl_w, dbl_msk, doublet_prior)
-    return pack_rows(out, llk, llk0)
+    or their plain versions (a check). Everything after the front (the g
+    gather, the pair search, the decision and the packing) is the span
+    dispatch.pair (``utils/spans``; acct: the engine's ``phase_s``, or
+    None for the trace alone)."""
+    front = exact_front(codes, idx, msk, tab.lut, tab.cmask, tab.gsel, wire,
+                        front_fn)
+    with span("dispatch.pair", acct):
+        llk, llk0, llk_ab, llk_00 = exact_pair(
+            *front, tab.g_table, tab.expand, n_alpha, n_samples, a0_sep,
+            sym_a, pair_fn)
+        del front  # the front's tables are not held through the decision
+        out = decide(llk_ab, llk_00, dbl_w, dbl_msk, doublet_prior)
+        return pack_rows(out, llk, llk0)

@@ -41,6 +41,7 @@ adds partial sums: within 1e-9).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -59,8 +60,9 @@ from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 from demuxlet_tpu_torch.models import decision as D
 from demuxlet_tpu_torch.ops.front import fast_front, fast_g_table
 from demuxlet_tpu_torch.ops.front_exact import exact_block
-from demuxlet_tpu_torch.ops.pair import dedup_channels, extend_luts, unrolled
+from demuxlet_tpu_torch.ops.pair import dedup_channels, extend_luts
 from demuxlet_tpu_torch.ops.pair_exact import takes_k3
+from demuxlet_tpu_torch.ops.pair_tiled import plan_tiles
 from demuxlet_tpu_torch.parallel import mesh as pmesh
 from demuxlet_tpu_torch.utils.spans import span
 
@@ -68,9 +70,10 @@ MODES = ("exact", "fast")
 EXACT_KERNELS = ("auto", "pallas", "xla")
 # a run's phase_s keys, each the summed seconds of its span (utils/spans):
 # set-up and the parts the benchmark reads, prep (thread-summed),
-# prep_wait, dispatch and fetch; the other spans are on the trace only
+# prep_wait, dispatch, its exact-mode pair route (dispatch.pair) and fetch;
+# the other spans are on the trace only
 PHASES = ("setup", "setup.nsnp", "setup.wire_cfg", "setup.tables", "prep",
-          "prep_wait", "dispatch", "fetch")
+          "prep_wait", "dispatch", "dispatch.pair", "fetch")
 
 
 def compute_gp0(gps: np.ndarray) -> np.ndarray:
@@ -227,7 +230,6 @@ def exact_host_tables(gps, grid_alpha, cap_bq, wire_cfg) -> ExactTables:
       dedups them (so ``expand``, ``gsel`` and ``cmask`` equal its meta and
       the mixture-channel mask of ``demux_block_exact_impl`` :1275-1278)."""
     gps = _pad_gps(gps)
-    gp0 = compute_gp0(gps)
     w = luts.pair_lut(list(grid_alpha), cap_bq)
     logf = luts.singlet_lut(cap_bq)
     nw = w.shape[1]
@@ -250,16 +252,40 @@ def exact_host_tables(gps, grid_alpha, cap_bq, wire_cfg) -> ExactTables:
     expand, gsel = tuple(inv[:nw]), tuple(inv[nw:])
     used = set(expand)
     cmask = tuple(c in used for c in range(len(cols)))
-    ns, nv = gps.shape[:2]
-    g = np.zeros((ns + 1, 3 * nv + 3), dtype=np.float64)
-    g[:ns, : 3 * nv] = gps.reshape(ns, 3 * nv)
-    g[:ns, 3 * nv :] = gp0
-    g[ns, 0 : 3 * nv + 3 : 3] = 1.0
     return ExactTables(
-        torch.as_tensor(np.ascontiguousarray(g.T)),
+        torch.as_tensor(_g_table(gps)),
         torch.as_tensor(np.ascontiguousarray(logc[:, cols])),
         expand, gsel, cmask,
     )
+
+
+# SNPs a step of ``_g_table``'s transpose: a step's (rows, 3V) gps stay in
+# the core's cache while they are written out as 3V row pieces
+_G_ROWS = 256
+
+
+def _g_table(gps: np.ndarray) -> np.ndarray:
+    """The (3V+3, NS+1) f64 g table of ``exact_host_tables`` from padded
+    gps (NS, V, 3), built channel-leading: the gps transposed a few hundred
+    SNPs a step, then the gp0 rows as ``compute_gp0`` sums them (in sample
+    order, then / V: the same bits) over the table's contiguous rows. At
+    V=64 and 50,000 SNPs the table is 78 MB, and a strided pass over the
+    gps (``compute_gp0``'s, or a whole transpose) costs more than the rest
+    of the build."""
+    ns, nv = gps.shape[:2]
+    g = np.empty((3 * nv + 3, ns + 1), dtype=np.float64)
+    flat = gps.reshape(ns, 3 * nv)
+    for s in range(0, ns, _G_ROWS):
+        e = min(s + _G_ROWS, ns)
+        g[: 3 * nv, s:e] = flat[s:e].T
+    gp0 = g[3 * nv :, :ns]
+    gp0[...] = 0.0
+    for j in range(nv):
+        gp0 += g[3 * j : 3 * j + 3, :ns]
+    gp0 /= nv
+    g[:, ns] = 0.0
+    g[0 : 3 * nv + 3 : 3, ns] = 1.0
+    return g
 
 
 def exact_tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
@@ -336,7 +362,6 @@ class DemuxEngine:
                 "observation codes; use --mode exact"
             )
         self.gps = _pad_gps(gps)
-        self.gp0 = compute_gp0(self.gps)
         self.grid_alpha = list(grid_alpha)
         self.cap_bq = cap_bq
         self.cell_block = cell_block
@@ -389,6 +414,7 @@ class DemuxEngine:
         self._exact_v2 = {}
         self._dense = {}
         self.route = None  # set by each run: its kernels, or dense and why
+        self._tile_items = 0  # set by each kernel-route run: _plan's items
         # wire v2 (host/wire.py): per-run packed H2D format, chosen once
         # per pileup; the (S, U) meta registry keeps same-shape blocks on
         # one layout
@@ -397,15 +423,25 @@ class DemuxEngine:
         self._wire_reg_lock = threading.Lock()
         self._reset_accounting()
 
+    @functools.cached_property
+    def gp0(self) -> np.ndarray:
+        """(NS, 3) f64: ``compute_gp0`` of the gps, made on first use (the
+        dense route's tables; the kernel route's tables build their own
+        gp0 rows), so an engine of the kernel route never makes it."""
+        return compute_gp0(self.gps)
+
     def _reset_accounting(self):
         """A run's accounting, zeroed at its start: ``h2d_bytes``,
-        ``d2h_bytes``, ``phase_s`` (``PHASES``) and ``counts``: the slots
-        of its blocks as shipped, padded cells times padded slots
-        (slots_kernel)."""
+        ``d2h_bytes``, ``phase_s`` (``PHASES``) and ``counts``, summed over
+        the kernel route's blocks as shipped: their slots, padded cells
+        times padded slots (slots_kernel); the tile items the tiled pair
+        kernel K7' or K5' launches, a plan's items a block (pair_tile_items,
+        0 on K3' and K1); the bytes of the (3V+3, B, S) g buffer the block
+        step gathers from the g table (g_bytes)."""
         self.h2d_bytes = 0
         self.d2h_bytes = 0
         self.phase_s = dict.fromkeys(PHASES, 0.0)
-        self.counts = dict(slots_kernel=0)
+        self.counts = dict(slots_kernel=0, pair_tile_items=0, g_bytes=0)
 
     def _sym_a(self):
         """Index of alpha == 0.5 in the grid (the (j,k)-symmetric doublet
@@ -657,17 +693,29 @@ class DemuxEngine:
             for s in range(0, n, self.cell_block)
         ], None
 
-    def _kernel_route(self, tab) -> str:
-        """The kernels a kernel-route block step launches, by the rules
-        ``ops/pair_exact`` and ``ops/pair`` choose them with (``takes_k3``,
-        ``unrolled``)."""
+    def _plan(self, tab):
+        """The tile plan of the tiled pair kernel (K7' or K5') a
+        kernel-route block step launches, or None on the unrolled one (K3'
+        or K1), by the rules ``ops/pair_exact`` and ``ops/pair`` choose
+        them with (``takes_k3``, ``unrolled``)."""
         V, A = self.nv, self.n_alpha
+        a0_sep = self.grid_alpha[0] == 0.0
         if self.mode == "exact":
-            names = ("K2' + K3'" if takes_k3(V, A, tab.lut.shape[1],
-                                             self.grid_alpha[0] == 0.0)
-                     else "K2' + K7' + K6'")
+            if takes_k3(V, A, tab.lut.shape[1], a0_sep):
+                return None
+            # force: the few pools K3''s stages refuse at V*V*A <= 384
+            return plan_tiles(V, A, a0_sep, self._sym_a(), force=True)
+        return plan_tiles(V, A, a0_sep, self._sym_a())
+
+    def _kernel_route(self, tab) -> str:
+        """The kernels a kernel-route block step launches (``_plan``); sets
+        the tile items a block's tiled pair kernel launches."""
+        plan = self._plan(tab)
+        self._tile_items = len(plan.items) if plan is not None else 0
+        if self.mode == "exact":
+            names = "K2' + K3'" if plan is None else "K2' + K7' + K6'"
         else:
-            names = "K1" if unrolled(V, A) else "K5' + K4'"
+            names = "K1" if plan is None else "K5' + K4'"
         where = ("CUDA" if self.device.type == "cuda"
                  else "their plain versions on the CPU")
         return f"kernels {names} ({where}){self._on_mesh()}"
@@ -679,10 +727,10 @@ class DemuxEngine:
         return " on a %dx%d mesh" % (self.mesh.shape["b"],
                                      self.mesh.shape["s"])
 
-    def _ship(self, codes, idx, msk, cfg, dev):
-        """One prepped block to device dev, in the form the fronts take:
-        returns ((codes, idx, msk) tensors, wire meta or None); counts
-        ``h2d_bytes`` and the block's padded slots (``counts``), and is
+    def _ship(self, codes, idx, msk, cfg, tab, dev):
+        """One prepped block to device dev, whose tables tab are, in the
+        form the fronts take: returns ((codes, idx, msk) tensors, wire meta
+        or None); counts ``h2d_bytes`` and the block's ``counts``, and is
         the span dispatch.h2d."""
         with span("dispatch.h2d"):
             wire = None
@@ -703,6 +751,9 @@ class DemuxEngine:
                 raise RuntimeError("v1-form block in a wire-v2 run")
             self.h2d_bytes += _nbytes(codes, idx, msk)
             self.counts["slots_kernel"] += slots
+            self.counts["pair_tile_items"] += self._tile_items
+            self.counts["g_bytes"] += (tab.g_table.shape[0] * slots
+                                       * tab.g_table.element_size())
             return (_h2d(codes, dev),
                     None if idx is None else _h2d(idx, dev),
                     None if msk is None else _h2d(msk, dev)), wire
@@ -712,13 +763,13 @@ class DemuxEngine:
         tab are: (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00
         (B, A)) there, f64 in exact mode (``ops/front_exact.exact_block``),
         f32 in fast mode (``ops/front.fast_front``)."""
-        blk, wire = self._ship(codes, idx, msk, cfg, dev)
+        blk, wire = self._ship(codes, idx, msk, cfg, tab, dev)
         kw = dict(a0_sep=self.grid_alpha[0] == 0.0, sym_a=self._sym_a(),
                   wire=wire)
         if self.mode == "exact":
             return exact_block(*blk, tab.g_table, tab.lut, tab.cmask,
                                tab.gsel, tab.expand, self.n_alpha, self.nv,
-                               **kw)
+                               acct=self.phase_s, **kw)
         return fast_front(*blk, tab.gps, tab.gp0, tab.w_ext, tab.logf_ext,
                           self.n_alpha, self.nv, expand=tab.expand,
                           g_table=tab.g_table, **kw)
@@ -804,11 +855,12 @@ class DemuxEngine:
 
         def dispatch(row, codes, idx, msk):
             tab, (dw, dm) = tabs[row], dbl[row]
-            blk, wire = self._ship(codes, idx, msk, cfg, devs[row])
+            blk, wire = self._ship(codes, idx, msk, cfg, tab, devs[row])
             if exact:
                 return D.compact_step_body_exact(
                     *blk, tab, dw, dm, self.n_alpha, self.nv,
                     doublet_prior, a0_sep=a0_sep, sym_a=sym_a, wire=wire,
+                    acct=acct,
                 )
             return D.compact_step_body(
                 *blk, tab.gps, tab.gp0, tab.w_ext, tab.logf_ext, dw, dm,

@@ -14,6 +14,7 @@ import subprocess
 
 import numpy as np
 
+from demuxlet_tpu_torch.native.emit import emit
 from demuxlet_tpu_torch.utils.spans import span
 
 _LIB = None
@@ -143,8 +144,8 @@ def write_pass2_compact(
         return False
     try:
         with span("render.emit"):
-            wsing2.write(C.string_at(out2, len2.value).decode())
-            wbest.write(C.string_at(outb, lenb.value).decode())
+            emit(wsing2, out2, len2.value)
+            emit(wbest, outb, lenb.value)
     finally:
         lib.dmx_render_free(out2)
         lib.dmx_render_free(outb)
@@ -181,7 +182,7 @@ def write_single(
         return False
     try:
         with span("render.emit"):
-            fh.write(C.string_at(out, ln.value).decode())
+            emit(fh, out, ln.value)
     finally:
         lib.dmx_render_free(out)
     return True

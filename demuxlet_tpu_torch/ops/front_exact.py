@@ -33,6 +33,7 @@ from demuxlet_tpu_torch.ops.wire import (
     unpack_block_inputs,
     unpack_wire_v2,
 )
+from demuxlet_tpu_torch.utils.spans import span
 
 # the max of the smoothed mixture table: exp(0) + 1e-6, exact in f64
 _TMAX = 1.0 + 1e-6
@@ -84,22 +85,14 @@ def front_exact_plain(dense, lut, msk, cmask, gsel, tail=None, n_deep=0):
     return torch.cat(ts, dim=1), torch.cat(gls, dim=1)
 
 
-def exact_block(codes, idx, msk, g_table, lut, cmask, gsel, expand,
-                n_alpha, n_samples, a0_sep=False, sym_a=None, wire=None,
-                front_fn=front_exact, pair_fn=pair_exact):
-    """Fused exact-mode block step.
-
-    codes/idx/msk/wire: any shipped block form (``ops/wire.py``). A v2
-    wire is decoded into its parts, which the front reads as they are (the
+def exact_front(codes, idx, msk, lut, cmask, gsel, wire=None,
+                front_fn=front_exact):
+    """The front half of the exact block step: the shipped block (any form
+    of ``ops/wire.py``) decoded and run through the front. A v2 wire is
+    decoded into its parts, which the front reads as they are (the
     deep-lane tail is not rebuilt into lanes, as the JAX package does); the
-    v1 and explicit forms are full-lane codes. g_table (3V+3, NS+1) f64:
-    the gps rows, the three gp0 rows, and the neutral column at index NS
-    that masked slots gather. lut/cmask/gsel/expand: the exact tables
-    (``models/engine.exact_tables_from_numpy``). front_fn and pair_fn are
-    K2' and K3' (or, for a check, their plain versions).
-
-    Returns (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A))
-    f64."""
+    v1 and explicit forms are full-lane codes. Returns (t (C, B, S), gl
+    (3, B, S), idx (B, S), msk (B, S))."""
     tail, n_deep = None, 0
     if wire is not None and wire[0] == "w2":
         dense, tail, idx, msk = unpack_wire_v2(codes, wire, parts=True)
@@ -108,9 +101,17 @@ def exact_block(codes, idx, msk, g_table, lut, cmask, gsel, expand,
             n_deep = wire[2] - wire[3]
     else:
         dense, idx, msk = unpack_block_inputs(codes, idx, msk, wire)
-    B, S, _ = dense.shape
     t, gl = front_fn(dense.to(torch.int32).contiguous(), lut,
                      msk.contiguous(), cmask, gsel, tail, n_deep)
+    return t, gl, idx, msk
+
+
+def exact_pair(t, gl, idx, msk, g_table, expand, n_alpha, n_samples,
+               a0_sep=False, sym_a=None, pair_fn=pair_exact):
+    """The pair half of the exact block step: the g gather and the pair
+    search with the singlet term on ``exact_front``'s outputs. Returns
+    (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A)) f64."""
+    _, B, S = t.shape
     NS = g_table.shape[1] - 1
     idx_n = torch.where(msk, idx, NS).reshape(-1)
     # gathered straight into the channel-leading layout the kernel reads
@@ -118,3 +119,26 @@ def exact_block(codes, idx, msk, g_table, lut, cmask, gsel, expand,
     llk_ab, llk_00, llk, llk0 = pair_fn(t, g, gl, n_samples, n_alpha,
                                         a0_sep, sym_a, expand)
     return llk, llk0, llk_ab, llk_00
+
+
+def exact_block(codes, idx, msk, g_table, lut, cmask, gsel, expand,
+                n_alpha, n_samples, a0_sep=False, sym_a=None, wire=None,
+                front_fn=front_exact, pair_fn=pair_exact, acct=None):
+    """Fused exact-mode block step: ``exact_front`` then ``exact_pair``,
+    the latter the span dispatch.pair (``utils/spans``; acct: the
+    engine's ``phase_s``, or None for the trace alone).
+
+    codes/idx/msk/wire: any shipped block form (``ops/wire.py``).
+    g_table (3V+3, NS+1) f64: the gps rows, the three gp0 rows, and the
+    neutral column at index NS that masked slots gather. lut/cmask/gsel/
+    expand: the exact tables (``models/engine.exact_tables_from_numpy``).
+    front_fn and pair_fn are K2' and K3' (or, for a check, their plain
+    versions).
+
+    Returns (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A))
+    f64."""
+    t, gl, idx, msk = exact_front(codes, idx, msk, lut, cmask, gsel, wire,
+                                  front_fn)
+    with span("dispatch.pair", acct):
+        return exact_pair(t, gl, idx, msk, g_table, expand, n_alpha,
+                          n_samples, a0_sep, sym_a, pair_fn)

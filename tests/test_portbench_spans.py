@@ -26,6 +26,20 @@ NEW_METRICS = {
     "setup.tables.ms_per_job": "ms",
     "prep.ns_per_slot": "ns/slot",
 }
+# the cells the benchmark had when those metrics came, which their
+# accepted entries list
+SPAN_CELLS = ["kang8_a2.cells", "onek1k14_a2.cells", "kang8_a2.unfiltered"]
+# the metrics of the pair route and the per-line render, for pools of any
+# size: (unit, better, source, layer, the cells they list)
+POOL_METRICS = {
+    "pair_route.device_ms_per_kbarcode": (
+        "ms/kbarcode", "lower", "device_trace", "kernels", None),
+    "dispatch.pair.fraction": (
+        "fraction", "lower", "program_counter", "dispatch", None),
+    "render.ns_per_line": ("ns/line", "lower", "host_clock", "render", None),
+    "tiled_pair_roofline": (
+        "%", "higher", "device_trace", "kernels", ["kang64_a2.cells"]),
+}
 
 
 class _Trace:
@@ -281,20 +295,21 @@ def test_new_readers_read_their_input():
 
 
 def test_new_metrics_in_the_benchmark():
-    """The new metrics are per-layer entries of every cell, with their
-    units, each with a reader."""
+    """The new metrics are per-layer entries of every cell the benchmark
+    had when they came, with their units, each with a reader."""
     with open(os.path.join(REPO, "BENCHMARK.json")) as fh:
         bench = json.load(fh)
     cells = [w["name"] for w in bench["workloads"]]
+    assert cells[:len(SPAN_CELLS)] == SPAN_CELLS
     entries = {m["name"]: m for m in bench["per_layer"]}
     for name, unit in NEW_METRICS.items():
         m = entries[name]
         assert m["unit"] == unit and m["better"] == "lower"
         assert m["source"] == "program_counter"
-        assert m["workloads"] == cells
+        assert m["workloads"] == SPAN_CELLS
         assert os.path.exists(os.path.join(REPO, "portbench", "metrics",
                                            name + ".py"))
-    for cell in cells:
+    for cell in SPAN_CELLS:
         per_layer = harness.load_cell(REPO, cell)[4]
         assert set(NEW_METRICS) <= {m["name"] for m in per_layer}
 
@@ -334,3 +349,107 @@ def test_traced_run_reads_the_programs_spans(tmp_path):
     names = [k for k, _ in res["breakdown"]["idle_gaps"]]
     assert any(k.startswith("run_compact/demux.") for k in names), names
     assert any(k.startswith("render/demux.render.") for k in names), names
+
+
+def test_pool_metrics_in_the_benchmark():
+    """The pair route's and the per-line render's metrics: per-layer
+    entries after the accepted ones, with their units, sources and layers
+    (each layer a name the accepted entries use), each with a reader; the
+    tiled roofline in the 64-donor cell alone, the others in every cell,
+    each cell's line asking its reader."""
+    with open(os.path.join(REPO, "BENCHMARK.json")) as fh:
+        bench = json.load(fh)
+    cells = [w["name"] for w in bench["workloads"]]
+    names = [m["name"] for m in bench["per_layer"]]
+    assert names[-len(POOL_METRICS):] == list(POOL_METRICS)
+    entries = {m["name"]: m for m in bench["per_layer"]}
+    old_layers = {m["layer"] for m in bench["per_layer"][:-4]}
+    for name, (unit, better, source, layer, wl) in POOL_METRICS.items():
+        m = entries[name]
+        assert (m["unit"], m["better"], m["source"], m["layer"]) == (
+            unit, better, source, layer), name
+        assert layer in old_layers and m["moves"] == "barcodes_per_s"
+        assert m["workloads"] == (wl or cells), name
+        assert os.path.exists(os.path.join(REPO, "portbench", "metrics",
+                                           name + ".py"))
+        for cell in m["workloads"]:
+            assert name in {x["name"] for x in
+                            harness.load_cell(REPO, cell)[4]}
+
+
+# device seconds of a traced 64-donor window, by kernel name as the trace
+# gives it (torch 2.11 on an H100): the tiled pair search, its O(V)
+# channels, the g gather (aten::gather), and kernels outside the pair
+# route, the scatter twin of the gather's kernel among them
+POOL_KERNELS = {
+    "void pair_tiled_exact_kernel<16>(dmx::TiledParams<double>)": 1.5,
+    "void extras_exact_kernel<128>(dmx::ExtrasParams<double>)": 0.5,
+    "void at::native::_scatter_gather_elementwise_kernel<128, 8, "
+    "at::native::_cuda_scatter_gather_internal_kernel<false, "
+    "at::native::OpaqueType<8>, long>::operator()": 0.25,
+    "void at::native::_scatter_gather_elementwise_kernel<128, 8, "
+    "at::native::_cuda_scatter_gather_internal_kernel<true, long, long>"
+    "::operator()<at::native::ReduceAdd": 0.0625,
+    "void front_exact_kernel<true>(double const*, int)": 0.75,
+    "void at::native::CatArrayBatchedCopy<double>(int)": 0.125,
+}
+POOL_CFG = dict(donors=64, grid_alpha=[0.0, 0.5], cap_bq=40, snps=50000)
+
+
+def _pool_ctx(phase_s, trace, jobs=2):
+    return dict(jobs=[_job_rec(2000, phase_s) for _ in range(jobs)],
+                sizes=SIZES, config=POOL_CFG, trace=trace)
+
+
+def test_pool_readers_read_their_input():
+    """Two 2,000-barcode jobs of 2 s each, 0.25 s of dispatch.pair and a
+    0.5 s render each, on a 64-donor pool."""
+    from portbench import roofline
+
+    trace = dict(busy_s=4.0, window_s=4.5, kernel_s=POOL_KERNELS)
+    ctx = _pool_ctx(dict(PARENT_PHASES, **{"dispatch.pair": 0.25}), trace)
+    got = {n: harness.load_reader(REPO, n)(ctx) for n in POOL_METRICS}
+    least = 2 * roofline.least_s(*roofline.pair_work_of(SIZES[0],
+                                                        POOL_CFG))
+    assert got == pytest.approx({
+        "pair_route.device_ms_per_kbarcode": 2.25e3 / 4.0,
+        "dispatch.pair.fraction": 0.5 / 4.0,
+        "render.ns_per_line": 1e9 * 1.0 / (2 * (2000 * 129 + 3)),
+        "tiled_pair_roofline": 100.0 * least / 2.0}, rel=1e-12)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_pool_readers_on_an_unrolled_window(seed):
+    """On the summaries of the fixture's traces (K3' windows, an 8-donor
+    pool), the pair route reads K3''s seconds; the tiled roofline finds
+    no tiled kernel and reads None; a program before the dispatch.pair
+    span (the parent's phase_s keys) gives None for its fraction."""
+    with open(FIXTURE) as fh:
+        summary = json.load(fh)[str(seed)]
+    cfg = dict(POOL_CFG, donors=8)
+    ctx = dict(_pool_ctx(PARENT_PHASES, summary), config=cfg)
+    got = {n: harness.load_reader(REPO, n)(ctx) for n in POOL_METRICS}
+    k3 = sum(v for k, v in summary["kernel_s"].items()
+             if "pair_exact_kernel" in k)
+    assert k3 > 0.0
+    assert got == dict(
+        {"pair_route.device_ms_per_kbarcode": pytest.approx(k3 / 4.0 * 1e3),
+         "render.ns_per_line": pytest.approx(1e9 / (2 * (2000 * 17 + 3)))},
+        **{"dispatch.pair.fraction": None, "tiled_pair_roofline": None})
+
+
+def test_pool_readers_read_none_without_their_input():
+    """No trace (an untraced run), a trace with no kernel of the pair
+    route (the CPU), no jobs: None, never 0 and never an error."""
+    phases = dict(PARENT_PHASES, **{"dispatch.pair": 0.25})
+    bare = dict(busy_s=0.0, window_s=1.0, kernel_s={})
+    for name in ("pair_route.device_ms_per_kbarcode",
+                 "tiled_pair_roofline"):
+        read = harness.load_reader(REPO, name)
+        for ctx in (_pool_ctx(phases, None), _pool_ctx(phases, bare),
+                    _pool_ctx(phases, dict(bare, kernel_s=POOL_KERNELS),
+                              jobs=0)):
+            assert read(ctx) is None, name
+    for name in ("dispatch.pair.fraction", "render.ns_per_line"):
+        assert harness.load_reader(REPO, name)(
+            _pool_ctx(phases, None, jobs=0)) is None, name

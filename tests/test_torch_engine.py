@@ -204,6 +204,34 @@ def test_copied_engine_helpers_equal_jax(monkeypatch):
                                       np.asarray(jax_eng._gp0_dev, np.float32))
 
 
+@pytest.mark.parametrize("ns,nv", [(0, 3), (1, 2), (255, 5), (257, 14),
+                                   (600, 64)])
+def test_g_table_is_gps_and_gp0_rows(ns, nv):
+    """The exact tables' g table, built channel-leading a few hundred SNPs
+    a step, is bit for bit the (NS+1, 3V+3) table of the gps, their
+    ``compute_gp0`` and the neutral column, transposed."""
+    rng = np.random.default_rng(ns + nv)
+    gps = TE._pad_gps(rng.random((ns, nv, 3)) ** 7)  # spread exponents
+    n = gps.shape[0]
+    want = np.zeros((n + 1, 3 * nv + 3))
+    want[:n, :3 * nv] = gps.reshape(n, 3 * nv)
+    want[:n, 3 * nv:] = TE.compute_gp0(gps)
+    want[n, 0:3 * nv + 3:3] = 1.0
+    got = TE.exact_host_tables(gps, [0.0, 0.5], 40, None).g_table.numpy()
+    assert got.flags.c_contiguous
+    assert got.tobytes() == np.ascontiguousarray(want.T).tobytes()
+
+
+def test_engine_gp0_is_made_on_first_use():
+    """An engine makes ``gp0`` only when asked for it (the dense route's
+    tables), and then as ``compute_gp0`` makes it."""
+    gps = np.random.default_rng(3).random((40, 4, 3))
+    eng = TE.DemuxEngine(gps, [0.0, 0.5], device=CPU)
+    assert "gp0" not in vars(eng)
+    np.testing.assert_array_equal(eng.gp0, TE.compute_gp0(gps))
+    assert "gp0" in vars(eng)
+
+
 def test_engine_refuses_unported(monkeypatch):
     from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 

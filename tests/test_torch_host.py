@@ -56,14 +56,23 @@ def _mapped_back(text):
 # The port's render spans (utils/spans): the copies below carry span
 # decorators and ``with span(...)`` blocks, which ``_without_spans`` takes
 # out, and the native renderer gathers its C arguments into ``args`` (its
-# span render.pack) before the call (render.native): the lines that
-# differ once the spans are out, (the port's, the original's).
+# span render.pack) before the call (render.native), and writes the C
+# output with ``native/emit.emit`` (decoded straight from the C buffer,
+# with no bytes copy of the whole output first): the lines that differ
+# once the spans are out, (the port's, the original's).
 SPAN_DIFFS = {
     f"{PORT}/native/render.py": [
+        (["from demuxlet_tpu.native.emit import emit"], []),
         (["    args = ("], ["    rc = lib.dmx_render_pass2_compact("]),
         (["    rc = lib.dmx_render_pass2_compact(*args)"], []),
+        (["        emit(wsing2, out2, len2.value)",
+          "        emit(wbest, outb, lenb.value)"],
+         ["        wsing2.write(C.string_at(out2, len2.value).decode())",
+          "        wbest.write(C.string_at(outb, lenb.value).decode())"]),
         (["    args = ("], ["    rc = lib.dmx_render_single("]),
         (["    rc = lib.dmx_render_single(*args)"], []),
+        (["        emit(fh, out, ln.value)"],
+         ["        fh.write(C.string_at(out, ln.value).decode())"]),
     ],
     f"{PORT}/models/outputs.py": [],
 }

@@ -168,3 +168,21 @@ def test_native_render_stripes(native, n, stripes):
     calls, used = _counts()
     _render(tout, stats, sample_ids, llks, llk0s, comp, grid, filters)
     assert _counts() == (calls + 2, used + 2 * stripes)
+
+
+@pytest.mark.parametrize("lines", [0, 1, 2, 500, 20000])
+def test_emit_writes_the_c_bytes(lines):
+    """``native/emit.emit`` writes a C buffer's UTF-8 text whole, multi-byte
+    characters included, and nothing for an empty output (a NULL pointer
+    of length 0)."""
+    from demuxlet_tpu_torch.native.emit import emit
+
+    text = "".join(f"AAAC-{i}\tdon\u00f6r\u20ac{i % 5}\t-12.34567\n"
+                   for i in range(lines))
+    raw = text.encode()
+    buf = C.create_string_buffer(raw)
+    out = C.cast(buf, C.c_char_p) if raw else C.c_char_p()
+    fh = io.StringIO()
+    fh.write("HEADER\n")
+    emit(fh, out, len(raw))
+    assert fh.getvalue() == "HEADER\n" + text

@@ -3,7 +3,9 @@ the CPU: a job under torch.profiler holds every span of the engine, the
 set-up's parts inside the set-up and one prep span a block on the
 prefetch threads; each ``phase_s`` key is its spans' summed time and the
 other spans are on the trace alone; ``counts`` holds the slots of the
-blocks as shipped; with no profiler running no range is entered."""
+blocks as shipped, the tiled pair kernel's tile items and the bytes of
+the g gathers, on a 3-, a 14- and a 64-donor pool; with no profiler
+running no range is entered."""
 
 import io
 import json
@@ -27,7 +29,8 @@ GRID = [0.0, 0.5]
 # the spans of a run_compact job, cell_stats and the native render
 JOB_SPANS = ("engine_init", "setup", "setup.nsnp", "setup.wire_cfg",
              "setup.tables", "setup.blocks", "prep", "prep_wait",
-             "dispatch", "dispatch.h2d", "fetch", "fetch.readback",
+             "dispatch", "dispatch.h2d", "dispatch.pair", "fetch",
+             "fetch.readback",
              "fetch.unpack", "finish", "cell_stats", "render.single",
              "render.pass2", "render.order", "render.pack", "render.native",
              "render.emit")
@@ -98,7 +101,7 @@ def test_every_span_of_a_job_is_traced(traced_job):
     _, by, caller = traced_job
     assert set(by) == set(JOB_SPANS)
     blocks = 5  # 40 cells in blocks of 8
-    for name in ("prep_wait", "dispatch", "dispatch.h2d"):
+    for name in ("prep_wait", "dispatch", "dispatch.h2d", "dispatch.pair"):
         assert len(by[name]) == blocks, name
         assert {e["tid"] for e in by[name]} == {caller}, name
     assert len(by["prep"]) == blocks
@@ -120,8 +123,9 @@ def test_spans_nest_as_the_job_does(traced_job):
                  "setup.blocks"):
         (part,) = by[name]
         assert _inside(part, setup), name
-    for h2d in by["dispatch.h2d"]:
-        assert any(_inside(h2d, d) for d in by["dispatch"])
+    for name in ("dispatch.h2d", "dispatch.pair"):
+        for part in by[name]:
+            assert any(_inside(part, d) for d in by["dispatch"]), name
     (fetch,) = by["fetch"]
     for name in ("fetch.readback", "fetch.unpack"):
         assert _inside(by[name][0], fetch), name
@@ -151,7 +155,9 @@ def test_phase_s_is_its_spans_time(traced_job):
 def test_counts_are_the_runs_slots(monkeypatch, skewed):
     """slots_kernel is the padded cells times padded slots of the blocks
     as the block step gets them, more than the covered slots of the run's
-    cells, with coverage sorting engaged and not."""
+    cells, with coverage sorting engaged and not; g_bytes is (3V+3) f64
+    rows over those slots; a pool of 3 donors takes K3', so no tile item
+    is counted."""
     csr, gps = _pileup(7, skewed)
     eng = TE.DemuxEngine(gps, GRID, cell_block=8, device=CPU)
     blocks, pads = eng._blocks(csr.nbcs, csr)
@@ -166,7 +172,9 @@ def test_counts_are_the_runs_slots(monkeypatch, skewed):
     monkeypatch.setattr(TD, "compact_step_body_exact", spy)
     eng.run_compact(csr, 0.5)
     nsnp = csr.n_snps_all()
-    assert eng.counts == {"slots_kernel": sum(b * s for b, s in shipped)}
+    slots = sum(b * s for b, s in shipped)
+    assert eng.counts == {"slots_kernel": slots, "pair_tile_items": 0,
+                          "g_bytes": (3 * 3 + 3) * slots * 8}
     assert len(shipped) == len(blocks)
     for (b, s), cells, pad in zip(shipped, blocks,
                                   pads or [None] * len(blocks)):
@@ -175,6 +183,44 @@ def test_counts_are_the_runs_slots(monkeypatch, skewed):
         if pad is not None:
             assert s == pad
     assert eng.counts["slots_kernel"] > nsnp.sum()
+
+
+@pytest.mark.parametrize("V", [14, 64])
+def test_pair_route_counts_and_span(monkeypatch, V):
+    """On the tiled route (V=14: one 16-tile; V=64: four an axis, the
+    symmetric plane's 10 upper-triangle tiles), each block counts the
+    tile items its K7' is given and the (3V+3) f64 rows it gathers over
+    its slots; ``run()`` counts the same; the pair route is a span
+    inside dispatch, one a block."""
+    from demuxlet_tpu_torch.ops import pair_tiled as PT
+
+    csr, gps = _pileup(17 + V, skewed=True, n_cells=24, V=V)
+    eng = TE.DemuxEngine(gps, GRID, cell_block=8, device=CPU)
+    shipped, items = [], []
+    step, tiled = TD.compact_step_body_exact, PT.pair_tiled_plain
+
+    def spy(codes, *args, wire=None, **kw):
+        shipped.append((codes.shape[0], wire[1]))
+        return step(codes, *args, wire=wire, **kw)
+
+    def spy_tiled(t, g, V, A, plan, expand):
+        items.append(len(plan.items))
+        return tiled(t, g, V, A, plan, expand)
+
+    monkeypatch.setattr(TD, "compact_step_body_exact", spy)
+    monkeypatch.setattr(PT, "pair_tiled_plain", spy_tiled)
+    eng.run_compact(csr, 0.5)
+    n_items = {14: 1, 64: 10}[V]
+    assert len(shipped) == 3 and items == [n_items] * 3
+    slots = sum(b * s for b, s in shipped)
+    assert eng.counts == {"slots_kernel": slots,
+                          "pair_tile_items": n_items * 3,
+                          "g_bytes": (3 * V + 3) * slots * 8}
+    assert 0.0 < eng.phase_s["dispatch.pair"] < eng.phase_s["dispatch"]
+    first = dict(eng.counts)
+    eng.run(csr)
+    assert eng.counts == first and items == [n_items] * 6
+    assert 0.0 < eng.phase_s["dispatch.pair"] < eng.phase_s["dispatch"]
 
 
 def test_a_second_run_resets_the_accounting():

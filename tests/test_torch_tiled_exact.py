@@ -34,13 +34,15 @@ def _grid(A):
 # ---------------------------------------------------------------- plan
 
 @pytest.mark.parametrize("A", [1, 2, 3, 5, 8])
-@pytest.mark.parametrize("vs", [(2, 17), (17, 29), (29, 41)])
+@pytest.mark.parametrize("vs", [(2, 17), (17, 29), (29, 41), (41, 65)])
 def test_plan_covers_every_channel_once(A, vs):
-    """For V in range(*vs) past the unrolled cap (V = 9..40, and V = 7, 8 on
+    """For V in range(*vs) past the unrolled cap (V = 9..64, and V = 7, 8 on
     8-tiles at A = 8): every (j, k, alpha) channel of a non-separable alpha
     is written by exactly one tile, either directly or, on the symmetric
     plane, as the mirror of (k, j); the separable alpha == 0 plane by none.
-    With and without a0_sep/sym_a."""
+    The symmetric plane takes the upper triangle of the tiles, n(n+1)/2
+    items for n tiles an axis (10 at V=64 on 16-tiles). With and without
+    a0_sep/sym_a."""
     for V in range(*vs):
         for a0_sep, sym in ((True, True), (False, True), (False, False)):
             grid = _grid(A)
@@ -64,6 +66,11 @@ def test_plan_covers_every_channel_once(A, vs):
                                 hits[k, j, a] += 1
             tiled = [a for a in range(A) if not (a0_sep and a == 0)]
             assert sorted(plan.alist) == tiled
+            n_t = -(-V // plan.tile)
+            n_sym = n_t * (n_t + 1) // 2 if sym_a in tiled else 0
+            assert sum(it[4] for it in plan.items) == n_sym
+            if V == 64 and n_sym:
+                assert (plan.tile, n_sym) == (16, 10)
             assert (hits[..., tiled] == 1).all()
             if a0_sep:
                 assert (hits[..., 0] == 0).all()
@@ -180,6 +187,45 @@ def test_llks_match_oracle(V, A):
     assert n == scl.nbcs
 
 
+@pytest.mark.parametrize("seed,empty", [(2 ** 31 + 7, 0), (2 ** 33 + 5, 32)])
+def test_run_compact_matches_plain_reference_at_64_donors(seed, empty):
+    """A 64-donor pool on the default grid (the benchmark's kang64_a2
+    configuration, cut to 400 SNPs): the engine's run_compact, cell_stats
+    and both renders (plain K2', K7' and K6' on the CPU) against the
+    benchmark's plain reference (``portbench/reference.py``): rows within
+    the configuration's rows_gap limit, every rendered line equal. 96
+    barcodes (15% doublets), in blocks of 32, with 32 empty droplets in
+    the second case."""
+    import json
+    import os
+
+    from portbench import compare, generator, harness, reference
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs",
+                           "kang64_a2.json")) as fh:
+        cfg = json.load(fh)
+    with open(os.path.join(root, "portbench", "traffic",
+                           "unfiltered.json")) as fh:
+        traffic = json.load(fh)
+    cfg.update(snps=400, cell_block=32)
+    traffic.update(cells=96 - empty, empty=empty)
+    traffic["cell_coverage"] = dict(median=60, sigma=0.6, clip=[10, 200])
+    gt, gps = generator.pool_gps(cfg, seed, CPU)
+    lib = generator.make_library(cfg, traffic, gt, seed, 0, CPU)
+    rec, rows, texts = harness.run_job(lib, gps, cfg, CPU,
+                                       harness.Spans(False))
+    assert rec["route"].startswith("kernels K2' + K7' + K6'")
+    ref = reference.decide(reference.llks(lib, gps, cfg, CPU), cfg)
+    gap, field = compare.rows_gap(rows, ref, 64, 2)
+    assert gap <= cfg["limits"]["rows_gap"], field
+    stats = dict(barcodes=lib.barcodes, totl=lib.totl, pass_=lib.pass_,
+                 uniq=lib.uniq, nsnp=ref["nsnp"])
+    assert compare.render_lines_off(texts, rows, stats, lib.sample_ids,
+                                    cfg) == cfg["limits"]["render_lines_off"]
+    assert texts[0].count("\n") == 96 * 64 + 1
+
+
 @pytest.mark.parametrize("a0_sep,sym", [(True, True), (False, False)])
 def test_all_padding_block_is_exactly_zero(a0_sep, sym):
     """No observation anywhere on a V=20 pool: every LLK is exactly 0."""
@@ -276,6 +322,7 @@ def cuda_device():
     (16, 130, 20, [0.5, 0.1], None),  # no separable plane; S % 32 != 0
     (16, 128, 24, [0.0], None),  # single-point alpha == 0 grid: K6' alone
     (2, 8192, 32, [0.0, 0.5], None),  # deep: the exponents run far
+    (6, 640, 64, [0.0, 0.5], None),  # 4 tiles an axis: 10 upper-triangle
     (8, 1000, 17, _grid(3), "floor"),  # S % 64 != 0 (the staging chunk)
     (4, 200, 7, _grid(8), "floor"),
     (4, 256, 32, _grid(5), "special"),
