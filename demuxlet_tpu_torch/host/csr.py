@@ -64,6 +64,30 @@ class CsrPileup:
         self._nsnp_cache = (len(self.obs_snp), out)
         return out
 
+    def obs_pass(self, cap_bq: int) -> bool:
+        """One native pass over every observation (native/obs.py) that
+        fills both caches of the engine's set-up: n_snps_all's and the
+        wire code histogram of ``code_hist(cap_bq)``. False, with neither
+        filled, where the native library is absent or refuses the input;
+        the numpy passes then run as before."""
+        from demuxlet_tpu_torch.native import obs
+
+        got = obs.obs_pass(self, cap_bq)
+        if got is None:
+            return False
+        n = len(self.obs_snp)
+        self._nsnp_cache = (n, got[0])
+        self._code_hist_cache = (cap_bq, n, got[1])
+        return True
+
+    def code_hist(self, cap_bq: int):
+        """The code histogram ``obs_pass(cap_bq)`` cached (the counts of
+        host/wire.choose_cfg's code pass), or None."""
+        cached = getattr(self, "_code_hist_cache", None)
+        if cached is not None and cached[:2] == (cap_bq, len(self.obs_snp)):
+            return cached[2]
+        return None
+
     def _n_snps_all_impl(self) -> np.ndarray:
         n = self.nbcs
         tot = len(self.obs_snp)

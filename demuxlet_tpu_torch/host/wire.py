@@ -135,11 +135,15 @@ def choose_cfg(csr, cap_bq: int, sample_cells: int = 1024) -> WireCfg:
     histogram (tail entries cost ~3 wire B + ~10 us/entry of device
     scatter ~ 0.8 equivalent link B at 80 MB/s -> weight 5.4); with
     cfg.adaptive the packer refines U0 per block-shape key from the
-    actual block data.
+    actual block data. Where the pileup's native pass ran
+    (CsrPileup.obs_pass), its cached histogram stands for the bincount pass.
     """
     nq = cap_bq + 1
     counts = np.zeros(3 * nq + 1, dtype=np.int64)
     n = len(csr.obs_snp)
+    hist = csr.code_hist(cap_bq) if hasattr(csr, "code_hist") else None
+    if hist is not None:  # every code counted: no observation left to pass
+        counts, n = hist, 0
     step = 16 << 20
     b16 = np.empty(min(step, n), dtype=np.uint16)
     b8 = np.empty(min(step, n), dtype=np.uint8)

@@ -455,9 +455,12 @@ class DemuxEngine:
         pileups lack the CSR arrays). Cached per pileup; recomputing
         invalidates the dict LUT caches. DEMUX_TPU_WIRE=v1 forces the
         round-4 format. A run's set-up passes its ``phase_s`` as acct:
-        the two passes over the observations a new pileup takes are the
-        spans setup.nsnp (``n_snps_all``) and setup.wire_cfg
-        (``choose_cfg``); a cached config takes neither."""
+        setup.nsnp is the pass over all observations a new pileup takes
+        (``CsrPileup.obs_pass``, native, which fills the caches of
+        ``n_snps_all`` and of the code histogram; else ``n_snps_all``'s
+        numpy pass), setup.wire_cfg ``choose_cfg`` (its numpy code pass
+        where the native one did not run, and its sample of the first
+        cells); a cached config takes neither."""
         if (
             self.cap_bq > 126
             or not hasattr(scl, "cell_ptr")
@@ -476,6 +479,8 @@ class DemuxEngine:
             # (uniform wire form); such a pileup is never cached
             if hasattr(scl, "n_snps_all"):
                 with span("setup.nsnp", acct):
+                    if hasattr(scl, "obs_pass"):
+                        scl.obs_pass(self.cap_bq)
                     smax = int(np.max(scl.n_snps_all(), initial=0))
                 # conservative pow2 bucket: coverage-sorted blocking pads
                 # slot axes to powers of two

@@ -30,6 +30,7 @@ _LOAD_FAILED = False
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "prep.cpp")
+OBS_SRC = os.path.join(HERE, "obs.cpp")
 OUT = os.path.join(HERE, "_prep.so")
 
 
@@ -38,8 +39,9 @@ def build(force: bool = False) -> str:
     # native/build.py — an added #include must not silently ship a stale
     # _prep.so (the exact failure mode the round-4 fuzz catch fixed for
     # _ingest.so). prep.cpp currently has no local includes; list any
-    # future .inc here.
-    deps = [SRC]
+    # future .inc here. obs.cpp (the set-up's pass over all observations,
+    # native/obs.py) is the library's second TU.
+    deps = [SRC, OBS_SRC]
     if (
         not force
         and os.path.exists(OUT)
@@ -49,7 +51,7 @@ def build(force: bool = False) -> str:
     tmp = OUT + ".tmp%d" % os.getpid()
     subprocess.run(
         ["g++", "-O2", "-march=native", "-std=c++17", "-shared", "-fPIC",
-         "-o", tmp, SRC],
+         "-pthread", "-o", tmp, SRC, OBS_SRC],
         check=True,
     )
     os.replace(tmp, OUT)

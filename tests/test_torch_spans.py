@@ -240,6 +240,32 @@ def test_a_second_run_resets_the_accounting():
     assert res.llks.shape == (csr.nbcs, 3)
 
 
+def test_one_native_pass_a_pileup():
+    """A first run_compact on a pileup runs the native pass over its
+    observations once (the pass counter's calls + 1), timed by setup.nsnp,
+    and setup.wire_cfg reads its histogram; cell_stats then takes the
+    pass's distinct-SNP counts and runs no pass; a second run_compact on
+    the pileup takes neither span and no pass."""
+    from demuxlet_tpu_torch.native import obs
+
+    if obs.counts() is None:
+        pytest.skip("native prep not built")
+    csr, gps = _pileup(13, skewed=True)
+    eng = TE.DemuxEngine(gps, GRID, cell_block=8, device=CPU)
+    calls = obs.counts()[0]
+    eng.run_compact(csr, 0.5)
+    assert obs.counts()[0] == calls + 1
+    assert eng.phase_s["setup.nsnp"] > 0.0
+    assert eng.phase_s["setup.wire_cfg"] > 0.0
+    assert csr.code_hist(eng.cap_bq) is not None
+    stats = TE.cell_stats(csr)
+    np.testing.assert_array_equal(stats.nsnp, csr._n_snps_all_impl())
+    assert obs.counts()[0] == calls + 1
+    eng.run_compact(csr, 0.5)
+    assert eng.phase_s["setup.nsnp"] == eng.phase_s["setup.wire_cfg"] == 0.0
+    assert obs.counts()[0] == calls + 1
+
+
 def test_no_record_function_without_a_profiler(monkeypatch):
     """With no profiler running a span enters no range (neither
     record_function nor the C++ one), and its accounting still adds up."""
