@@ -436,10 +436,10 @@ def exact_inputs(rng, B, S, grid, dev, nv=V):
     ~20% padded slots; and the pair kernels' genotype rows for nv samples,
     drawn on the device: flat-Dirichlet posteriors, their f64 mean as the
     background rows, neutral rows on padded slots."""
-    from demuxlet_tpu_torch.models.engine import exact_tables_from_numpy
+    from demuxlet_tpu_torch.models.engine import exact_host_tables, place
 
-    tab = exact_tables_from_numpy(np.full((1, nv, 3), 1 / 3), grid, 40, None,
-                                  dev)
+    tab = place(exact_host_tables(np.full((1, nv, 3), 1 / 3), grid, 40, None),
+                dev)
     codes = rng.choice(np.r_[23, 37, 41 + 23, 41 + 37], size=(B, S, 3))
     nobs = rng.integers(1, 4, size=(B, S))
     pad = rng.random((B, S)) < 0.2
@@ -461,7 +461,7 @@ def lane_profile_inputs(rng, B, S, dev, grid=GRID, nv=V, U=64):
     does, g as ``exact_inputs`` draws it; info: U, U0, K2p, the tail width
     and its real entries."""
     from demuxlet_tpu_torch.host import wire as W
-    from demuxlet_tpu_torch.models.engine import exact_tables_from_numpy
+    from demuxlet_tpu_torch.models.engine import exact_host_tables, place
 
     cfg = W.WireCfg((23, 37, 41 + 23, 41 + 37), 4, 8)
     n = 1 + rng.poisson(0.15, size=(B, S))
@@ -485,8 +485,8 @@ def lane_profile_inputs(rng, B, S, dev, grid=GRID, nv=V, U=64):
             torch.int32).to(dev) for x in (tpos, tcode))
     dense = torch.from_numpy(dense.astype(np.int32)).to(dev)
     msk = (dense != cfg.none).any(dim=-1)
-    tab = exact_tables_from_numpy(np.full((1, nv, 3), 1 / 3), grid, 40, cfg,
-                                  dev)
+    tab = place(exact_host_tables(np.full((1, nv, 3), 1 / 3), grid, 40, cfg),
+                dev)
     g = flat_dirichlet(rng, (nv, 3, B, S), dev)
     g = neutral_on((~msk).cpu().numpy(),
                    torch.cat([g, g.mean(dim=0, keepdim=True)]))
@@ -657,8 +657,10 @@ def engine_vs_plain(eng, csr, llks, llk0s, comp, blocks, pads, exact, dev):
     from demuxlet_tpu_torch.models.engine import _h2d
     from demuxlet_tpu_torch.ops.front_exact import front_exact_plain
     from demuxlet_tpu_torch.ops.pair import pair_llks_plain
+    from demuxlet_tpu_torch.ops.wire import decode
 
-    cfg = eng._wire_cfg_for(csr)
+    cfg = eng._packer.choose(csr)
+    tab = eng._tables(eng.mode)
     V, A = eng.nv, len(eng.grid_alpha)
     exact_pair_plain = exact_pair_plain_of(V, A)
     dbl_w = torch.as_tensor(D.doublet_weights(V, eng.grid_alpha, 0.5),
@@ -668,21 +670,19 @@ def engine_vs_plain(eng, csr, llks, llk0s, comp, blocks, pads, exact, dev):
     got, ref, checked = [], [], []
     for i in sorted({0, 1, len(blocks) - 1} & set(range(len(blocks)))):
         cells = blocks[i]
-        buf, meta, _ = eng._prep_codes_blk(csr, cells,
-                                           pads[i] if pads else None)
-        # the v2 wire meta: ("w2", S, U, ...), U the full-lane count
-        checked.append(dict(block=i, S=meta[1], U=meta[2], cells=len(cells)))
+        blk = eng._packer.pack(csr, cells, cfg, pads[i] if pads else None)
+        # the v2 wire's meta: the form, S, then U, the full-lane count
+        checked.append(dict(block=i, S=blk.meta[1], U=blk.meta[2],
+                            cells=len(cells)))
+        parts = decode(_h2d(blk.bufs, dev), blk.meta)
         if exact:
             rows = D.compact_step_body_exact(
-                _h2d(buf, dev), None, None, eng._exact_tables(cfg), dbl_w,
-                dbl_msk, A, V, 0.5, wire=meta, front_fn=front_exact_plain,
-                pair_fn=exact_pair_plain, **kw)
+                parts, tab, A, V, dbl_w, dbl_msk, 0.5,
+                front_fn=front_exact_plain, pair_fn=exact_pair_plain, **kw)
         else:
-            tab = eng._fast_tables(cfg)
             rows = D.compact_step_body(
-                _h2d(buf, dev), None, None, tab.gps, tab.gp0, tab.w_ext,
-                tab.logf_ext, dbl_w, dbl_msk, A, V, 0.5, expand=tab.expand,
-                wire=meta, pair_fn=pair_llks_plain, **kw)
+                parts, tab, A, V, dbl_w, dbl_msk, 0.5,
+                pair_fn=pair_llks_plain, **kw)
         ref.append(rows.cpu().numpy()[: len(cells)])
         got.append(pack_rows(D.take(comp, np.asarray(cells)), llks[cells],
                              llk0s[cells]))
@@ -733,7 +733,7 @@ def drive_engine(csr, gps, mode, dev, kernels, grid=GRID, absent=()):
             and np.isfinite(comp.pair_llk12).all()
             and llks.shape == (N_CELLS, nv)):
         fail(f"{mode} engine outputs are not finite or have the wrong shape")
-    if eng._wire_cfg_for(csr) is None:
+    if eng._cfg is None:
         fail(f"the {mode} engine run did not use wire v2")
     exact = mode == "exact"
     err, ties, checked = engine_vs_plain(eng, csr, llks, llk0s, comp, blocks,
@@ -763,30 +763,27 @@ def run_vs_plain(eng, csr, res, blocks, pads, dev):
         front_exact_plain,
     )
     from demuxlet_tpu_torch.ops.pair import pair_llks_plain
+    from demuxlet_tpu_torch.ops.wire import decode
 
-    cfg = eng._wire_cfg_for(csr)
+    cfg = eng._packer.choose(csr)
+    tab = eng._tables(eng.mode)
     V, A = eng.nv, eng.n_alpha
     exact = eng.mode == "exact"
     err_fn = abs_err if exact else rel_err
     err, checked = 0.0, []
     for i in sorted({0, 1, len(blocks) - 1} & set(range(len(blocks)))):
         cells = blocks[i]
-        buf, meta, _ = eng._prep_codes_blk(csr, cells,
-                                           pads[i] if pads else None)
-        checked.append(dict(block=i, S=meta[1], U=meta[2], cells=len(cells)))
-        kw = dict(a0_sep=True, sym_a=eng.grid_alpha.index(0.5), wire=meta)
+        blk = eng._packer.pack(csr, cells, cfg, pads[i] if pads else None)
+        checked.append(dict(block=i, S=blk.meta[1], U=blk.meta[2],
+                            cells=len(cells)))
+        parts = decode(_h2d(blk.bufs, dev), blk.meta)
+        kw = dict(a0_sep=True, sym_a=eng.grid_alpha.index(0.5))
         if exact:
-            tab = eng._exact_tables(cfg)
-            outs = exact_block(
-                _h2d(buf, dev), None, None, tab.g_table, tab.lut, tab.cmask,
-                tab.gsel, tab.expand, A, V, front_fn=front_exact_plain,
-                pair_fn=exact_pair_plain_of(V, A), **kw)
+            outs = exact_block(parts, tab, A, V, front_fn=front_exact_plain,
+                               pair_fn=exact_pair_plain_of(V, A), **kw)
         else:
-            tab = eng._fast_tables(cfg)
-            outs = fast_front(
-                _h2d(buf, dev), None, None, tab.gps, tab.gp0, tab.w_ext,
-                tab.logf_ext, A, V, expand=tab.expand, pair_fn=pair_llks_plain,
-                g_table=tab.g_table, **kw)
+            outs = fast_front(parts, tab, A, V, pair_fn=pair_llks_plain,
+                              **kw)
         for got, want in zip((res.llks, res.llk0s, res.llk_ab, res.llk_00),
                              outs):
             err = max(err, err_fn(torch.from_numpy(got[cells]),

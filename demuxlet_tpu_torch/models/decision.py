@@ -240,22 +240,17 @@ def pack_rows(out, llk, llk0):
     return torch.cat(cols, dim=1)
 
 
-def compact_step_body(
-    codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext, dbl_w, dbl_msk,
-    n_alpha, n_samples, doublet_prior, a0_sep=False, sym_a=None,
-    expand=None, wire=None, pair_fn=pair_llks, g_table=None,
-    dtype=torch.float64,
-):
-    """Fused fast block step + decision pass, packed into ONE (B, 2V+A+11)
-    f64 tensor on the block's device. g_table: the engine's
-    ``ops/front.fast_g_table`` of gps_table and gp0_table (None: built per
-    call). dtype: the decision pass's (float32 is the JAX CLI's
-    ``--precision f32``, whose casts to f64 stay f32 without x64; dbl_w
-    comes in it)."""
+def compact_step_body(parts, tab, n_alpha, n_samples, dbl_w, dbl_msk,
+                      doublet_prior, a0_sep=False, sym_a=None,
+                      pair_fn=pair_llks, dtype=torch.float64):
+    """Fused fast block step (``ops/front.fast_front`` on a decoded block
+    with the engine's ``DeviceTables`` tab) + decision pass, packed into
+    ONE (B, 2V+A+11) f64 tensor on the block's device. dtype: the decision
+    pass's (float32 is the JAX CLI's ``--precision f32``, whose casts to
+    f64 stay f32 without x64; dbl_w comes in it)."""
     llk, llk0, llk_ab, llk_00 = fast_front(
-        codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext,
-        n_alpha, n_samples, a0_sep=a0_sep, sym_a=sym_a, expand=expand,
-        wire=wire, pair_fn=pair_fn, g_table=g_table,
+        parts, tab, n_alpha, n_samples, a0_sep=a0_sep, sym_a=sym_a,
+        pair_fn=pair_fn,
     )
     out = decide(llk_ab.to(dtype), llk_00.to(dtype), dbl_w, dbl_msk,
                  doublet_prior)
@@ -263,23 +258,23 @@ def compact_step_body(
 
 
 def compact_step_body_exact(
-    codes, idx, msk, tab, dbl_w, dbl_msk, n_alpha, n_samples,
-    doublet_prior, a0_sep=False, sym_a=None, wire=None,
-    front_fn=front_exact, pair_fn=pair_exact, acct=None,
+    parts, tab, n_alpha, n_samples, dbl_w, dbl_msk, doublet_prior,
+    a0_sep=False, sym_a=None, front_fn=front_exact, pair_fn=pair_exact,
+    acct=None,
 ):
     """Fused exact block step (f64 throughout) + decision pass, packed
-    into ONE (B, 2V+A+11) f64 tensor like ``compact_step_body``. tab: the
-    engine's ``ExactTables``. front_fn/pair_fn: K2' and K3' (the engine),
-    or their plain versions (a check). Everything after the front (the g
-    gather, the pair search, the decision and the packing) is the span
+    into ONE (B, 2V+A+11) f64 tensor like ``compact_step_body``. parts: a
+    decoded block (``ops/wire.Parts``); tab: the engine's
+    ``ExactTables``. front_fn/pair_fn: K2' and K3' (the engine), or their
+    plain versions (a check). Everything after the front (the g gather,
+    the pair search, the decision and the packing) is the span
     dispatch.pair (``utils/spans``; acct: the engine's ``phase_s``, or
     None for the trace alone)."""
-    front = exact_front(codes, idx, msk, tab.lut, tab.cmask, tab.gsel, wire,
-                        front_fn)
+    front = exact_front(parts, tab, front_fn)
+    del parts  # the decoded lanes are not held through the pair search
     with span("dispatch.pair", acct):
         llk, llk0, llk_ab, llk_00 = exact_pair(
-            *front, tab.g_table, tab.expand, n_alpha, n_samples, a0_sep,
-            sym_a, pair_fn)
+            *front, tab, n_alpha, n_samples, a0_sep, sym_a, pair_fn)
         del front  # the front's tables are not held through the decision
         out = decide(llk_ab, llk_00, dbl_w, dbl_msk, doublet_prior)
         return pack_rows(out, llk, llk0)

@@ -2,9 +2,11 @@
 exact and fast modes, one device or a mesh of them).
 
 ``run_compact`` follows the JAX engine's single-device branch: host
-block prep on a prefetch pool (native C packer or the Python packer,
-wire v2 by default), pinned-host H2D with ``non_blocking`` copies, the
-fused block step (``decision.compact_step_body_exact`` in exact mode,
+block prep on a prefetch pool (``models/blocks.py``: the run's block
+format, wire v2 where it applies, packed natively or in numpy),
+pinned-host H2D with ``non_blocking`` copies, the device decode
+(``ops/wire.decode``) and the fused block step
+(``decision.compact_step_body_exact`` in exact mode,
 ``decision.compact_step_body`` in fast mode) enqueued on the device, ONE
 device-side concat and ONE readback at the end, then the inverse of the
 coverage-sorted block permutation.
@@ -19,10 +21,10 @@ count slots through ``ops/likelihood.py``, as the JAX engine routes its
 XLA path. Fast mode refuses cap-BQ > 126, as the JAX engine does.
 
 The JAX module imports JAX at the top, so its JAX-free helpers are
-copied here (``compute_gp0``, ``_prefetched``, ``_to_wire``, ``_bucket``,
-``EngineResult``, ``_pad_block``, ``_wire_cfg_for``, ``_prep_codes_blk``,
-``_pack_reg``, ``_shrink_codes_blk``, ``_blocks``, ``cell_stats``);
-tests/test_torch_engine.py pins each copy to the original.
+copied: here ``compute_gp0``, ``_prefetched``, ``EngineResult``,
+``_pad_block``, ``_blocks`` and ``cell_stats``, and those of the block
+format in ``models/blocks.py``; tests/test_torch_engine.py pins each copy
+to the original.
 
 Both modes run every pool size: V*V*A > 384 takes the tiled K7' + K6'
 (exact) or K5' + K4' (fast; ``ops/pair_tiled.py``) where smaller pools
@@ -43,7 +45,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -51,18 +52,20 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from demuxlet_tpu_torch.host.csr import CsrPileup, build_codes_block
+from demuxlet_tpu_torch.host.csr import CsrPileup
 from demuxlet_tpu_torch.host.pileup import PileupData
 from demuxlet_tpu_torch.host.slots import SlotBlock, build_slots
 from demuxlet_tpu_torch.models.outputs import CellStats
 from demuxlet_tpu_torch.ops import luts
 from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 from demuxlet_tpu_torch.models import decision as D
+from demuxlet_tpu_torch.models.blocks import BlockPacker, _bucket
 from demuxlet_tpu_torch.ops.front import fast_front, fast_g_table
 from demuxlet_tpu_torch.ops.front_exact import exact_block
 from demuxlet_tpu_torch.ops.pair import dedup_channels, extend_luts
 from demuxlet_tpu_torch.ops.pair_exact import takes_k3
 from demuxlet_tpu_torch.ops.pair_tiled import plan_tiles
+from demuxlet_tpu_torch.ops.wire import decode
 from demuxlet_tpu_torch.parallel import mesh as pmesh
 from demuxlet_tpu_torch.utils.spans import span
 
@@ -88,8 +91,10 @@ def compute_gp0(gps: np.ndarray) -> np.ndarray:
 
 def _prefetched(pool, fn, items, depth: int = 4):
     """Yield fn(item) in order with up to `depth` evaluations in flight on
-    `pool` — overlaps host block prep (numpy, releases the GIL) with device
-    compute; the serial prep was the end-to-end bottleneck at 100K cells."""
+    `pool` — overlaps host block prep (``models/blocks``: the native
+    packer, whose calls release the GIL, with Python around them) with
+    device compute; the serial prep was the end-to-end bottleneck at 100K
+    cells."""
     from collections import deque
 
     futs = deque()
@@ -106,32 +111,6 @@ def _prefetched(pool, fn, items, depth: int = 4):
         except StopIteration:
             pass
         yield out
-
-
-def _to_wire(codes, idx_tuple):
-    """Fuse (codes, delta-idx) into ONE (B, W) int32 wire buffer (the v1
-    wire; unpacked on device by bitcast). Returns (wire, (S, U, K))."""
-    d8, base, fix_pos, fix_val = idx_tuple
-    B, S, U = codes.shape
-    K = fix_pos.shape[1]
-    wire = np.concatenate(
-        [
-            codes.reshape(B, S * U).view(np.int32),
-            d8.view(np.int32),
-            base[:, None],
-            fix_pos,
-            fix_val,
-        ],
-        axis=1,
-    )
-    return wire, (S, U, K)
-
-
-def _bucket(n: int, minimum: int = 8) -> int:
-    b = minimum
-    while b < n:
-        b *= 2
-    return b
 
 
 @dataclass
@@ -196,11 +175,6 @@ def place(tables, device):
         f.name: getattr(tables, f.name).to(device)
         for f in dataclasses.fields(tables)
         if isinstance(getattr(tables, f.name), torch.Tensor)})
-
-
-def tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
-    """Fast-mode device tables: ``host_tables`` placed on ``device``."""
-    return place(host_tables(gps, grid_alpha, cap_bq, wire_cfg), device)
 
 
 @dataclass
@@ -288,13 +262,6 @@ def _g_table(gps: np.ndarray) -> np.ndarray:
     return g
 
 
-def exact_tables_from_numpy(gps, grid_alpha, cap_bq, wire_cfg, device):
-    """Exact-mode device tables: ``exact_host_tables`` placed on
-    ``device``."""
-    return place(exact_host_tables(gps, grid_alpha, cap_bq, wire_cfg),
-                 device)
-
-
 def _h2d(x, device):
     """numpy -> device tensor: pinned host copy + non_blocking H2D on CUDA
     (the caching host allocator keeps the pinned buffer alive until the
@@ -305,15 +272,6 @@ def _h2d(x, device):
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
-
-
-def _nbytes(*bufs):
-    return sum(
-        e.nbytes
-        for buf in bufs
-        if buf is not None
-        for e in (buf if isinstance(buf, tuple) else (buf,))
-    )
 
 
 class DemuxEngine:
@@ -404,23 +362,16 @@ class DemuxEngine:
         self._dense_step = pmesh.build_sharded_step(
             self._grid, self.n_alpha, slot_chunk=slot_chunk, dtype=dtype)
         # host tables, built once per (kind, wire config) and counted
-        # there; device tables, one set per mesh member (row, s), placed
-        # from them
+        # there; device tables, one set per (kind, mesh member), placed
+        # from them for the wire config _cfg (``_tables``)
         self._host = {}
         self.host_table_builds = {}
-        self._tables = {}
-        self._tables_v2 = {}
-        self._exact = {}
-        self._exact_v2 = {}
-        self._dense = {}
+        self._dev = {}
+        self._cfg = None
         self.route = None  # set by each run: its kernels, or dense and why
         self._tile_items = 0  # set by each kernel-route run: _plan's items
-        # wire v2 (host/wire.py): per-run packed H2D format, chosen once
-        # per pileup; the (S, U) meta registry keeps same-shape blocks on
-        # one layout
-        self._wire_cfg = None
-        self._wire_reg = {}
-        self._wire_reg_lock = threading.Lock()
+        # the kernel route's block format, chosen once per pileup
+        self._packer = BlockPacker(cap_bq, cell_block, self.gps.shape[0])
         self._reset_accounting()
 
     @functools.cached_property
@@ -449,171 +400,6 @@ class DemuxEngine:
         return (self.grid_alpha.index(0.5)
                 if 0.5 in self.grid_alpha else None)
 
-    def _wire_cfg_for(self, scl, acct=None):
-        """The run's wire-v2 config, or None when the packed wire does
-        not apply (cap-BQ > 126 breaks the u8 code bytes; dict-based
-        pileups lack the CSR arrays). Cached per pileup; recomputing
-        invalidates the dict LUT caches. DEMUX_TPU_WIRE=v1 forces the
-        round-4 format. A run's set-up passes its ``phase_s`` as acct:
-        setup.nsnp is the pass over all observations a new pileup takes
-        (``CsrPileup.obs_pass``, native, which fills the caches of
-        ``n_snps_all`` and of the code histogram; else ``n_snps_all``'s
-        numpy pass), setup.wire_cfg ``choose_cfg`` (its numpy code pass
-        where the native one did not run, and its sample of the first
-        cells); a cached config takes neither."""
-        if (
-            self.cap_bq > 126
-            or not hasattr(scl, "cell_ptr")
-            or os.environ.get("DEMUX_TPU_WIRE", "v2") == "v1"
-        ):
-            return None
-        # the cfg cache rides ON the pileup (an id(scl)-keyed engine
-        # cache could serve a stale dictionary to a different pileup
-        # allocated at a reused address)
-        cache = getattr(scl, "_wire_cfg_cache", None)
-        if cache is not None and cache[0] == self.cap_bq:
-            cfg = cache[1]
-        else:
-            # u16 fix/tail positions bound the slot axis: if ANY block
-            # could pad past 65535 slots, disable v2 for the whole RUN
-            # (uniform wire form); such a pileup is never cached
-            if hasattr(scl, "n_snps_all"):
-                with span("setup.nsnp", acct):
-                    if hasattr(scl, "obs_pass"):
-                        scl.obs_pass(self.cap_bq)
-                    smax = int(np.max(scl.n_snps_all(), initial=0))
-                # conservative pow2 bucket: coverage-sorted blocking pads
-                # slot axes to powers of two
-                if _bucket(max(smax, 1), minimum=128) > 0xFFFF:
-                    return None
-            from demuxlet_tpu_torch.host.wire import choose_cfg
-
-            with span("setup.wire_cfg", acct):
-                cfg = choose_cfg(scl, self.cap_bq)
-            try:
-                scl._wire_cfg_cache = (self.cap_bq, cfg)
-            except AttributeError:
-                pass
-        if cfg != self._wire_cfg:
-            self._wire_cfg = cfg
-            self._tables_v2 = {}
-            self._exact_v2 = {}
-            self._host = {k: v for k, v in self._host.items()
-                          if k[1] is None}
-            self._wire_reg = {}
-        return self._wire_cfg
-
-    def _prep_codes_blk(self, scl, cells, pad=None):
-        """Host block prep for the wire path: native C single pass
-        (native/prep.py) with the Python build_codes_block +
-        _shrink_codes_blk fallback, then (default) the v2 repack
-        (host/wire.py). cap-BQ > 126 keeps the explicit (codes, idx,
-        msk)."""
-        kw = {} if pad is None else {"pad_slots_to": pad}
-        cfg = self._wire_cfg_for(scl)
-        if self.cap_bq <= 126 and hasattr(scl, "cell_ptr"):
-            from demuxlet_tpu_torch.native import prep as nprep
-
-            if cfg is not None and nprep.available():
-                out = self._pack_reg(lambda ff: nprep.pack_block_v2(
-                    scl, cells, cfg, cap_bq=self.cap_bq,
-                    pad_cells_to=self.cell_block, floors_for=ff, **kw,
-                ))
-                if out is not None:
-                    buf, meta = out
-                    return buf, meta, None
-            elif cfg is None:
-                blk = nprep.prep_block_shrunk(
-                    scl, cells, cap_bq=self.cap_bq,
-                    pad_cells_to=self.cell_block, **kw,
-                ) if nprep.available() else None
-                if blk is not None:
-                    return blk
-        codes_blk = build_codes_block(
-            scl, cells, cap_bq=self.cap_bq,
-            pad_cells_to=self.cell_block, **kw,
-        )
-        if cfg is not None:
-            from demuxlet_tpu_torch.host import wire as W
-
-            key = (codes_blk[0].shape[1], codes_blk[0].shape[2])
-            out = self._pack_reg(
-                lambda ff: W.pack_wire_block(*codes_blk, cfg,
-                                             floors=ff(key)))
-            if out is not None:
-                buf, meta = out
-                return buf, meta, None
-            # v2 declined (slot extent beyond u16 addressing): v1 wire
-        return self._shrink_codes_blk(codes_blk)
-
-    def _pack_reg(self, pack_fn):
-        """Pack through the shape registry: pack_fn receives a
-        floors-lookup callable (key=(S, U) -> harmonized (U0, K2p, Kp)
-        or None); afterwards the produced meta raises its key's maxima.
-        Prefetch threads race benignly — a stale floor only costs one
-        extra layout, never correctness."""
-
-        def floors_for(key):
-            with self._wire_reg_lock:
-                return self._wire_reg.get(key)
-
-        out = pack_fn(floors_for)
-        if out is None:
-            return None
-        buf, meta = out
-        key = (meta[1], meta[2])
-        u0, k2p, kp = meta[3], meta[4], meta[5]
-        with self._wire_reg_lock:
-            cur = self._wire_reg.get(key)
-            if cur is None:
-                self._wire_reg[key] = (u0, k2p, kp)
-            else:
-                self._wire_reg[key] = (
-                    cur[0], max(cur[1], k2p), max(cur[2], kp))
-        return buf, meta
-
-    def _shrink_codes_blk(self, codes_blk):
-        """Shrink the explicit (codes, idx, msk) block: msk is dropped (the
-        device derives it from codes != 255; valid slots without codes
-        carry the marker 254 in lane 0), and slot ids ship as u8 deltas
-        with a sparse fix list when they can, else as 16-bit pairs packed
-        into int32 lanes."""
-        if self.cap_bq > 126:
-            return codes_blk
-        codes, idx, msk = codes_blk
-        empty = msk & (codes == 255).all(axis=-1)
-        if empty.any():
-            b, s = np.nonzero(empty)
-            codes[b, s, 0] = 254
-        S = idx.shape[1]
-        d = np.zeros_like(idx, dtype=np.int64)
-        d[:, 1:] = np.diff(idx.astype(np.int64), axis=1)
-        d[~msk] = 0
-        d[:, 1:][~msk[:, 1:]] = 0
-        over = d > 255
-        n_over = over.sum(axis=1)
-        K = int(n_over.max())
-        if (d >= 0).all() and K <= S // 8:
-            Kp = 8
-            while Kp < K:
-                Kp *= 2
-            fix_pos = np.zeros((idx.shape[0], Kp), dtype=np.int32)
-            fix_val = np.zeros((idx.shape[0], Kp), dtype=np.int32)
-            if K:
-                rows, cols = np.nonzero(over)
-                slot = np.concatenate(
-                    [np.arange(n) for n in n_over]
-                ).astype(np.int64) if K else np.zeros(0, np.int64)
-                fix_pos[rows, slot] = cols.astype(np.int32)
-                fix_val[rows, slot] = (d[rows, cols] - 255).astype(np.int32)
-            d8 = np.minimum(d, 255).astype(np.uint8)
-            base = idx[:, 0].astype(np.int32)
-            return codes, (d8, base, fix_pos, fix_val), None
-        if self.gps.shape[0] <= 0xFFFF and S % 2 == 0:
-            u = idx.astype(np.uint32)
-            idx = (u[:, 0::2] | (u[:, 1::2] << 16)).view(np.int32)
-        return codes, idx, None
-
     def _member(self, member):
         """The device of mesh member (row, s)."""
         return self._grid.devices[member[0]][member[1]]
@@ -638,28 +424,23 @@ class DemuxEngine:
                 self.host_table_builds.get(key, 0) + 1
         return self._host[key]
 
-    def _fast_tables(self, cfg=None, member=(0, 0)) -> DeviceTables:
-        """Device tables for the run on a mesh member (cached per wire
-        config and member)."""
-        cache = self._tables if cfg is None else self._tables_v2
-        if member not in cache:
-            cache[member] = place(self._host_tables("fast", cfg),
-                                  self._member(member))
-        return cache[member]
-
-    def _exact_tables(self, cfg=None, member=(0, 0)) -> ExactTables:
-        """Exact-mode device tables for the run on a mesh member (cached
-        per wire config and member)."""
-        cache = self._exact if cfg is None else self._exact_v2
-        if member not in cache:
-            cache[member] = place(self._host_tables("exact", cfg),
-                                  self._member(member))
-        return cache[member]
-
-    def _row_tables(self, cfg):
-        """Per mesh row, its first member's kernel-route tables."""
-        fn = self._exact_tables if self.mode == "exact" else self._fast_tables
-        return [fn(cfg, (r, 0)) for r in range(self._grid.shape["b"])]
+    def _tables(self, kind, member=(0, 0)):
+        """The device tables of one kind on mesh member (row, s): "fast"
+        (``DeviceTables``) and "exact" (``ExactTables``) for the wire
+        config ``_cfg``, or "dense", the dense route's in the run's dtype
+        (the JAX engine's ``_gps_dev``, ``_gp0_dev``, ``_logf_dev``,
+        ``_w_dev``); placed from the host build and cached until the
+        kernel route's format changes (``_kernel_setup``)."""
+        key = (kind, member)
+        if key not in self._dev:
+            dev = self._member(member)
+            if kind == "dense":
+                self._dev[key] = tuple(
+                    x.to(dev) for x in self._host_tables("dense"))
+            else:
+                self._dev[key] = place(self._host_tables(kind, self._cfg),
+                                       dev)
+        return self._dev[key]
 
     def _blocks(self, n: int, scl=None):
         """Cell-id blocks, COVERAGE-SORTED (ascending distinct-SNP count,
@@ -732,62 +513,47 @@ class DemuxEngine:
         return " on a %dx%d mesh" % (self.mesh.shape["b"],
                                      self.mesh.shape["s"])
 
-    def _ship(self, codes, idx, msk, cfg, tab, dev):
-        """One prepped block to device dev, whose tables tab are, in the
-        form the fronts take: returns ((codes, idx, msk) tensors, wire meta
-        or None); counts ``h2d_bytes`` and the block's ``counts``, and is
-        the span dispatch.h2d."""
+    def _ship(self, blk, tab, dev):
+        """A packed block (``blocks.Block``) to device dev, whose tables
+        tab are: its buffers copied there as they are; counts
+        ``h2d_bytes`` and the block's ``counts``, and is the span
+        dispatch.h2d."""
         with span("dispatch.h2d"):
-            wire = None
-            if (msk is None and isinstance(idx, tuple)
-                    and isinstance(idx[0], str)):
-                wire, idx = idx, None  # v2 packed wire: codes IS the buffer
-                slots = codes.shape[0] * wire[1]
-            else:
-                slots = codes.shape[0] * codes.shape[1]
-                if msk is None and isinstance(idx, tuple):
-                    codes, wire = _to_wire(codes, idx)
-                    idx = None
-            # with a v2 cfg active the run's LUTs are the dict-narrowed
-            # tables: a v1-form block would be scored against the wrong
-            # rows. _wire_cfg_for's run-level gate makes mixing
-            # unreachable; fail loudly if it ever is not.
-            if cfg is not None and (wire is None or wire[0] != "w2"):
-                raise RuntimeError("v1-form block in a wire-v2 run")
-            self.h2d_bytes += _nbytes(codes, idx, msk)
+            slots = blk.bufs[0].shape[0] * blk.meta[1]
+            self.h2d_bytes += sum(b.nbytes for b in blk.bufs)
             self.counts["slots_kernel"] += slots
             self.counts["pair_tile_items"] += self._tile_items
             self.counts["g_bytes"] += (tab.g_table.shape[0] * slots
                                        * tab.g_table.element_size())
-            return (_h2d(codes, dev),
-                    None if idx is None else _h2d(idx, dev),
-                    None if msk is None else _h2d(msk, dev)), wire
+            return _h2d(blk.bufs, dev)
 
-    def _dispatch_block(self, codes, idx, msk, cfg, tab, dev):
-        """One block through the kernel route on device dev, whose tables
-        tab are: (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00
-        (B, A)) there, f64 in exact mode (``ops/front_exact.exact_block``),
-        f32 in fast mode (``ops/front.fast_front``)."""
-        blk, wire = self._ship(codes, idx, msk, cfg, tab, dev)
-        kw = dict(a0_sep=self.grid_alpha[0] == 0.0, sym_a=self._sym_a(),
-                  wire=wire)
+    def _dispatch(self, row, blk, decide=None):
+        """One packed block through the kernel route on mesh row row's
+        first member: shipped (``_ship``), decoded (``ops/wire.decode``)
+        and through the mode's block step with the member's tables. Without
+        decide (``run``), returns (llk (B, V), llk0 (B,), llk_ab (B, V, V,
+        A), llk_00 (B, A)) there, f64 in exact mode
+        (``ops/front_exact.exact_block``), f32 in fast mode
+        (``ops/front.fast_front``); with decide = (dbl_w, dbl_msk,
+        doublet_prior), the first two on that device (``run_compact``),
+        the packed decision rows (``decision.compact_step_body_exact`` or
+        ``compact_step_body``, looked up at the call)."""
+        member = (row, 0)
+        tab = self._tables(self.mode, member)
+        bufs = self._ship(blk, tab, self._member(member))
+        args = (tab, self.n_alpha, self.nv, *(decide or ()))
+        kw = dict(a0_sep=self.grid_alpha[0] == 0.0, sym_a=self._sym_a())
         if self.mode == "exact":
-            return exact_block(*blk, tab.g_table, tab.lut, tab.cmask,
-                               tab.gsel, tab.expand, self.n_alpha, self.nv,
-                               acct=self.phase_s, **kw)
-        return fast_front(*blk, tab.gps, tab.gp0, tab.w_ext, tab.logf_ext,
-                          self.n_alpha, self.nv, expand=tab.expand,
-                          g_table=tab.g_table, **kw)
-
-    def _dense_tables(self, member=(0, 0)):
-        """The dense route's device tables in the run's dtype on a mesh
-        member (the JAX engine's ``_gps_dev``, ``_gp0_dev``,
-        ``_logf_dev``, ``_w_dev``)."""
-        if member not in self._dense:
-            self._dense[member] = tuple(
-                x.to(self._member(member))
-                for x in self._host_tables("dense"))
-        return self._dense[member]
+            step = (exact_block if decide is None
+                    else D.compact_step_body_exact)
+            kw["acct"] = self.phase_s
+        elif decide is None:
+            step = fast_front
+        else:
+            step, kw["dtype"] = D.compact_step_body, self.dtype
+        # decoded in the call, so that an exact step lets the decoded lanes
+        # go after its front
+        return step(decode(bufs, blk.meta), *args, **kw)
 
     def _run_block(self, blk: SlotBlock, row: int = 0):
         """One ``build_slots`` block through the dense route on mesh row
@@ -799,12 +565,13 @@ class DemuxEngine:
         Returns (llk, llk0, llk_ab, llk_00) on that member."""
         members = self._grid.devices[row]
         with span("dispatch.h2d"):
-            self.h2d_bytes += _nbytes(blk.idx, blk.msk, blk.cnt)
+            self.h2d_bytes += blk.idx.nbytes + blk.msk.nbytes + blk.cnt.nbytes
             self.counts["slots_kernel"] += blk.idx.shape[0] * blk.idx.shape[1]
             parts = [_h2d(p, dev) for p, dev in zip(
                 pmesh.split_slots(len(members), blk.idx, blk.msk, blk.cnt),
                 members)]
-        tables = [self._dense_tables((row, s)) for s in range(len(members))]
+        tables = [self._tables("dense", (row, s))
+                  for s in range(len(members))]
         return self._dense_step(row, parts, tables)
 
     def run_compact(self, scl, doublet_prior: float):
@@ -815,11 +582,12 @@ class DemuxEngine:
         (llks, llk0s, decision.CompactResult). Per-run accounting:
         ``h2d_bytes`` (block buffers shipped), ``d2h_bytes`` (the packed
         rows read back), ``counts`` (the slots shipped) and ``phase_s``,
-        each key a span (``utils/spans``): setup = wire config, tables and
-        blocking, on the first call for a pileup also its passes over all
-        observations (setup.nsnp, setup.wire_cfg; then setup.tables and
-        the trace's setup.blocks; the doublet weights' upload is setup's
-        own time); prep = host packing on the prefetch pool, summed over
+        each key a span (``utils/spans``): setup = block format, tables
+        and blocking (``_kernel_setup``), on the first call for a pileup
+        also its passes over all observations (setup.nsnp, setup.wire_cfg;
+        then setup.tables and the trace's setup.blocks; the doublet
+        weights' upload is setup's own time); prep = host packing
+        (``blocks.BlockPacker.pack``) on the prefetch pool, summed over
         threads; prep_wait = main-thread stall on prep; dispatch = H2D
         (the trace's dispatch.h2d) + enqueue; fetch = the one readback,
         which waits for the device (fetch.readback), + unpacking
@@ -835,55 +603,32 @@ class DemuxEngine:
         self._reset_accounting()
         acct = self.phase_s
         with span("setup", acct):
-            if not hasattr(scl, "cell_ptr"):
-                scl = CsrPileup.from_pileup(scl)
-            cfg = self._wire_cfg_for(scl, acct)
-            exact = self.mode == "exact"
-            with span("setup.tables", acct):
-                tabs = self._row_tables(cfg)
-            self.route = self._kernel_route(tabs[0])
+            scl, cfg = self._kernel_setup(scl, acct)
             rows = self._grid.shape["b"]
-            devs = [self._member((r, 0)) for r in range(rows)]
             dbl_w = D.doublet_weights(self.nv, self.grid_alpha, doublet_prior)
             dbl_msk = D.doublet_mask(self.nv, self.n_alpha)
-            dbl = [(torch.as_tensor(dbl_w, device=dev,
-                                    dtype=torch.float64 if exact
-                                    else self.dtype),
-                    torch.as_tensor(dbl_msk, device=dev)) for dev in devs]
-            a0_sep = self.grid_alpha[0] == 0.0
-            sym_a = self._sym_a()
+            dtype = torch.float64 if self.mode == "exact" else self.dtype
+            decide = [
+                (torch.as_tensor(dbl_w, device=dev, dtype=dtype),
+                 torch.as_tensor(dbl_msk, device=dev), doublet_prior)
+                for dev in (self._member((r, 0)) for r in range(rows))]
 
             n = scl.nbcs
             llks = np.zeros((n, self.nv), dtype=np.float64)
             llk0s = np.zeros(n, dtype=np.float64)
             jobs = self._setup_blocks(scl)
 
-        def dispatch(row, codes, idx, msk):
-            tab, (dw, dm) = tabs[row], dbl[row]
-            blk, wire = self._ship(codes, idx, msk, cfg, tab, devs[row])
-            if exact:
-                return D.compact_step_body_exact(
-                    *blk, tab, dw, dm, self.n_alpha, self.nv,
-                    doublet_prior, a0_sep=a0_sep, sym_a=sym_a, wire=wire,
-                    acct=acct,
-                )
-            return D.compact_step_body(
-                *blk, tab.gps, tab.gp0, tab.w_ext, tab.logf_ext, dw, dm,
-                self.n_alpha, self.nv, doublet_prior, a0_sep=a0_sep,
-                sym_a=sym_a, expand=tab.expand, wire=wire,
-                g_table=tab.g_table, dtype=self.dtype,
-            )
-
         # defer all device->host readback to ONE transfer per mesh row at
         # the end
         dev_parts = []
 
-        def step(cells, prepped, row):
+        def step(cells, blk, row):
             with span("dispatch", acct):
-                dev_parts.append((cells, row, dispatch(row, *prepped)))
+                dev_parts.append(
+                    (cells, row, self._dispatch(row, blk, decide[row])))
 
         self._drive_blocks(
-            jobs, lambda cells, pad: self._prep_codes_blk(scl, cells, pad),
+            jobs, lambda cells, pad: self._packer.pack(scl, cells, cfg, pad),
             step)
         parts = []
         if dev_parts:
@@ -954,19 +699,12 @@ class DemuxEngine:
             if spool_dir:
                 os.makedirs(spool_dir, exist_ok=True)
             dense = self.dense_reason is not None
-            cfg = tabs = None
+            cfg = None
             if dense:
                 self.route = (f"dense ({self.dtype}; {self.dense_reason})"
                               f"{self._on_mesh()}")
             else:
-                if not hasattr(scl, "cell_ptr"):
-                    scl = CsrPileup.from_pileup(scl)
-                # warmed here: else the 4 prep threads each race through
-                # the config's pass over all observations
-                cfg = self._wire_cfg_for(scl, acct)
-                with span("setup.tables", acct):
-                    tabs = self._row_tables(cfg)
-                self.route = self._kernel_route(tabs[0])
+                scl, cfg = self._kernel_setup(scl, acct)
             n, nv, na = scl.nbcs, self.nv, self.n_alpha
             llks = np.zeros((n, nv), dtype=np.float64)
             llk0s = np.zeros(n, dtype=np.float64)
@@ -992,7 +730,7 @@ class DemuxEngine:
                 # a mesh row's members
                 return "slots", _pad_block(blk, self.cell_block, _bucket(
                     blk.idx.shape[1], max(8, self._grid.shape["s"])))
-            return "codes", self._prep_codes_blk(scl, cells, pad)
+            return "codes", self._packer.pack(scl, cells, cfg, pad)
 
         def store(cells, arrs):
             m = len(cells)
@@ -1055,8 +793,7 @@ class DemuxEngine:
                     if kind == "slots":
                         outs = self._run_block(data, row)
                     else:
-                        outs = self._dispatch_block(*data, cfg, tabs[row],
-                                                    self._member((row, 0)))
+                        outs = self._dispatch(row, data)
                     copy = start_d2h(outs, len(cells))
                     del outs
                 pending.append((cells, pool.submit(finish, cells, copy)))
@@ -1067,6 +804,31 @@ class DemuxEngine:
             for p in pending:
                 collect(p)
         return EngineResult(llks, llk0s, llk_ab, llk_00)
+
+    def _kernel_setup(self, scl, acct):
+        """The kernel route's set-up of ``run`` and ``run_compact``: the
+        pileup in CSR form; the run's block format
+        (``blocks.BlockPacker.choose``, with its spans setup.nsnp and
+        setup.wire_cfg: made here, else the 4 prep threads would each race
+        through the config's pass over all observations); each mesh row's
+        tables for it (setup.tables) and the route. A format other than
+        the last run's drops the device tables, and a new wire config
+        also the host tables of the one before. Returns (the CSR pileup,
+        the wire config or None)."""
+        if not hasattr(scl, "cell_ptr"):
+            scl = CsrPileup.from_pileup(scl)
+        cfg = self._packer.choose(scl, acct)
+        if cfg != self._cfg:
+            self._cfg = cfg
+            self._dev = {}
+            if cfg is not None:
+                self._host = {k: t for k, t in self._host.items()
+                              if k[1] in (None, cfg)}
+        with span("setup.tables", acct):
+            tabs = [self._tables(self.mode, (r, 0))
+                    for r in range(self._grid.shape["b"])]
+        self.route = self._kernel_route(tabs[0])
+        return scl, cfg
 
     def _setup_blocks(self, scl):
         """The run's blocks as (cells, slot pad or None) jobs, the span

@@ -1,4 +1,4 @@
-"""Fused fast-mode block step: shipped block -> (llk, llk0, llk_ab, llk_00)
+"""Fused fast-mode block step: decoded block -> (llk, llk0, llk_ab, llk_00)
 (port of ``demuxlet_tpu/ops/pallas_pair.py::demux_block_fast_impl``
 :1028-1180).
 
@@ -7,8 +7,8 @@ to XLA:
 
 * counts: one (R+1, B*S) f32 count table per block, filled by
   ``scatter_add_`` of 1.0 from the dense UMI lanes and from the v2 wire's
-  deep-lane tail (row R is a trash row for dropped tail entries, so no
-  index leaves the tensor). Adding 1.0s in f32 is exact in any order, so
+  deep-lane tail, both parts of ``ops/wire.decode`` (row R is a trash row
+  for dropped tail entries, so no index leaves the tensor). Adding 1.0s in f32 is exact in any order, so
   the counts equal the JAX one-hot counts bit for bit;
 * the LUT contraction ``lograw = [w_ext | logf_ext].T @ counts`` with TF32
   off (``utils/device.py``), channel-leading like the JAX front; the
@@ -26,7 +26,6 @@ from __future__ import annotations
 import torch
 
 from demuxlet_tpu_torch.ops.pair import norm_t, pair_llks
-from demuxlet_tpu_torch.ops.wire import unpack_block_inputs, unpack_wire_v2
 
 
 def _counts(c, R):
@@ -57,46 +56,39 @@ def fast_g_table(gps_table, gp0_table):
     ).T.contiguous()
 
 
-def fast_front(codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext,
-               n_alpha, n_samples, a0_sep=False, sym_a=None, expand=None,
-               wire=None, pair_fn=pair_llks, g_table=None):
-    """codes/idx/msk/wire: any shipped block form (``ops/wire.py``).
-    gps_table (NS, V, 3) f32, gp0_table (NS, 3) f32; w_ext (R, C) the
-    deduplicated pair LUT and logf_ext (R, 3) the singlet LUT, each with
-    the zero none row last. pair_fn is the pair search; the engine always
-    uses ``pair_llks``, a check may pass ``pair_llks_plain``. g_table:
-    ``fast_g_table(gps_table, gp0_table)`` (the engine's, built once per
-    table set), None to build it here.
+def fast_front(parts, tab, n_alpha, n_samples, a0_sep=False, sym_a=None,
+               pair_fn=pair_llks):
+    """parts: a decoded block (``ops/wire.Parts``). tab: the engine's
+    ``DeviceTables``: f32 gps and gp0, w_ext (R, C) the deduplicated pair
+    LUT and logf_ext (R, 3) the singlet LUT, each with the zero none row
+    last, their expand, and the g table (``fast_g_table``). pair_fn is the
+    pair search; the engine always uses ``pair_llks``, a check may pass
+    ``pair_llks_plain``.
 
     Returns (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A))
     f32."""
     V, A = n_samples, n_alpha
-    R, C = w_ext.shape
+    R, C = tab.w_ext.shape
     none_row = R - 1
-    if wire is not None and wire[0] == "w2":
-        # the dense lanes count directly; deep-lane tail entries add into
-        # the same table instead of being rebuilt into lanes
-        dense, tail, idx, msk = unpack_wire_v2(codes, wire, parts=True)
-        B, S, _ = dense.shape
-        cnt = _counts(dense.clamp(max=none_row), R)
-        if tail is not None:
-            tpos, tcode = tail
-            tslot = tpos // (wire[2] - wire[3])
-            # pad entries carry tcode == none (row R) and tslot >= S
-            keep = (tcode < R) & (tslot < S)
-            b = torch.arange(B, device=tpos.device).view(B, 1)
-            flat = torch.where(
-                keep,
-                tcode.to(torch.int64) * (B * S) + b * S + tslot,
-                R * B * S,
-            ).reshape(-1)
-            cnt.scatter_add_(0, flat, torch.ones_like(flat,
-                                                      dtype=torch.float32))
-    else:
-        codes, idx, msk = unpack_block_inputs(codes, idx, msk, wire)
-        B, S, _ = codes.shape
-        cnt = _counts(codes.to(torch.int64).clamp(max=none_row), R)
-    wl = torch.cat([w_ext, logf_ext], dim=1)  # (R, C + 3)
+    dense, tail, n_deep, idx, msk = parts
+    B, S, _ = dense.shape
+    # the dense lanes count directly; deep-lane tail entries add into the
+    # same table instead of being rebuilt into lanes
+    cnt = _counts(dense.clamp(max=none_row), R)
+    if tail is not None:
+        tpos, tcode = tail
+        tslot = tpos // n_deep
+        # pad entries carry tcode == none (row R) and tslot >= S
+        keep = (tcode < R) & (tslot < S)
+        b = torch.arange(B, device=tpos.device).view(B, 1)
+        flat = torch.where(
+            keep,
+            tcode.to(torch.int64) * (B * S) + b * S + tslot,
+            R * B * S,
+        ).reshape(-1)
+        cnt.scatter_add_(0, flat, torch.ones_like(flat,
+                                                  dtype=torch.float32))
+    wl = torch.cat([tab.w_ext, tab.logf_ext], dim=1)  # (R, C + 3)
     lograw = torch.matmul(wl.T, cnt.view(R + 1, B * S)[:R])
     lograw = lograw.view(C + 3, B, S)
     t_x = norm_t(lograw[:C], 0)  # (C, B, S)
@@ -114,16 +106,15 @@ def fast_front(codes, idx, msk, gps_table, gp0_table, w_ext, logf_ext,
     # per-slot genotype posteriors + gp0 in one gather, straight into the
     # channel-leading layout the kernels read; masked slots read the
     # neutral column NS
-    if g_table is None:
-        g_table = fast_g_table(gps_table, gp0_table)
-    NS = g_table.shape[1] - 1
+    NS = tab.g_table.shape[1] - 1
     idx_n = torch.where(msk, idx, NS).reshape(-1)
-    g_all = g_table.index_select(1, idx_n).view(-1, B, S)  # (3V+3, B, S)
+    g_all = tab.g_table.index_select(1, idx_n).view(-1, B, S)  # (3V+3, B, S)
     gps_t = g_all[: V * 3]
     gp0_t = g_all[V * 3 :]
 
     # the tiled route (V*V*A > 384) takes gp0 for llk_00, as on the TPU
-    llk_ab, llk_00 = pair_fn(t_x, gps_t, V, A, a0_sep, sym_a, expand, gp0_t)
+    llk_ab, llk_00 = pair_fn(t_x, gps_t, V, A, a0_sep, sym_a, tab.expand,
+                             gp0_t)
 
     # singlet pass (:415-461): masked slots meet neutral rows, log 1 == 0
     g = gps_t.view(V, 3, B, S)

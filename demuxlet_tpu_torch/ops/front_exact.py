@@ -13,10 +13,10 @@ works in the log domain of ``models/likelihood.py``: per (cell, slot)
     gl        = the pass-1 GL table of the three singlet channels,
                 (1, 0, 0) on a masked slot.
 
-The lanes come as the wire-v2 parts (``ops/wire.unpack_wire_v2(...,
-parts=True)``): the dense lanes and the sorted deep-lane tail, summed
-without rebuilding the full lanes; full-lane codes are the case with no
-tail.
+The lanes come as a decoded block's parts (``ops/wire.decode``): the
+dense lanes and the wire v2's sorted deep-lane tail, summed without
+rebuilding the full lanes; the v1 forms' full-lane codes are the case
+with no tail.
 
 ``front_exact`` dispatches to the Hopper kernel K2' on a CUDA tensor and
 to ``front_exact_plain`` on a CPU tensor; nothing falls back.
@@ -28,11 +28,7 @@ import torch
 
 from demuxlet_tpu_torch.ops.pair import _PLAIN_CHUNK_ELEMS
 from demuxlet_tpu_torch.ops.pair_exact import pair_exact
-from demuxlet_tpu_torch.ops.wire import (
-    rebuild_lanes,
-    unpack_block_inputs,
-    unpack_wire_v2,
-)
+from demuxlet_tpu_torch.ops.wire import rebuild_lanes
 from demuxlet_tpu_torch.utils.spans import span
 
 # the max of the smoothed mixture table: exp(0) + 1e-6, exact in f64
@@ -85,60 +81,52 @@ def front_exact_plain(dense, lut, msk, cmask, gsel, tail=None, n_deep=0):
     return torch.cat(ts, dim=1), torch.cat(gls, dim=1)
 
 
-def exact_front(codes, idx, msk, lut, cmask, gsel, wire=None,
-                front_fn=front_exact):
-    """The front half of the exact block step: the shipped block (any form
-    of ``ops/wire.py``) decoded and run through the front. A v2 wire is
-    decoded into its parts, which the front reads as they are (the
-    deep-lane tail is not rebuilt into lanes, as the JAX package does); the
-    v1 and explicit forms are full-lane codes. Returns (t (C, B, S), gl
-    (3, B, S), idx (B, S), msk (B, S))."""
-    tail, n_deep = None, 0
-    if wire is not None and wire[0] == "w2":
-        dense, tail, idx, msk = unpack_wire_v2(codes, wire, parts=True)
-        if tail is not None:
-            tail = tuple(x.to(torch.int32).contiguous() for x in tail)
-            n_deep = wire[2] - wire[3]
-    else:
-        dense, idx, msk = unpack_block_inputs(codes, idx, msk, wire)
-    t, gl = front_fn(dense.to(torch.int32).contiguous(), lut,
-                     msk.contiguous(), cmask, gsel, tail, n_deep)
+def exact_front(parts, tab, front_fn=front_exact):
+    """The front half of the exact block step on a decoded block
+    (``ops/wire.Parts``): its dense lanes and deep-lane tail as they are
+    (the tail is not rebuilt into lanes, as the JAX package does) through
+    the front, with the ``ExactTables`` tab's LUT. Returns (t (C, B, S),
+    gl (3, B, S), idx (B, S), msk (B, S))."""
+    dense, tail, n_deep, idx, msk = parts
+    if tail is not None:
+        tail = tuple(x.to(torch.int32).contiguous() for x in tail)
+    t, gl = front_fn(dense.contiguous(), tab.lut, msk.contiguous(),
+                     tab.cmask, tab.gsel, tail, n_deep)
     return t, gl, idx, msk
 
 
-def exact_pair(t, gl, idx, msk, g_table, expand, n_alpha, n_samples,
-               a0_sep=False, sym_a=None, pair_fn=pair_exact):
-    """The pair half of the exact block step: the g gather and the pair
-    search with the singlet term on ``exact_front``'s outputs. Returns
-    (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A)) f64."""
+def exact_pair(t, gl, idx, msk, tab, n_alpha, n_samples, a0_sep=False,
+               sym_a=None, pair_fn=pair_exact):
+    """The pair half of the exact block step: the gather from the g table
+    of tab (``ExactTables``) and the pair search with the singlet term on
+    ``exact_front``'s outputs. Returns (llk (B, V), llk0 (B,), llk_ab (B,
+    V, V, A), llk_00 (B, A)) f64."""
     _, B, S = t.shape
-    NS = g_table.shape[1] - 1
+    NS = tab.g_table.shape[1] - 1
     idx_n = torch.where(msk, idx, NS).reshape(-1)
     # gathered straight into the channel-leading layout the kernel reads
-    g = g_table.index_select(1, idx_n).view(-1, B, S)
+    g = tab.g_table.index_select(1, idx_n).view(-1, B, S)
     llk_ab, llk_00, llk, llk0 = pair_fn(t, g, gl, n_samples, n_alpha,
-                                        a0_sep, sym_a, expand)
+                                        a0_sep, sym_a, tab.expand)
     return llk, llk0, llk_ab, llk_00
 
 
-def exact_block(codes, idx, msk, g_table, lut, cmask, gsel, expand,
-                n_alpha, n_samples, a0_sep=False, sym_a=None, wire=None,
+def exact_block(parts, tab, n_alpha, n_samples, a0_sep=False, sym_a=None,
                 front_fn=front_exact, pair_fn=pair_exact, acct=None):
     """Fused exact-mode block step: ``exact_front`` then ``exact_pair``,
     the latter the span dispatch.pair (``utils/spans``; acct: the
     engine's ``phase_s``, or None for the trace alone).
 
-    codes/idx/msk/wire: any shipped block form (``ops/wire.py``).
-    g_table (3V+3, NS+1) f64: the gps rows, the three gp0 rows, and the
-    neutral column at index NS that masked slots gather. lut/cmask/gsel/
-    expand: the exact tables (``models/engine.exact_tables_from_numpy``).
-    front_fn and pair_fn are K2' and K3' (or, for a check, their plain
-    versions).
+    parts: a decoded block (``ops/wire.Parts``). tab: the engine's
+    ``ExactTables``: the (3V+3, NS+1) f64 g table (the gps rows, the three
+    gp0 rows, and the neutral column at index NS that masked slots
+    gather), the LUT and its cmask, gsel and expand. front_fn and pair_fn
+    are K2' and K3' (or, for a check, their plain versions).
 
     Returns (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A))
     f64."""
-    t, gl, idx, msk = exact_front(codes, idx, msk, lut, cmask, gsel, wire,
-                                  front_fn)
+    front = exact_front(parts, tab, front_fn)
+    del parts  # the decoded lanes are not held through the pair search
     with span("dispatch.pair", acct):
-        return exact_pair(t, gl, idx, msk, g_table, expand, n_alpha,
-                          n_samples, a0_sep, sym_a, pair_fn)
+        return exact_pair(*front, tab, n_alpha, n_samples, a0_sep, sym_a,
+                          pair_fn)

@@ -1,8 +1,11 @@
-"""Device decode of every block form the engine ships (port of
+"""Device decode of the blocks the engine ships (port of
 ``demuxlet_tpu/ops/pallas_pair.py`` ``_unpack_bits_dev`` :872,
 ``_unpack_wire_v2`` :890 and ``unpack_block_inputs`` :987).
 
-Bitcasts are little-endian views: u8 via ``view(torch.uint8)``, u16 via
+``decode`` reads each form ``models/blocks.py`` packs, named by the
+block's meta: the wire v2 ("w2"), the fused v1 wire ("v1"), and u8 codes
+beside 16-bit id pairs ("u16") or plain int32 ids ("i32"). Bitcasts are
+little-endian views: u8 via ``view(torch.uint8)``, u16 via
 ``view(torch.int16)`` then ``& 0xFFFF`` in int32 (``torch.uint16`` has no
 shift operators). Out-of-bounds scatters, which JAX drops with
 ``mode="drop"``, are redirected to a trash column that is cut off after
@@ -13,9 +16,21 @@ JAX package's int32 ids.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 rebuilds = 0  # rebuild_lanes calls since import (the exact engine makes none)
+
+
+class Parts(NamedTuple):
+    """A decoded block, as the fronts read it."""
+
+    dense: torch.Tensor  # (B, S, U0) int32 codes, the none code in empty lanes
+    tail: Optional[tuple]  # the v2 deep-lane tail (tpos, tcode), or None
+    n_deep: int  # the lanes past U0 that the tail addresses (U - U0)
+    idx: torch.Tensor  # (B, S) int64 SNP ids
+    msk: torch.Tensor  # (B, S) bool: the slot covers a SNP
 
 
 def _u8(words: torch.Tensor) -> torch.Tensor:
@@ -52,14 +67,12 @@ def _apply_fixes(d, base, fix_pos, fix_val):
     return base.to(torch.int64)[:, None] + torch.cumsum(d, dim=1)
 
 
-def unpack_wire_v2(wbuf: torch.Tensor, meta, parts: bool = False):
-    """Decode the v2 packed wire (``host.wire.pack_wire_block``).
-
-    parts=False: (codes (B,S,U) int32 in wire-code space [0, n_real+1],
-    idx (B,S) int64, msk (B,S) bool), deep lanes rebuilt from the tail.
-    parts=True: (dense (B,S,U0) int32, (tpos, tcode) or None, idx, msk)
-    without the deep lanes; msk derives from the dense lanes alone (the
-    packer puts the marker in lane 0 of a tail-only slot)."""
+def _unpack_v2(wbuf: torch.Tensor, meta) -> Parts:
+    """The v2 packed wire (``host/wire.pack_wire_block``) as its parts:
+    the dense lanes in wire-code space [0, n_real+1] and the deep-lane
+    tail, not rebuilt into lanes (``rebuild_lanes`` does that); msk
+    derives from the dense lanes alone (the packer puts the marker in
+    lane 0 of a tail-only slot)."""
     _, S, U, U0, K2p, Kp, cw, dw, n_real, tw = meta
     B = wbuf.shape[0]
     none = n_real + 1
@@ -100,11 +113,7 @@ def unpack_wire_v2(wbuf: torch.Tensor, meta, parts: bool = False):
     fix_val = wbuf[:, off + 1 + Kp // 2 : off + 1 + Kp // 2 + Kp]
     idx = _apply_fixes(d, base, fix_pos, fix_val)
     msk = (dense != none).any(dim=-1)
-    if parts:
-        return dense, tail_parts, idx, msk
-    if tail_parts is None:
-        return dense, idx, msk
-    return rebuild_lanes(dense, *tail_parts, U - U0, none), idx, msk
+    return Parts(dense, tail_parts, U - U0, idx, msk)
 
 
 def rebuild_lanes(dense, tpos, tcode, n_deep, fill):
@@ -125,37 +134,29 @@ def rebuild_lanes(dense, tpos, tcode, n_deep, fill):
                       tail[:, :n].reshape(B, S, n_deep)], dim=2)
 
 
-def unpack_block_inputs(codes, idx, msk, wire):
-    """Every shipped block form -> (codes (B,S,U), idx (B,S) int64,
-    msk (B,S) bool). codes stay uint8 for the v1 forms and int32 wire
-    codes for the v2 wire.
-
-    wire: the v2 meta tuple (``codes`` is then the packed buffer), the v1
-    ``(S, U, K)`` meta of the fused wire (``engine._to_wire``), or None for
-    explicit codes with an idx that is the u8-delta tuple, 16-bit id pairs
-    packed in int32 lanes, or plain ids; msk None derives it from the
-    codes (254 marks a valid slot without codes)."""
-    if wire is not None and wire[0] == "w2":
-        return unpack_wire_v2(codes, wire)
-    if wire is not None:
-        S, U, K = wire
-        B = codes.shape[0]
+def decode(bufs, meta) -> Parts:
+    """A shipped block, its buffers (``models/blocks.Block.bufs``) on the
+    device and its meta, as ``Parts``. The v1 forms carry u8 codes, 255
+    for none and 254 in lane 0 of a covered slot without codes; their
+    mask derives from the codes, and all their lanes are dense."""
+    form, S = meta[0], meta[1]
+    if form == "w2":
+        return _unpack_v2(bufs[0], meta)
+    if form == "v1":
+        U, K = meta[2:]
+        (wbuf,) = bufs
+        B = wbuf.shape[0]
         nc, nd = S * U // 4, S // 4
-        bytes_c = codes[:, :nc].contiguous().view(torch.uint8)
-        d8 = codes[:, nc : nc + nd].contiguous().view(torch.uint8)
-        base = codes[:, nc + nd]
-        fix_pos = codes[:, nc + nd + 1 : nc + nd + 1 + K]
-        fix_val = codes[:, nc + nd + 1 + K : nc + nd + 1 + 2 * K]
-        codes = bytes_c.reshape(B, S, U)
-        idx = (d8.reshape(B, S), base, fix_pos, fix_val)
-    B, S, U = codes.shape
-    if msk is None:
-        msk = (codes != 255).any(dim=-1)
-    if isinstance(idx, (tuple, list)):
-        idx = _apply_fixes(*idx)
-    elif idx.shape[1] == S // 2 and S > 1:
-        idx = torch.stack([idx & 0xFFFF, (idx >> 16) & 0xFFFF], dim=-1)
-        idx = idx.reshape(B, S).to(torch.int64)
+        codes = wbuf[:, :nc].contiguous().view(torch.uint8).reshape(B, S, U)
+        d8 = wbuf[:, nc : nc + nd].contiguous().view(torch.uint8)
+        base = wbuf[:, nc + nd]
+        fix_pos = wbuf[:, nc + nd + 1 : nc + nd + 1 + K]
+        fix_val = wbuf[:, nc + nd + 1 + K : nc + nd + 1 + 2 * K]
+        idx = _apply_fixes(d8, base, fix_pos, fix_val)
     else:
-        idx = idx.to(torch.int64)
-    return codes, idx, msk
+        codes, ids = bufs
+        if form == "u16":
+            ids = torch.stack([ids & 0xFFFF, (ids >> 16) & 0xFFFF], dim=-1)
+        idx = ids.reshape(codes.shape[0], S).to(torch.int64)
+    msk = (codes != 255).any(dim=-1)
+    return Parts(codes.to(torch.int32), None, 0, idx, msk)

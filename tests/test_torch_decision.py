@@ -85,8 +85,8 @@ def test_compact_rows_match_jax(monkeypatch):
         None, None, None, None, None, None, None, jnp.asarray(w),
         jnp.asarray(m), A, V, prior))
     got = TD.compact_step_body(
-        None, None, None, None, None, None, None, torch.from_numpy(w),
-        torch.from_numpy(m), A, V, prior).numpy()
+        None, None, A, V, torch.from_numpy(w), torch.from_numpy(m),
+        prior).numpy()
     assert got.shape == want.shape == (16, 2 * V + A + 11)
     assert got.dtype == want.dtype == np.float64
     gl, g0, gc = TD.unpack_block(got, V, A)

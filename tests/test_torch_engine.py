@@ -1,6 +1,7 @@
 """The slice as a whole: the port's fast-mode run_compact and CLI against
 the JAX engine and CLI on the CPU, and the engine helpers the port copies
-from the JAX module."""
+from the JAX module (``models/engine.py``, and the block format's in
+``models/blocks.py``)."""
 
 import dataclasses
 import os
@@ -12,8 +13,10 @@ import torch
 
 from demuxlet_tpu.host.csr import CsrPileup, build_codes_block
 from demuxlet_tpu.models import engine as JE
+from demuxlet_tpu_torch.models import blocks as TB
 from demuxlet_tpu_torch.models import engine as TE
 from demuxlet_tpu_torch.ops.front import fast_front
+from demuxlet_tpu_torch.ops.wire import decode
 
 torch.set_num_threads(2)
 
@@ -68,22 +71,15 @@ def _min_gap(vals):
 
 def _port_llk_ab(eng, csr):
     """Full (n, V, V, A) LLKs of the port's front, block by block."""
-    cfg = eng._wire_cfg_for(csr)
-    tab = eng._fast_tables(cfg)
+    _, cfg = eng._kernel_setup(csr, None)
+    tab = eng._tables("fast")
     blocks, pads = eng._blocks(csr.nbcs, csr)
     out = np.zeros((csr.nbcs, eng.nv, eng.nv, eng.n_alpha))
     for cells, pad in zip(blocks, pads or [None] * len(blocks)):
-        codes, idx, msk = eng._prep_codes_blk(csr, cells, pad)
-        wire = None
-        if isinstance(idx, tuple) and isinstance(idx[0], str):
-            wire, idx = idx, None
-        elif isinstance(idx, tuple):
-            codes, wire = TE._to_wire(codes, idx)
-            idx = None
+        blk = eng._packer.pack(csr, cells, cfg, pad)
         _, _, ab, _ = fast_front(
-            torch.from_numpy(codes), idx, msk, tab.gps, tab.gp0, tab.w_ext,
-            tab.logf_ext, eng.n_alpha, eng.nv, a0_sep=True, sym_a=1,
-            expand=tab.expand, wire=wire)
+            decode(TE._h2d(blk.bufs, CPU), blk.meta), tab, eng.n_alpha,
+            eng.nv, a0_sep=True, sym_a=1)
         out[cells] = ab.numpy()[: len(cells)]
     return out
 
@@ -92,13 +88,19 @@ def _port_llk_ab(eng, csr):
                                          ("v2", False)])
 def test_run_compact_matches_jax(monkeypatch, wire, native):
     """Port vs JAX fast run_compact on a PCR-hot pileup, with the native
-    or the Python block packer: floats within 2e-5 relative, integer
-    fields equal. The seed keeps every cell's competing values apart by
-    more than that tolerance (asserted)."""
+    or the Python block packer, on the wire v2 and on the v1 forms (the
+    port's past a slot limit cut below the pileup's blocks, the JAX
+    engine's under its DEMUX_TPU_WIRE=v1): floats within 2e-5 relative,
+    integer fields equal. The seed keeps every cell's competing values
+    apart by more than that tolerance (asserted)."""
     from demuxlet_tpu.native import prep as nprep
     from demuxlet_tpu_torch.native import prep as tprep
 
-    monkeypatch.setenv("DEMUX_TPU_WIRE", wire)
+    if wire == "v1":
+        monkeypatch.setattr(TB, "SLOT_LIMIT", 127)
+        monkeypatch.setenv("DEMUX_TPU_WIRE", "v1")
+    else:
+        monkeypatch.delenv("DEMUX_TPU_WIRE", raising=False)
     if not native:  # both engines on the Python packer
         monkeypatch.setattr(nprep, "available", lambda: False)
         monkeypatch.setattr(tprep, "available", lambda: False)
@@ -108,7 +110,7 @@ def test_run_compact_matches_jax(monkeypatch, wire, native):
     grid = [0.0, 0.5]
     port = TE.DemuxEngine(gps, grid, cell_block=16, mode="fast", device=CPU)
     l_t, l0_t, c_t = port.run_compact(csr, doublet_prior=0.5)
-    assert (port._wire_cfg is None) == (wire == "v1")
+    assert (port._cfg is None) == (wire == "v1")
     csr_j, _ = _pcr_hot_csr(17)  # own pileup: the cfg cache rides on it
     l_j, l0_j, c_j = JE.DemuxEngine(gps, grid, cell_block=16,
                                     mode="fast").run_compact(csr_j, 0.5)
@@ -151,48 +153,69 @@ def test_copied_engine_helpers_equal_jax(monkeypatch):
             np.testing.assert_array_equal(getattr(pt, f), getattr(pj, f))
         assert pt.idx.shape == (n_cells, n_slots)
     for n in (1, 8, 9, 200, 4097):
-        assert TE._bucket(n) == JE._bucket(n)
-        assert TE._bucket(n, 128) == JE._bucket(n, 128)
+        assert TB._bucket(n) == JE._bucket(n)
+        assert TB._bucket(n, 128) == JE._bucket(n, 128)
     port = TE.DemuxEngine(gps, [0.0, 0.5], cell_block=16, device=CPU)
     jax_eng = JE.DemuxEngine(gps, [0.0, 0.5], cell_block=16, mode="fast")
     blocks = port._blocks(csr.nbcs, csr)
     assert blocks[1] is not None  # the coverage sort engaged
     assert blocks == jax_eng._blocks(csr.nbcs, csr)
     assert port._blocks(40) == jax_eng._blocks(40)
-    cfg_t = port._wire_cfg_for(csr)
+    packer = port._packer
+    cfg_t = packer.choose(csr)
     del csr._wire_cfg_cache
     # the port's own copy of host/wire.py: equal fields, another class
     assert cfg_t is not None and dataclasses.astuple(cfg_t) == \
         dataclasses.astuple(jax_eng._wire_cfg_for(csr))
-    monkeypatch.setenv("DEMUX_TPU_WIRE", "v1")
-    assert port._wire_cfg_for(csr) is None
-    assert jax_eng._wire_cfg_for(csr) is None
-    monkeypatch.delenv("DEMUX_TPU_WIRE")
     for a, b in zip(dataclasses.astuple(TE.cell_stats(csr)),
                     dataclasses.astuple(JE.cell_stats(csr))):
         np.testing.assert_array_equal(a, b)
     # block prep through the shape registry: identical bytes and metas
     blocks, pads = port._blocks(csr.nbcs, csr)
     for cells, pad in zip(blocks, pads or [None] * len(blocks)):
-        got = port._prep_codes_blk(csr, cells, pad)
+        got = packer.pack(csr, cells, cfg_t, pad)
         want = jax_eng._prep_codes_blk(csr, cells, pad)
-        np.testing.assert_array_equal(got[0], want[0])
-        assert got[1:] == want[1:]
-    assert port._wire_reg == jax_eng._wire_reg
-    # _shrink_codes_blk (it writes markers into codes: give each a copy)
+        np.testing.assert_array_equal(got.bufs[0], want[0])
+        assert len(got.bufs) == 1 and got.meta == want[1]
+        assert want[2] is None
+    assert packer._reg == jax_eng._wire_reg
+    # the v1 forms: the port's past its slot limit, the JAX engine's under
+    # DEMUX_TPU_WIRE=v1; neither is cached on the pileup
+    del csr._wire_cfg_cache
+    with monkeypatch.context() as m:
+        m.setattr(TB, "SLOT_LIMIT", 127)
+        m.setenv("DEMUX_TPU_WIRE", "v1")
+        assert packer.choose(csr) is None
+        assert jax_eng._wire_cfg_for(csr) is None
+        assert not hasattr(csr, "_wire_cfg_cache")
+        for cells, pad in zip(blocks, pads or [None] * len(blocks)):
+            got = packer.pack(csr, cells, None, pad)
+            codes, idx, msk = jax_eng._prep_codes_blk(csr, cells, pad)
+            assert msk is None and isinstance(idx, tuple)
+            wire, meta = JE._to_wire(codes, idx)
+            np.testing.assert_array_equal(got.bufs[0], wire)
+            assert len(got.bufs) == 1 and got.meta == ("v1", *meta)
+    # _shrink_codes_blk (it writes markers into codes: give each a copy):
+    # the u8 deltas fused into the v1 wire, and wide gaps as 16-bit pairs
     codes, idx, msk = build_codes_block(csr, list(range(32)), 40)
-    got = port._shrink_codes_blk((codes.copy(), idx.copy(), msk.copy()))
-    want = jax_eng._shrink_codes_blk((codes.copy(), idx.copy(), msk.copy()))
-    np.testing.assert_array_equal(got[0], want[0])
-    for a, b in zip(got[1], want[1]):
-        np.testing.assert_array_equal(a, b)
-    assert got[2] is None and want[2] is None
-    np.testing.assert_array_equal(TE._to_wire(got[0], got[1])[0],
-                                  JE._to_wire(want[0], want[1])[0])
+    for ids, form in ((idx, "v1"), (np.where(msk, idx * 200, 0), "u16")):
+        ids = ids.astype(np.int32)
+        got = TB._shrink_codes_blk((codes.copy(), ids.copy(), msk.copy()),
+                                   port.gps.shape[0])
+        want = jax_eng._shrink_codes_blk((codes.copy(), ids.copy(),
+                                          msk.copy()))
+        assert got.meta[0] == form and want[2] is None
+        if form == "v1":
+            wire, meta = JE._to_wire(want[0], want[1])
+            np.testing.assert_array_equal(got.bufs[0], wire)
+            assert got.meta == ("v1", *meta)
+        else:
+            for a, b in zip(got.bufs, want[:2]):
+                np.testing.assert_array_equal(a, b)
+            assert got.meta == ("u16", codes.shape[1])
     # tables: the same numbers the JAX engine puts on its device
-    cfg = port._wire_cfg_for(csr)
-    for c in (None, cfg):
-        tab = TE.tables_from_numpy(gps, [0.0, 0.5], 40, c, CPU)
+    for c in (None, cfg_t):
+        tab = TE.place(TE.host_tables(gps, [0.0, 0.5], 40, c), CPU)
         w_ext, logf_ext, expand = jax_eng._fast_tables(c)
         assert tab.expand == expand
         np.testing.assert_array_equal(tab.w_ext.numpy(), np.asarray(w_ext))

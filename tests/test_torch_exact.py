@@ -63,12 +63,17 @@ def _gathered(idx, msk, gps):
             np.where(msk[..., None], TE.compute_gp0(gps)[idx], neutral))
 
 
+def _parts(codes, idx, msk, device=CPU):
+    """A decoded block of full-lane codes with an explicit mask."""
+    return TW.Parts(torch.from_numpy(codes.astype(np.int32)).to(device),
+                    None, 0, torch.from_numpy(idx).long().to(device),
+                    torch.from_numpy(msk).to(device))
+
+
 def _port_block(codes, idx, msk, gps, grid, cap=40, **kw):
-    tab = TE.exact_tables_from_numpy(gps, grid, cap, None, CPU)
-    return TF.exact_block(
-        torch.from_numpy(codes), torch.from_numpy(idx), torch.from_numpy(msk),
-        tab.g_table, tab.lut, tab.cmask, tab.gsel, tab.expand, len(grid),
-        gps.shape[1], **kw)
+    tab = TE.place(TE.exact_host_tables(gps, grid, cap, None), CPU)
+    return TF.exact_block(_parts(codes, idx, msk), tab, len(grid),
+                          gps.shape[1], **kw)
 
 
 def _jax_f64(codes, idx, msk, gps, grid, cap=40, rows=None):
@@ -127,7 +132,7 @@ def test_exact_tables_match_split_tables(grid, cap, narrow):
     w, logf = luts.pair_lut(grid, cap), luts.singlet_lut(cap)
     rows = sorted(rng.choice(2 * (cap + 1), size=9, replace=False).tolist())
     cfg = WireCfg(tuple(rows), 4, 8) if narrow else None
-    tab = TE.exact_tables_from_numpy(gps, grid, cap, cfg, CPU)
+    tab = TE.place(TE.exact_host_tables(gps, grid, cap, cfg), CPU)
     _, _, tabs, meta = PE.split_tables(gps, gp0, w, logf,
                                        rows=rows if narrow else None)
     C, expand_w, expand_gl = meta
@@ -174,7 +179,7 @@ def test_front_plain_matches_jax(seed, grid, U):
     w, logf = luts.pair_lut(grid, 40), luts.singlet_lut(40)
     _, _, tabs, meta = PE.split_tables(gps, TE.compute_gp0(gps), w, logf)
     C, _, gsel = meta
-    tab = TE.exact_tables_from_numpy(gps, grid, 40, None, CPU)
+    tab = TE.place(TE.exact_host_tables(gps, grid, 40, None), CPU)
     n_rows = w.shape[0] + 1
     c = np.minimum(codes.astype(np.int32), n_rows - 1)
     mh, ml, ef = PE._pair_prod_gather(tuple(map(jnp.asarray, tabs[:3])),
@@ -253,7 +258,7 @@ def test_front_plain_parts_equal_rebuilt_lanes(packer, tw, n_cells, n_snps,
                                                hot, u_cap):
     """front_exact_plain on a v2 wire's parts (dense lanes and the sorted
     deep-lane tail, as exact_block passes them) is bit-equal to
-    front_exact_plain on the full lanes unpack_wire_v2 rebuilds, on blocks
+    front_exact_plain on the full lanes rebuild_lanes makes, on blocks
     from both packers at tail widths 16, 24 and 32 (tail-only marker
     slots among them) and on a block without a tail (K2p == 0)."""
     rng = np.random.default_rng(tw + n_cells)
@@ -262,18 +267,21 @@ def test_front_plain_parts_equal_rebuilt_lanes(packer, tw, n_cells, n_snps,
                       adaptive=False)
     buf, meta = _packed_v2(packer, csr, cfg)
     _, S, U, U0, K2p, _, _, _, _, got_tw = meta
-    wbuf = torch.from_numpy(buf)
-    dense, tail, _, msk = TW.unpack_wire_v2(wbuf, meta, parts=True)
-    full, _, msk_full = TW.unpack_wire_v2(wbuf, meta)
-    assert torch.equal(msk, msk_full)
+    dense, tail, n_deep, _, msk = TW.decode((torch.from_numpy(buf),), meta)
+    assert n_deep == U - U0
     if u_cap >= U:
         assert K2p == 0 and tail is None
+        full = dense
     else:
         assert got_tw == tw and K2p > 0
+        full = TW.rebuild_lanes(dense, *tail, n_deep, cfg.none)
         assert bool(_tail_only_slots(full, U0, cfg).any())
         tail = tuple(x.to(torch.int32).contiguous() for x in tail)
-    tab = TE.exact_tables_from_numpy(np.full((2, 2, 3), 1 / 3), GRID5, 40,
-                                     cfg, CPU)
+    # the dense lanes' mask is the full lanes': a tail-only slot carries
+    # the marker in lane 0
+    assert torch.equal(msk, (full != cfg.none).any(dim=-1))
+    tab = TE.place(TE.exact_host_tables(np.full((2, 2, 3), 1 / 3), GRID5,
+                                        40, cfg), CPU)
     args = (tab.lut, msk, tab.cmask, tab.gsel)
     t, gl = TF.front_exact_plain(dense.to(torch.int32), *args, tail, U - U0)
     want_t, want_gl = TF.front_exact_plain(full, *args)
@@ -302,16 +310,15 @@ def test_exact_block_on_v2_wire_matches_jax():
     assert meta[4] > 0  # a deep-lane tail
     grid = [0.0, 0.5]
     gps = rng.dirichlet(np.ones(3), size=(400, 3))
-    tab = TE.exact_tables_from_numpy(gps, grid, 40, cfg, CPU)
+    tab = TE.place(TE.exact_host_tables(gps, grid, 40, cfg), CPU)
     fronts = []
 
     def front(*a):
         fronts.append(a)
         return TF.front_exact(*a)
 
-    got = TF.exact_block(torch.from_numpy(buf), None, None, tab.g_table,
-                         tab.lut, tab.cmask, tab.gsel, tab.expand, 2, 3,
-                         a0_sep=True, sym_a=1, wire=meta, front_fn=front)
+    got = TF.exact_block(TW.decode((torch.from_numpy(buf),), meta), tab, 2,
+                         3, a0_sep=True, sym_a=1, front_fn=front)
     (dense, lut, msk, cmask, gsel, tail, n_deep), = fronts
     assert tail is not None and n_deep == meta[2] - meta[3]
     assert dense.shape[2] == meta[3] < meta[2]
@@ -423,21 +430,24 @@ def _swap_equal(got, want, V, A, sym_a):
 
 @pytest.mark.parametrize("wire", ["v1", "v2"])
 def test_run_compact_matches_jax_run(monkeypatch, wire):
-    """Port exact run_compact against the JAX engine's exact run() (XLA
-    f64) + compact_from_result on a PCR-hot pileup (deep UMI lanes): floats
-    within 1e-9 absolute, integer fields equal (best_flat modulo the
-    alpha == 0.5 swap)."""
+    """Port exact run_compact, on the wire v2 or on the v1 forms (past a
+    slot limit cut below the pileup's blocks), against the JAX engine's
+    exact run() (XLA f64) + compact_from_result on a PCR-hot pileup (deep
+    UMI lanes): floats within 1e-9 absolute, integer fields equal
+    (best_flat modulo the alpha == 0.5 swap)."""
     from demuxlet_tpu.models import decision as JD
     from demuxlet_tpu.models import engine as JE
+    from demuxlet_tpu_torch.models import blocks as TB
     from test_torch_engine import _pcr_hot_csr
 
-    monkeypatch.setenv("DEMUX_TPU_WIRE", wire)
+    if wire == "v1":
+        monkeypatch.setattr(TB, "SLOT_LIMIT", 127)
     grid = [0.0, 0.5]
     csr, gps = _pcr_hot_csr(17)
     port = TE.DemuxEngine(gps, grid, cell_block=16, device=CPU)
     assert port.mode == "exact"
     l_t, l0_t, c_t = port.run_compact(csr, doublet_prior=0.5)
-    assert (port._wire_cfg is None) == (wire == "v1")
+    assert (port._cfg is None) == (wire == "v1")
     csr_j, _ = _pcr_hot_csr(17)
     res = JE.DemuxEngine(gps, grid, cell_block=16).run(csr_j)
     c_j = JD.compact_from_result(res.llk_ab, res.llk_00, grid, 0.5)
@@ -489,19 +499,15 @@ def test_llks_match_oracle():
     o_llks, o_llk0s = pass1_singlet(scl, gp0s)
     assert np.abs(llks - o_llks).max() < 1e-9
     assert np.abs(llk0s - o_llk0s).max() < 1e-9
-    csr = CsrPileup.from_pileup(scl)
-    tab = eng._exact_tables(eng._wire_cfg_for(csr))
+    csr, cfg = eng._kernel_setup(CsrPileup.from_pileup(scl), None)
+    tab = eng._tables("exact")
     blocks, pads = eng._blocks(csr.nbcs, csr)
     n = 0
     for cells, pad in zip(blocks, pads or [None] * len(blocks)):
-        codes, idx, msk = eng._prep_codes_blk(csr, cells, pad)
-        wire = None
-        if isinstance(idx, tuple) and isinstance(idx[0], str):
-            wire, idx = idx, None
+        blk = eng._packer.pack(csr, cells, cfg, pad)
         _, _, ab, z0 = TF.exact_block(
-            torch.from_numpy(codes), idx, msk, tab.g_table, tab.lut,
-            tab.cmask, tab.gsel, tab.expand, len(grid), nv, a0_sep=True,
-            sym_a=4, wire=wire)
+            TW.decode(TE._h2d(blk.bufs, CPU), blk.meta), tab, len(grid), nv,
+            a0_sep=True, sym_a=4)
         for r, c in enumerate(cells):
             o_ab, _, o_00 = pass2_cell(scl, gp0s, c, grid)
             assert np.abs(ab[r].numpy() - o_ab).max() < 1e-9
@@ -547,8 +553,8 @@ def _k3_inputs(B, S, V, grid, device, seed=3):
     samples and the background with neutral rows on masked slots; and the
     tables' expand."""
     rng = np.random.default_rng(seed)
-    tab = TE.exact_tables_from_numpy(np.full((4, V, 3), 1 / 3), grid, 40,
-                                     None, device)
+    tab = TE.place(TE.exact_host_tables(np.full((4, V, 3), 1 / 3), grid,
+                                        40, None), device)
     codes = rng.integers(0, 82, size=(B, S, 2)).astype(np.int32)
     codes[rng.random((B, S, 2)) < 0.3] = 255
     msk = rng.random((B, S)) < 0.8
@@ -627,7 +633,7 @@ def _v2_parts(rng, B, S, U, U0, k2p_floor, device):
     holes among the UMIs (tail-only marker slots), split at U0 dense lanes
     by the packer's rule (host/wire._split_tail; K2p at least k2p_floor:
     padded tails). Returns (dense (B,S,U0), (tpos, tcode) (B,K2p), msk)
-    int32/bool on device, positions flattened as unpack_wire_v2 does."""
+    int32/bool on device, positions flattened as ops/wire.decode does."""
     cfg = _V2_CFG
     n = 1 + rng.poisson(0.3, size=(B, S))
     hot = rng.random((B, S)) < 0.03
@@ -677,9 +683,8 @@ def test_k2_matches_plain_on_card(cuda_device, B, S, U, grid, cap, lut_kb,
 
     rng = np.random.default_rng(5)
     gps = rng.dirichlet(np.ones(3), size=(20, 2))
-    tab = TE.exact_tables_from_numpy(gps, grid, cap,
-                                     None if parts is None else _V2_CFG,
-                                     cuda_device)
+    tab = TE.place(TE.exact_host_tables(
+        gps, grid, cap, None if parts is None else _V2_CFG), cuda_device)
     R, C = tab.lut.shape
     assert R * C * 8 // 1024 == lut_kb
     tail, n_deep = None, 0
@@ -853,14 +858,10 @@ def test_exact_block_matches_likelihood_on_card(cuda_device, B, S, U, V,
         codes[:, :, 8:][np.random.default_rng(0).random(
             codes[:, :, 8:].shape) < 0.97] = 255
     cfg = WireCfg(tuple(rows), 4, 8) if narrow else None
-    tab = TE.exact_tables_from_numpy(gps, grid, 40, cfg, cuda_device)
+    tab = TE.place(TE.exact_host_tables(gps, grid, 40, cfg), cuda_device)
     before = (k2.launches, k3.launches)
-    got = TF.exact_block(
-        torch.from_numpy(codes).to(cuda_device),
-        torch.from_numpy(idx).to(cuda_device),
-        torch.from_numpy(msk).to(cuda_device), tab.g_table, tab.lut,
-        tab.cmask, tab.gsel, tab.expand, len(grid), V, a0_sep=True,
-        sym_a=grid.index(0.5))
+    got = TF.exact_block(_parts(codes, idx, msk, cuda_device), tab,
+                         len(grid), V, a0_sep=True, sym_a=grid.index(0.5))
     torch.cuda.synchronize()
     assert (k2.launches, k3.launches) == (before[0] + 1, before[1] + 1)
     want = _likelihood_f64(codes, idx, msk, gps, grid, rows=rows,

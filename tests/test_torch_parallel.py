@@ -170,10 +170,7 @@ def test_engine_mesh_bit_equal(pools, pool, mode):
         for f in ("llks", "llk0s", "llk_ab", "llk_00"):
             assert np.array_equal(getattr(got_r, f), getattr(want_r, f)), f
         # one table set a member: each row's own
-        tables = eng._exact if mode == "exact" else eng._tables
-        tables_v2 = eng._exact_v2 if mode == "exact" else eng._tables_v2
-        assert sorted({**tables, **tables_v2}) == [(r, 0)
-                                                   for r in range(n_b)]
+        assert sorted(eng._dev) == [(mode, (r, 0)) for r in range(n_b)]
 
 
 def test_engine_slot_axis_takes_the_dense_route(pools):
@@ -280,16 +277,9 @@ def test_cli_mesh_2x2_matches_jax_cli(cli_base):
 
 def _tables_of(eng):
     """Every table set the engine placed: {(kind, member): tensors}."""
-    out = {}
-    for kind, caches in (("fast", (eng._tables, eng._tables_v2)),
-                         ("exact", (eng._exact, eng._exact_v2)),
-                         ("dense", (eng._dense,))):
-        for cache in caches:
-            for member, tab in cache.items():
-                out[kind, member] = (
-                    tab if isinstance(tab, tuple) else
-                    tuple(getattr(tab, f) for f in tab.__dataclass_fields__))
-    return out
+    return {key: tab if isinstance(tab, tuple) else
+            tuple(getattr(tab, f) for f in tab.__dataclass_fields__)
+            for key, tab in eng._dev.items()}
 
 
 def _same_tables(a, b):
@@ -322,7 +312,7 @@ def test_mesh_builds_host_tables_once(pools, mode, pool, n_b, n_s):
         if not dense:
             e.run_compact(_csr(spec), 0.5)
         e.run(_csr(spec))
-    cfg = eng._wire_cfg
+    cfg = eng._cfg
     kind = "dense" if dense else mode
     assert eng.host_table_builds == {(kind, None if dense else cfg): 1}
     assert one.host_table_builds == eng.host_table_builds

@@ -77,7 +77,7 @@ def _rel(x, ref):
     return float((np.abs(x - ref) / np.maximum(1.0, np.abs(ref))).max())
 
 
-def _no_step(*args):
+def _no_step(*args, **kw):
     raise AssertionError("a spooled block was recomputed")
 
 
@@ -212,7 +212,7 @@ def test_spool_second_run_loads_every_block(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path)) == sorted(
         "block_%08d_%d.npz" % (b[0], len(b)) for b in blocks)
 
-    monkeypatch.setattr(eng, "_dispatch_block", _no_step)
+    monkeypatch.setattr(eng, "_dispatch", _no_step)
     again = eng.run(_csr(spec), spool_dir=str(tmp_path))
     for a, b in zip(_fields(first), _fields(again)):
         np.testing.assert_array_equal(a, b)
@@ -234,9 +234,9 @@ def test_spool_file_of_other_cells_is_recomputed(tmp_path, monkeypatch):
     arrs["c"] = np.zeros_like(arrs["c"])  # would show if it were loaded
     np.savez(path, **arrs)
     steps = []
-    step = eng._dispatch_block
-    monkeypatch.setattr(eng, "_dispatch_block",
-                        lambda *a: steps.append(1) or step(*a))
+    step = eng._dispatch
+    monkeypatch.setattr(eng, "_dispatch",
+                        lambda *a, **k: steps.append(1) or step(*a, **k))
     again = eng.run(_csr(spec), spool_dir=str(tmp_path))
     assert len(steps) == 1
     for a, b in zip(_fields(first), _fields(again)):
@@ -256,7 +256,7 @@ def test_spool_directory_of_the_jax_engine_resumes(tmp_path, monkeypatch):
     want = JE.DemuxEngine(gps, grid, cell_block=8).run(
         _csr(spec, JCsr), spool_dir=str(tmp_path))
     eng = TE.DemuxEngine(gps, grid, cell_block=8, device=CPU)
-    monkeypatch.setattr(eng, "_dispatch_block", _no_step)
+    monkeypatch.setattr(eng, "_dispatch", _no_step)
     got = eng.run(_csr(spec), spool_dir=str(tmp_path))
     for g, w in zip(_fields(got), _fields(want)):
         np.testing.assert_array_equal(g, w)

@@ -165,9 +165,9 @@ def test_counts_are_the_runs_slots(monkeypatch, skewed):
     shipped = []
     step = TD.compact_step_body_exact
 
-    def spy(codes, *args, wire=None, **kw):
-        shipped.append((codes.shape[0], wire[1]))
-        return step(codes, *args, wire=wire, **kw)
+    def spy(parts, *args, **kw):
+        shipped.append(tuple(parts.idx.shape))
+        return step(parts, *args, **kw)
 
     monkeypatch.setattr(TD, "compact_step_body_exact", spy)
     eng.run_compact(csr, 0.5)
@@ -199,9 +199,9 @@ def test_pair_route_counts_and_span(monkeypatch, V):
     shipped, items = [], []
     step, tiled = TD.compact_step_body_exact, PT.pair_tiled_plain
 
-    def spy(codes, *args, wire=None, **kw):
-        shipped.append((codes.shape[0], wire[1]))
-        return step(codes, *args, wire=wire, **kw)
+    def spy(parts, *args, **kw):
+        shipped.append(tuple(parts.idx.shape))
+        return step(parts, *args, **kw)
 
     def spy_tiled(t, g, V, A, plan, expand):
         items.append(len(plan.items))

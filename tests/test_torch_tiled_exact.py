@@ -164,21 +164,18 @@ def test_llks_match_oracle(V, A):
     o_llks, o_llk0s = pass1_singlet(scl, gp0s)
     assert np.abs(llks - o_llks).max() < 1e-9
     assert np.abs(llk0s - o_llk0s).max() < 1e-9
-    csr = CsrPileup.from_pileup(scl)
-    tab = eng._exact_tables(eng._wire_cfg_for(csr))
+    csr, cfg = eng._kernel_setup(CsrPileup.from_pileup(scl), None)
+    tab = eng._tables("exact")
     from demuxlet_tpu_torch.ops.front_exact import exact_block
+    from demuxlet_tpu_torch.ops.wire import decode
 
     n = 0
     blocks, pads = eng._blocks(csr.nbcs, csr)
     for cells, pad in zip(blocks, pads or [None] * len(blocks)):
-        codes, idx, msk = eng._prep_codes_blk(csr, cells, pad)
-        wire = None
-        if isinstance(idx, tuple) and isinstance(idx[0], str):
-            wire, idx = idx, None
+        blk = eng._packer.pack(csr, cells, cfg, pad)
         _, _, ab, z0 = exact_block(
-            torch.from_numpy(codes), idx, msk, tab.g_table, tab.lut,
-            tab.cmask, tab.gsel, tab.expand, A, V, a0_sep=True,
-            sym_a=grid.index(0.5), wire=wire)
+            decode(TE._h2d(blk.bufs, CPU), blk.meta), tab, A, V,
+            a0_sep=True, sym_a=grid.index(0.5))
         for r, c in enumerate(cells):
             o_ab, _, o_00 = pass2_cell(scl, gp0s, c, grid)
             assert np.abs(ab[r].numpy() - o_ab).max() < 1e-9
@@ -345,7 +342,7 @@ def test_k7_k6_match_likelihood_on_card(cuda_device, B, S, V, grid, edge):
 
     A = len(grid)
     codes, idx, msk, gps, _ = _workload(V + S, B=B, S=S, U=3, V=V)
-    tab = TE.exact_tables_from_numpy(gps, grid, 40, None, cuda_device)
+    tab = TE.place(TE.exact_host_tables(gps, grid, 40, None), cuda_device)
     a0_sep = grid[0] == 0.0
     sym_a = grid.index(0.5) if 0.5 in grid else None
     dev = lambda x: torch.from_numpy(x).to(cuda_device)

@@ -19,7 +19,7 @@ from demuxlet_tpu_torch.models import engine as TE
 from demuxlet_tpu_torch.ops import pair as TP
 from demuxlet_tpu_torch.ops import pair_tiled as PT
 from demuxlet_tpu_torch.ops.front import fast_front
-from test_torch_exact import _likelihood_f64, _swap_equal, _workload
+from test_torch_exact import _likelihood_f64, _parts, _swap_equal, _workload
 from test_torch_pair import _case, _rel
 
 torch.set_num_threads(2)
@@ -159,11 +159,9 @@ def test_all_padding_block_is_exactly_zero(a0_sep, sym):
     msk = np.zeros((8, 128), bool)
     gps = np.random.default_rng(0).dirichlet(np.ones(3), size=(10, 20))
     grid = _grid(3)
-    tab = TE.tables_from_numpy(gps, grid, 40, None, CPU)
-    out = fast_front(torch.from_numpy(codes), torch.from_numpy(idx),
-                     torch.from_numpy(msk), tab.gps, tab.gp0, tab.w_ext,
-                     tab.logf_ext, 3, 20, a0_sep=a0_sep,
-                     sym_a=2 if sym else None, expand=tab.expand)
+    tab = TE.place(TE.host_tables(gps, grid, 40, None), CPU)
+    out = fast_front(_parts(codes, idx, msk), tab, 3, 20, a0_sep=a0_sep,
+                     sym_a=2 if sym else None)
     assert out[2].shape == (8, 20, 20, 3)
     for x in out:
         assert bool((x == 0).all())
@@ -280,13 +278,11 @@ def test_k5_k4_match_plain_and_likelihood_on_card(cuda_device, B, S, V,
     A = len(grid)
     assert V * V * A > TP.UNROLL_CAP
     codes, idx, msk, gps, _ = _workload(V + S, B=B, S=S, U=3, V=V)
-    tab = TE.tables_from_numpy(gps, grid, 40, None, cuda_device)
+    tab = TE.place(TE.host_tables(gps, grid, 40, None), cuda_device)
     a0_sep = grid[0] == 0.0
     sym_a = grid.index(0.5) if 0.5 in grid else None
-    dev = lambda x: torch.from_numpy(x).to(cuda_device)
-    args = (dev(codes), dev(idx), dev(msk), tab.gps, tab.gp0, tab.w_ext,
-            tab.logf_ext, A, V)
-    kw = dict(a0_sep=a0_sep, sym_a=sym_a, expand=tab.expand)
+    args = (_parts(codes, idx, msk, cuda_device), tab, A, V)
+    kw = dict(a0_sep=a0_sep, sym_a=sym_a)
     plan = PT.plan_tiles(V, A, a0_sep, sym_a)
     before = (k5.launches, k4.launches, k1.launches)
     got = fast_front(*args, **kw)

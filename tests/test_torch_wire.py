@@ -1,8 +1,8 @@
-"""Port wire decode (demuxlet_tpu_torch/ops/wire.py) against the JAX
+"""Port wire decode (demuxlet_tpu_torch/ops/wire.decode) against the JAX
 device decode (pallas_pair._unpack_wire_v2 / unpack_block_inputs):
 bit-identical codes, ids, masks and tail entries on buffers from both the
 Python packer and the native packer, at tail widths 16, 24 and 32, and on
-every v1 block form the engine ships."""
+every v1 block form the block packer (models/blocks.py) makes."""
 
 import numpy as np
 import pytest
@@ -13,7 +13,7 @@ import jax.numpy as jnp
 from demuxlet_tpu.host import wire as W
 from demuxlet_tpu.host.csr import CsrPileup, build_codes_block
 from demuxlet_tpu.ops import pallas_pair as PP
-from demuxlet_tpu_torch.models.engine import DemuxEngine, _to_wire
+from demuxlet_tpu_torch.models import blocks as TB
 from demuxlet_tpu_torch.ops import wire as TW
 
 torch.set_num_threads(2)
@@ -49,15 +49,19 @@ def _native():
 
 
 def _assert_v2_decoders_agree(buf, meta):
+    """The parts agree with the JAX decoder's, and the full lanes rebuilt
+    from them with its full lanes."""
+    dense_t, tail_t, n_deep, idx_t, msk_t = TW.decode(
+        (torch.from_numpy(buf),), meta)
+    assert n_deep == meta[2] - meta[3]
     codes_j, idx_j, msk_j = PP._unpack_wire_v2(jnp.asarray(buf), meta)
-    codes_t, idx_t, msk_t = TW.unpack_wire_v2(torch.from_numpy(buf), meta)
+    codes_t = dense_t if tail_t is None else TW.rebuild_lanes(
+        dense_t, *tail_t, n_deep, meta[8] + 1)
     np.testing.assert_array_equal(codes_t.numpy(), np.asarray(codes_j))
     np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
     np.testing.assert_array_equal(msk_t.numpy(), np.asarray(msk_j))
     dense_j, tail_j, idx_j, msk_j = PP._unpack_wire_v2(
         jnp.asarray(buf), meta, parts=True)
-    dense_t, tail_t, idx_t, msk_t = TW.unpack_wire_v2(
-        torch.from_numpy(buf), meta, parts=True)
     np.testing.assert_array_equal(dense_t.numpy(), np.asarray(dense_j))
     np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
     np.testing.assert_array_equal(msk_t.numpy(), np.asarray(msk_j))
@@ -113,52 +117,47 @@ def test_native_tw24_big_s_deep_u_block():
 
 
 def _v1_forms():
-    """(name, codes, idx, msk, wire) for every v1 block form."""
+    """{name: blocks.Block} of every v1 form the block packer makes."""
     rng = np.random.default_rng(5)
     csr = _csr(rng, 36, 150, 5, nsnps_total=3000)
-    cells = list(range(36))
-    eng = DemuxEngine(np.full((3000, 2, 3), 1 / 3), [0.0, 0.5],
-                      cell_block=32, device=torch.device("cpu"))
-    codes, idx, msk = build_codes_block(csr, cells, 40)
-    forms = [("explicit", codes.copy(), idx.copy(), msk.copy(), None)]
-    sc, delta_idx, _ = eng._shrink_codes_blk((codes.copy(), idx.copy(),
-                                              msk.copy()))
-    assert isinstance(delta_idx, tuple)
-    forms.append(("u8_delta", sc, delta_idx, None, None))
-    wire_buf, meta = _to_wire(sc, delta_idx)
-    forms.append(("v1_wire", wire_buf, None, None, meta))
-    # wide gaps defeat the u8 deltas: 16-bit id pairs in int32 lanes
-    wide = np.where(msk, idx * 20, 0).astype(np.int32)
-    eng.gps = np.zeros((60_000, 2, 3))
-    sc2, pair_idx, _ = eng._shrink_codes_blk((codes.copy(), wide, msk))
-    assert not isinstance(pair_idx, tuple)
-    assert pair_idx.shape[1] == codes.shape[1] // 2
-    forms.append(("u16_pairs", sc2, pair_idx, None, None))
+    codes, idx, msk = build_codes_block(csr, list(range(36)), 40)
+
+    def shrink(ids, n_snps):
+        return TB._shrink_codes_blk((codes.copy(), ids.astype(np.int32),
+                                     msk.copy()), n_snps)
+
+    forms = {"v1_wire": shrink(idx, 3000)}
+    # gaps past 255 between a cell's SNPs ride in the fix list
+    forms["v1_wire_fixes"] = shrink(np.where(msk, idx * 3, 0), 9000)
+    assert forms["v1_wire"].meta[0] == forms["v1_wire_fixes"].meta[0] == "v1"
+    _, S, U, K = forms["v1_wire_fixes"].meta
+    fix_val = forms["v1_wire_fixes"].bufs[0][:, (S * U + S) // 4 + 1 + K:]
+    assert fix_val.any()
+    # wide gaps defeat the u8 deltas: 16-bit id pairs in int32 lanes, or
+    # the plain ids where the pool's SNPs pass 0xFFFF
+    wide = np.where(msk, idx * 20, 0)
+    forms["u16_pairs"] = shrink(wide, 60_000)
+    forms["ids"] = shrink(wide, 70_000)
+    assert forms["u16_pairs"].meta == ("u16", codes.shape[1])
+    assert forms["u16_pairs"].bufs[1].shape[1] == codes.shape[1] // 2
+    assert forms["ids"].meta == ("i32", codes.shape[1])
     return forms
 
 
-@pytest.mark.parametrize("form", ["explicit", "u8_delta", "v1_wire",
+@pytest.mark.parametrize("form", ["ids", "v1_wire_fixes", "v1_wire",
                                   "u16_pairs"])
 def test_v1_forms_decode_bit_identical(form):
-    name, codes, idx, msk, wire = {f[0]: f for f in _v1_forms()}[form]
-
-    def jx(x):
-        if x is None:
-            return None
-        if isinstance(x, tuple):
-            return tuple(jnp.asarray(e) for e in x)
-        return jnp.asarray(x)
-
-    def tx(x):
-        if x is None:
-            return None
-        if isinstance(x, tuple):
-            return tuple(torch.from_numpy(e) for e in x)
-        return torch.from_numpy(x)
-
-    cj, ij, mj = PP.unpack_block_inputs(jx(codes), jx(idx), jx(msk), wire)
-    ct, it, mt = TW.unpack_block_inputs(tx(codes), tx(idx), tx(msk), wire)
-    assert ct.dtype == torch.uint8
-    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    """decode against the JAX decoder on each v1 form: the same codes
+    (int32 dense lanes, no tail), ids and mask derived from the codes."""
+    blk = _v1_forms()[form]
+    if blk.meta[0] == "v1":
+        args = (jnp.asarray(blk.bufs[0]), None, None, blk.meta[1:])
+    else:
+        args = (*map(jnp.asarray, blk.bufs), None, None)
+    cj, ij, mj = PP.unpack_block_inputs(*args)
+    dense, tail, n_deep, it, mt = TW.decode(
+        tuple(map(torch.from_numpy, blk.bufs)), blk.meta)
+    assert tail is None and n_deep == 0 and dense.dtype == torch.int32
+    np.testing.assert_array_equal(dense.numpy(), np.asarray(cj))
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
