@@ -10,7 +10,8 @@ A run's blocks all take one format, chosen once per pileup
 dictionary, bit-packed lanes and a deep-lane tail), or the v1 forms where
 some cell covers so many SNPs that a block could pad past the v2's u16
 slot positions. ``BlockPacker.pack`` makes one block, with the native
-packer (``native/prep.py``) where it loads, else in numpy, as a ``Block``:
+packers (the wire v2's ``native/pack.py``, the v1 forms' ``native/prep.py``)
+where they load, else in numpy, as a ``Block``:
 the host buffers to ship and a meta that names the form:
 
 * ``("w2", S, U, U0, K2p, Kp, code_w, delta_w, n_real, tail_w)``: one
@@ -35,6 +36,7 @@ import numpy as np
 
 from demuxlet_tpu_torch.host import wire as W
 from demuxlet_tpu_torch.host.csr import build_codes_block
+from demuxlet_tpu_torch.native import pack as npack
 from demuxlet_tpu_torch.native import prep as nprep
 from demuxlet_tpu_torch.utils.spans import span
 
@@ -173,7 +175,7 @@ class BlockPacker:
         kw = {} if pad is None else {"pad_slots_to": pad}
         if nprep.available():
             if cfg is not None:
-                out = self._pack_reg(lambda ff: nprep.pack_block_v2(
+                out = self._pack_reg(lambda ff: npack.pack_block_v2(
                     scl, cells, cfg, cap_bq=self.cap_bq,
                     pad_cells_to=self.cell_block, floors_for=ff, **kw,
                 ))

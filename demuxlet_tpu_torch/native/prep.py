@@ -31,6 +31,7 @@ _LOAD_FAILED = False
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "prep.cpp")
 OBS_SRC = os.path.join(HERE, "obs.cpp")
+PACK_SRC = os.path.join(HERE, "pack.cpp")
 OUT = os.path.join(HERE, "_prep.so")
 
 
@@ -40,8 +41,9 @@ def build(force: bool = False) -> str:
     # _prep.so (the exact failure mode the round-4 fuzz catch fixed for
     # _ingest.so). prep.cpp currently has no local includes; list any
     # future .inc here. obs.cpp (the set-up's pass over all observations,
-    # native/obs.py) is the library's second TU.
-    deps = [SRC, OBS_SRC]
+    # native/obs.py) and pack.cpp (the engine's block packer,
+    # native/pack.py) are the library's other TUs.
+    deps = [SRC, OBS_SRC, PACK_SRC]
     if (
         not force
         and os.path.exists(OUT)
@@ -51,7 +53,7 @@ def build(force: bool = False) -> str:
     tmp = OUT + ".tmp%d" % os.getpid()
     subprocess.run(
         ["g++", "-O2", "-march=native", "-std=c++17", "-shared", "-fPIC",
-         "-pthread", "-o", tmp, SRC, OBS_SRC],
+         "-pthread", "-o", tmp, SRC, OBS_SRC, PACK_SRC],
         check=True,
     )
     os.replace(tmp, OUT)

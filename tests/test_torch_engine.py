@@ -322,3 +322,50 @@ def test_run_compact_zero_cells():
         assert llks.shape == (0, 2) and llk0s.shape == (0,)
         assert comp.sing_col.shape == (0, 2) and comp.llk_00.shape == (0, 2)
         assert comp.best_flat.dtype == np.int64 and len(comp.best_flat) == 0
+
+
+@pytest.mark.parametrize("nv,cell_block", [(3, 2048), (3, 16), (17, 2048),
+                                           (17, 16)])
+def test_run_compact_same_with_each_block_packer(monkeypatch, nv,
+                                                 cell_block):
+    """One exact run_compact on the CPU gives the same outputs,
+    ``h2d_bytes`` and ``counts`` with the wire-v2 packer of native/pack,
+    with the pinned native packer (native/prep) in its place, and with no
+    native prep (the numpy packer); native/pack packs every block of the
+    first run and none of the others."""
+    from demuxlet_tpu_torch.native import pack as tpack
+    from demuxlet_tpu_torch.native import prep as tprep
+
+    if tpack.counts() is None:
+        pytest.skip("native prep not built")
+
+    def run(packer):
+        before = tpack.counts()
+        with monkeypatch.context() as m:
+            if packer == "pinned":
+                m.setattr(TB.npack, "pack_block_v2", tprep.pack_block_v2)
+            elif packer == "numpy":
+                m.setenv("DEMUX_TPU_NO_NATIVE_PREP", "1")
+                m.setattr(tprep, "_LIB", None)
+                m.setattr(tprep, "_LOAD_FAILED", False)
+            csr, gps = _pcr_hot_csr(41, n_cells=40, V=nv)
+            eng = TE.DemuxEngine(gps, [0.0, 0.5], cell_block=cell_block,
+                                 device=CPU)
+            out = eng.run_compact(csr, doublet_prior=0.5)
+            assert (eng._cfg is not None) and (
+                tprep.available() == (packer != "numpy"))
+        after = tpack.counts()
+        return out, eng.h2d_bytes, dict(eng.counts), after[0] - before[0]
+
+    (l_n, l0_n, c_n), h2d_n, counts_n, packed = run("native")
+    assert packed == -(-40 // cell_block) and h2d_n > 0
+    for packer in ("pinned", "numpy"):
+        (l, l0, c), h2d, counts, packed = run(packer)
+        assert packed == 0
+        assert h2d == h2d_n and counts == counts_n, packer
+        np.testing.assert_array_equal(l, l_n)
+        np.testing.assert_array_equal(l0, l0_n)
+        for f in dataclasses.fields(c):
+            np.testing.assert_array_equal(getattr(c, f.name),
+                                          getattr(c_n, f.name),
+                                          err_msg=f"{packer} {f.name}")

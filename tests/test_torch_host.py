@@ -79,7 +79,8 @@ SPAN_DIFFS = {
 SPAN_IMPORT = f"from {PORT}.utils.spans import span\n\n"
 
 # The port's own code in three copies, for the engine set-up's native pass
-# over all observations (native/obs.py, its C in native/obs.cpp): the
+# over all observations (native/obs.py, its C in native/obs.cpp) and the
+# block packer (native/pack.py and native/pack.cpp, built into _prep.so): the
 # definitions the originals lack, which ``_without_defs`` takes out by name,
 # and the lines that differ once they are out, (the port's, the original's).
 OWN_CODE = {
@@ -96,13 +97,15 @@ OWN_CODE = {
           "        counts, n = hist, 0"], []),
     ]),
     f"{PORT}/native/prep.py": ((), [
-        (["OBS_SRC = os.path.join(HERE, \"obs.cpp\")"], []),
+        (["OBS_SRC = os.path.join(HERE, \"obs.cpp\")",
+          "PACK_SRC = os.path.join(HERE, \"pack.cpp\")"], []),
         (["    # future .inc here. obs.cpp (the set-up's pass over all "
           "observations,",
-          "    # native/obs.py) is the library's second TU.",
-          "    deps = [SRC, OBS_SRC]"],
+          "    # native/obs.py) and pack.cpp (the engine's block packer,",
+          "    # native/pack.py) are the library's other TUs.",
+          "    deps = [SRC, OBS_SRC, PACK_SRC]"],
          ["    # future .inc here.", "    deps = [SRC]"]),
-        (["         \"-pthread\", \"-o\", tmp, SRC, OBS_SRC],"],
+        (["         \"-pthread\", \"-o\", tmp, SRC, OBS_SRC, PACK_SRC],"],
          ["         \"-o\", tmp, SRC],"]),
     ]),
 }
