@@ -1006,7 +1006,8 @@ def trace_summary(path, pads):
 def profile_engine(csr, gps, mode, dev, grid=GRID):
     """On a pileup whose wire config is already cached, one
     untraced run_compact (wall, rate, phase seconds, the kernels' slots
-    per covered slot from the engine's counts, peak device memory)
+    per covered slot and the fast front's scatter entries from the
+    engine's counts, peak device memory)
     and one under torch.profiler, whose exported trace gives the device's
     busy time, its idle share of the untraced wall, the top ops and the
     port's kernels' ms per block slot pad."""
@@ -1027,6 +1028,7 @@ def profile_engine(csr, gps, mode, dev, grid=GRID):
     phase_s = dict(eng.phase_s)
     # the slots the kernels ran over, padding included, per covered slot
     padded = eng.counts["slots_kernel"] / max(int(csr.n_snps_all().sum()), 1)
+    front_entries = eng.counts["front_entries"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng.run_compact(csr, 0.5)
@@ -1042,7 +1044,8 @@ def profile_engine(csr, gps, mode, dev, grid=GRID):
     return dict(mode=mode, samples=gps.shape[1], alphas=len(grid),
                 cells=csr.nbcs, wall_s=wall,
                 barcodes_per_s=csr.nbcs / wall, phase_s=phase_s,
-                slots_kernel_per_real=padded, peak_device_gb=peak / 1e9,
+                slots_kernel_per_real=padded, front_entries=front_entries,
+                peak_device_gb=peak / 1e9,
                 device_busy_ms=busy,
                 idle_share=1.0 - busy / 1e3 / wall, top_device_ms=top,
                 kernel_ms_by_S=by_s, lane_rebuilds=rebuilds)

@@ -24,7 +24,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from demuxlet_tpu_torch.ops.front import fast_front
+from demuxlet_tpu_torch.ops.front import front_half, pair_half
 from demuxlet_tpu_torch.ops.front_exact import (
     exact_front,
     exact_pair,
@@ -242,19 +242,28 @@ def pack_rows(out, llk, llk0):
 
 def compact_step_body(parts, tab, n_alpha, n_samples, dbl_w, dbl_msk,
                       doublet_prior, a0_sep=False, sym_a=None,
-                      pair_fn=pair_llks, dtype=torch.float64):
-    """Fused fast block step (``ops/front.fast_front`` on a decoded block
-    with the engine's ``DeviceTables`` tab) + decision pass, packed into
-    ONE (B, 2V+A+11) f64 tensor on the block's device. dtype: the decision
-    pass's (float32 is the JAX CLI's ``--precision f32``, whose casts to
-    f64 stay f32 without x64; dbl_w comes in it)."""
-    llk, llk0, llk_ab, llk_00 = fast_front(
-        parts, tab, n_alpha, n_samples, a0_sep=a0_sep, sym_a=sym_a,
-        pair_fn=pair_fn,
-    )
-    out = decide(llk_ab.to(dtype), llk_00.to(dtype), dbl_w, dbl_msk,
-                 doublet_prior)
-    return pack_rows(out, llk, llk0)
+                      pair_fn=pair_llks, dtype=torch.float64, acct=None):
+    """Fused fast block step (``ops/front``: ``front_half`` then
+    ``pair_half`` on a decoded block with the engine's ``DeviceTables``
+    tab) + decision pass, packed into ONE (B, 2V+A+11) f64 tensor on the
+    block's device. dtype: the decision pass's (float32 is the JAX CLI's
+    ``--precision f32``, whose casts to f64 stay f32 without x64; dbl_w
+    comes in it). The front is the span dispatch.front; everything after
+    it (the g gather, the pair search, the singlet contraction, the
+    decision and the packing) the span dispatch.pair (``utils/spans``;
+    acct: the engine's ``phase_s``, or None for the trace alone)."""
+    with span("dispatch.front", acct):
+        front = front_half(parts, tab)
+    del parts  # the decoded lanes are not held through the pair search
+    with span("dispatch.pair", acct):
+        llk, llk0, llk_ab, llk_00 = pair_half(
+            *front, tab, n_alpha, n_samples, a0_sep=a0_sep, sym_a=sym_a,
+            pair_fn=pair_fn,
+        )
+        del front
+        out = decide(llk_ab.to(dtype), llk_00.to(dtype), dbl_w, dbl_msk,
+                     doublet_prior)
+        return pack_rows(out, llk, llk0)
 
 
 def compact_step_body_exact(
@@ -266,11 +275,12 @@ def compact_step_body_exact(
     into ONE (B, 2V+A+11) f64 tensor like ``compact_step_body``. parts: a
     decoded block (``ops/wire.Parts``); tab: the engine's
     ``ExactTables``. front_fn/pair_fn: K2' and K3' (the engine), or their
-    plain versions (a check). Everything after the front (the g gather,
-    the pair search, the decision and the packing) is the span
-    dispatch.pair (``utils/spans``; acct: the engine's ``phase_s``, or
-    None for the trace alone)."""
-    front = exact_front(parts, tab, front_fn)
+    plain versions (a check). The front is the span dispatch.front;
+    everything after it (the g gather, the pair search, the decision and
+    the packing) the span dispatch.pair (``utils/spans``; acct: the
+    engine's ``phase_s``, or None for the trace alone)."""
+    with span("dispatch.front", acct):
+        front = exact_front(parts, tab, front_fn)
     del parts  # the decoded lanes are not held through the pair search
     with span("dispatch.pair", acct):
         llk, llk0, llk_ab, llk_00 = exact_pair(

@@ -60,7 +60,11 @@ from demuxlet_tpu_torch.ops import luts
 from demuxlet_tpu_torch.utils.logging_utils import DemuxError
 from demuxlet_tpu_torch.models import decision as D
 from demuxlet_tpu_torch.models.blocks import BlockPacker, _bucket
-from demuxlet_tpu_torch.ops.front import fast_front, fast_g_table
+from demuxlet_tpu_torch.ops.front import (
+    fast_front,
+    fast_g_table,
+    front_entries,
+)
 from demuxlet_tpu_torch.ops.front_exact import exact_block
 from demuxlet_tpu_torch.ops.pair import dedup_channels, extend_luts
 from demuxlet_tpu_torch.ops.pair_exact import takes_k3
@@ -73,10 +77,12 @@ MODES = ("exact", "fast")
 EXACT_KERNELS = ("auto", "pallas", "xla")
 # a run's phase_s keys, each the summed seconds of its span (utils/spans):
 # set-up and the parts the benchmark reads, prep (thread-summed),
-# prep_wait, dispatch, its exact-mode pair route (dispatch.pair) and fetch;
-# the other spans are on the trace only
+# prep_wait, dispatch, its block step's front (dispatch.front) and what
+# follows the front (dispatch.pair), and fetch; the other spans are on the
+# trace only
 PHASES = ("setup", "setup.nsnp", "setup.wire_cfg", "setup.tables", "prep",
-          "prep_wait", "dispatch", "dispatch.pair", "fetch")
+          "prep_wait", "dispatch", "dispatch.front", "dispatch.pair",
+          "fetch")
 
 
 def compute_gp0(gps: np.ndarray) -> np.ndarray:
@@ -388,11 +394,15 @@ class DemuxEngine:
         times padded slots (slots_kernel); the tile items the tiled pair
         kernel K7' or K5' launches, a plan's items a block (pair_tile_items,
         0 on K3' and K1); the bytes of the (3V+3, B, S) g buffer the block
-        step gathers from the g table (g_bytes)."""
+        step gathers from the g table (g_bytes); in fast mode the entries
+        the front scatters into its count tables (front_entries,
+        ``ops/front.front_entries``: dense lanes and tail entries, pads
+        included; 0 in exact mode)."""
         self.h2d_bytes = 0
         self.d2h_bytes = 0
         self.phase_s = dict.fromkeys(PHASES, 0.0)
-        self.counts = dict(slots_kernel=0, pair_tile_items=0, g_bytes=0)
+        self.counts = dict(slots_kernel=0, pair_tile_items=0, g_bytes=0,
+                           front_entries=0)
 
     def _sym_a(self):
         """Index of alpha == 0.5 in the grid (the (j,k)-symmetric doublet
@@ -542,18 +552,26 @@ class DemuxEngine:
         tab = self._tables(self.mode, member)
         bufs = self._ship(blk, tab, self._member(member))
         args = (tab, self.n_alpha, self.nv, *(decide or ()))
-        kw = dict(a0_sep=self.grid_alpha[0] == 0.0, sym_a=self._sym_a())
+        kw = dict(a0_sep=self.grid_alpha[0] == 0.0, sym_a=self._sym_a(),
+                  acct=self.phase_s)
         if self.mode == "exact":
             step = (exact_block if decide is None
                     else D.compact_step_body_exact)
-            kw["acct"] = self.phase_s
         elif decide is None:
             step = fast_front
         else:
             step, kw["dtype"] = D.compact_step_body, self.dtype
-        # decoded in the call, so that an exact step lets the decoded lanes
-        # go after its front
-        return step(decode(bufs, blk.meta), *args, **kw)
+        # decoded in the call, so that the step lets the decoded lanes go
+        # after its front
+        return step(self._decoded(bufs, blk.meta), *args, **kw)
+
+    def _decoded(self, bufs, meta):
+        """A shipped block decoded (``ops/wire.decode``); in fast mode its
+        front's scatter entries added to ``counts["front_entries"]``."""
+        parts = decode(bufs, meta)
+        if self.mode == "fast":
+            self.counts["front_entries"] += front_entries(parts)
+        return parts
 
     def _run_block(self, blk: SlotBlock, row: int = 0):
         """One ``build_slots`` block through the dense route on mesh row

@@ -14,11 +14,14 @@ to XLA:
   off (``utils/device.py``), channel-leading like the JAX front; the
   matmul may sum the R rows in another order than XLA (last-bit
   differences in lograw, well inside the 1e-5 relative front tolerance);
-* ``norm_t``, the pass-1 GL table, the gps/gp0 gather (channel-leading
-  rows of the (3V+3, NS+1) table ``fast_g_table``, whose neutral column NS
-  masked slots read; the engine builds the table once per table set),
-  the pair search (``ops/pair.pair_llks``: K1, or K5' + K4' with the gathered
-  gp0 rows on pools with V*V*A > 384) and the singlet contraction.
+* ``norm_t`` and the pass-1 GL table: with the two above, the front
+  (``front_half``, the span dispatch.front);
+* the gps/gp0 gather (channel-leading rows of the (3V+3, NS+1) table
+  ``fast_g_table``, whose neutral column NS masked slots read; the engine
+  builds the table once per table set), the pair search
+  (``ops/pair.pair_llks``: K1, or K5' + K4' with the gathered gp0 rows on
+  pools with V*V*A > 384) and the singlet contraction (``pair_half``, the
+  span dispatch.pair).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from demuxlet_tpu_torch.ops.pair import norm_t, pair_llks
+from demuxlet_tpu_torch.utils.spans import span
 
 
 def _counts(c, R):
@@ -56,18 +60,20 @@ def fast_g_table(gps_table, gp0_table):
     ).T.contiguous()
 
 
-def fast_front(parts, tab, n_alpha, n_samples, a0_sep=False, sym_a=None,
-               pair_fn=pair_llks):
-    """parts: a decoded block (``ops/wire.Parts``). tab: the engine's
-    ``DeviceTables``: f32 gps and gp0, w_ext (R, C) the deduplicated pair
-    LUT and logf_ext (R, 3) the singlet LUT, each with the zero none row
-    last, their expand, and the g table (``fast_g_table``). pair_fn is the
-    pair search; the engine always uses ``pair_llks``, a check may pass
-    ``pair_llks_plain``.
+def front_entries(parts):
+    """The entries ``front_half`` scatters into a decoded block's count
+    table: every dense lane and every deep-lane tail entry, pads
+    included."""
+    n = parts.dense.numel()
+    return n if parts.tail is None else n + parts.tail[0].numel()
 
-    Returns (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A))
-    f32."""
-    V, A = n_samples, n_alpha
+
+def front_half(parts, tab):
+    """The front of the fast block step on a decoded block
+    (``ops/wire.Parts``) with the engine's ``DeviceTables`` tab: the count
+    table, the LUT contraction, ``norm_t`` and the pass-1 GL table.
+    Returns (t_x (C, B, S), gl (3, B, S), idx (B, S), msk (B, S)), t_x and
+    gl f32."""
     R, C = tab.w_ext.shape
     none_row = R - 1
     dense, tail, n_deep, idx, msk = parts
@@ -102,7 +108,17 @@ def fast_front(parts, tab, n_alpha, n_samples, a0_sep=False, sym_a=None,
     neutral3 = torch.zeros((3, 1, 1), dtype=gl.dtype, device=gl.device)
     neutral3[0] = 1.0
     gl = torch.where(msk[None], gl, neutral3)  # masked slots: exact log 0
+    return t_x, gl, idx, msk
 
+
+def pair_half(t_x, gl, idx, msk, tab, n_alpha, n_samples, a0_sep=False,
+              sym_a=None, pair_fn=pair_llks):
+    """The rest of the fast block step on ``front_half``'s outputs: the
+    gps/gp0 gather from tab's g table, the pair search and the singlet
+    contraction. Returns (llk (B, V), llk0 (B,), llk_ab (B, V, V, A),
+    llk_00 (B, A)) f32."""
+    V, A = n_samples, n_alpha
+    _, B, S = t_x.shape
     # per-slot genotype posteriors + gp0 in one gather, straight into the
     # channel-leading layout the kernels read; masked slots read the
     # neutral column NS
@@ -124,3 +140,26 @@ def fast_front(parts, tab, n_alpha, n_samples, a0_sep=False, sym_a=None,
         gp0_t[0] * gl[0] + gp0_t[1] * gl[1] + gp0_t[2] * gl[2], min=1e-30))
     llk0 = contrib0.sum(dim=-1)
     return llk, llk0, llk_ab, llk_00
+
+
+def fast_front(parts, tab, n_alpha, n_samples, a0_sep=False, sym_a=None,
+               pair_fn=pair_llks, acct=None):
+    """The fast block step: ``front_half`` as the span dispatch.front,
+    then ``pair_half`` as the span dispatch.pair (``utils/spans``; acct:
+    the engine's ``phase_s``, or None for the trace alone).
+
+    parts: a decoded block (``ops/wire.Parts``). tab: the engine's
+    ``DeviceTables``: f32 gps and gp0, w_ext (R, C) the deduplicated pair
+    LUT and logf_ext (R, 3) the singlet LUT, each with the zero none row
+    last, their expand, and the g table (``fast_g_table``). pair_fn is the
+    pair search; the engine always uses ``pair_llks``, a check may pass
+    ``pair_llks_plain``.
+
+    Returns (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A))
+    f32."""
+    with span("dispatch.front", acct):
+        front = front_half(parts, tab)
+    del parts  # the decoded lanes are not held through the pair search
+    with span("dispatch.pair", acct):
+        return pair_half(*front, tab, n_alpha, n_samples, a0_sep, sym_a,
+                         pair_fn)

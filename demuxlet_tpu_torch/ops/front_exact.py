@@ -114,8 +114,8 @@ def exact_pair(t, gl, idx, msk, tab, n_alpha, n_samples, a0_sep=False,
 def exact_block(parts, tab, n_alpha, n_samples, a0_sep=False, sym_a=None,
                 front_fn=front_exact, pair_fn=pair_exact, acct=None):
     """Fused exact-mode block step: ``exact_front`` then ``exact_pair``,
-    the latter the span dispatch.pair (``utils/spans``; acct: the
-    engine's ``phase_s``, or None for the trace alone).
+    the spans dispatch.front and dispatch.pair (``utils/spans``; acct:
+    the engine's ``phase_s``, or None for the trace alone).
 
     parts: a decoded block (``ops/wire.Parts``). tab: the engine's
     ``ExactTables``: the (3V+3, NS+1) f64 g table (the gps rows, the three
@@ -125,7 +125,8 @@ def exact_block(parts, tab, n_alpha, n_samples, a0_sep=False, sym_a=None,
 
     Returns (llk (B, V), llk0 (B,), llk_ab (B, V, V, A), llk_00 (B, A))
     f64."""
-    front = exact_front(parts, tab, front_fn)
+    with span("dispatch.front", acct):
+        front = exact_front(parts, tab, front_fn)
     del parts  # the decoded lanes are not held through the pair search
     with span("dispatch.pair", acct):
         return exact_pair(*front, tab, n_alpha, n_samples, a0_sep, sym_a,

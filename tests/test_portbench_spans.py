@@ -29,14 +29,22 @@ NEW_METRICS = {
 # the cells the benchmark had when those metrics came, which their
 # accepted entries list
 SPAN_CELLS = ["kang8_a2.cells", "onek1k14_a2.cells", "kang8_a2.unfiltered"]
+# the fast-mode cell: the libraries and every host layer of kang8_a2.cells,
+# so it joined the lists of the host layers' metrics when it came
+FAST_CELL = "kang8_a2_fast.cells"
+# the cells that run the exact route
+EXACT_CELLS = SPAN_CELLS + ["kang64_a2.cells"]
 # the metrics of the pair route and the per-line render, for pools of any
-# size: (unit, better, source, layer, the cells they list)
+# size: (unit, better, source, layer, the cells they list; None: every
+# cell of the benchmark)
 POOL_METRICS = {
+    # the exact route's kernels and gather: none of them in fast mode
     "pair_route.device_ms_per_kbarcode": (
-        "ms/kbarcode", "lower", "device_trace", "kernels", None),
+        "ms/kbarcode", "lower", "device_trace", "kernels", EXACT_CELLS),
     "dispatch.pair.fraction": (
         "fraction", "lower", "program_counter", "dispatch", None),
     "render.ns_per_line": ("ns/line", "lower", "host_clock", "render", None),
+    # K7' + K6' at their widest: the 64-donor pool alone
     "tiled_pair_roofline": (
         "%", "higher", "device_trace", "kernels", ["kang64_a2.cells"]),
 }
@@ -296,7 +304,8 @@ def test_new_readers_read_their_input():
 
 def test_new_metrics_in_the_benchmark():
     """The new metrics are per-layer entries of every cell the benchmark
-    had when they came, with their units, each with a reader."""
+    had when they came and of the fast-mode cell, with their units, each
+    with a reader."""
     with open(os.path.join(REPO, "BENCHMARK.json")) as fh:
         bench = json.load(fh)
     cells = [w["name"] for w in bench["workloads"]]
@@ -306,10 +315,10 @@ def test_new_metrics_in_the_benchmark():
         m = entries[name]
         assert m["unit"] == unit and m["better"] == "lower"
         assert m["source"] == "program_counter"
-        assert m["workloads"] == SPAN_CELLS
+        assert m["workloads"] == SPAN_CELLS + [FAST_CELL]
         assert os.path.exists(os.path.join(REPO, "portbench", "metrics",
                                            name + ".py"))
-    for cell in SPAN_CELLS:
+    for cell in SPAN_CELLS + [FAST_CELL]:
         per_layer = harness.load_cell(REPO, cell)[4]
         assert set(NEW_METRICS) <= {m["name"] for m in per_layer}
 
@@ -353,17 +362,20 @@ def test_traced_run_reads_the_programs_spans(tmp_path):
 
 def test_pool_metrics_in_the_benchmark():
     """The pair route's and the per-line render's metrics: per-layer
-    entries after the accepted ones, with their units, sources and layers
-    (each layer a name the accepted entries use), each with a reader; the
-    tiled roofline in the 64-donor cell alone, the others in every cell,
-    each cell's line asking its reader."""
+    entries after the ones accepted before them, in one run, with their
+    units, sources and layers (each layer a name those entries use), each
+    with a reader; the tiled roofline in the 64-donor cell alone, the
+    exact pair route's device time in the exact cells, the others in
+    every cell, each cell's line asking its reader."""
     with open(os.path.join(REPO, "BENCHMARK.json")) as fh:
         bench = json.load(fh)
     cells = [w["name"] for w in bench["workloads"]]
+    assert set(EXACT_CELLS + [FAST_CELL]) <= set(cells)
     names = [m["name"] for m in bench["per_layer"]]
-    assert names[-len(POOL_METRICS):] == list(POOL_METRICS)
+    first = names.index(next(iter(POOL_METRICS)))
+    assert names[first:first + len(POOL_METRICS)] == list(POOL_METRICS)
     entries = {m["name"]: m for m in bench["per_layer"]}
-    old_layers = {m["layer"] for m in bench["per_layer"][:-4]}
+    old_layers = {m["layer"] for m in bench["per_layer"][:first]}
     for name, (unit, better, source, layer, wl) in POOL_METRICS.items():
         m = entries[name]
         assert (m["unit"], m["better"], m["source"], m["layer"]) == (

@@ -76,7 +76,8 @@ def test_compact_rows_match_jax(monkeypatch):
     monkeypatch.setattr(PP, "demux_block_fast_impl", lambda *a, **k: (
         jnp.asarray(llk), jnp.asarray(llk0), jnp.asarray(ab),
         jnp.asarray(z0)))
-    monkeypatch.setattr(TD, "fast_front", lambda *a, **k: (
+    monkeypatch.setattr(TD, "front_half", lambda *a, **k: ())
+    monkeypatch.setattr(TD, "pair_half", lambda *a, **k: (
         torch.from_numpy(llk), torch.from_numpy(llk0), torch.from_numpy(ab),
         torch.from_numpy(z0)))
     w = TD.doublet_weights(V, grid, prior)

@@ -124,7 +124,8 @@ def test_exact_run_matches_jax(jax_runs, pool):
     assert eng.d2h_bytes == sum(x.nbytes for x in _fields(got))
     assert set(eng.phase_s) == {
         "setup", "setup.nsnp", "setup.wire_cfg", "setup.tables", "prep",
-        "prep_wait", "dispatch", "dispatch.pair", "fetch"}
+        "prep_wait", "dispatch", "dispatch.front", "dispatch.pair",
+        "fetch"}
     assert 0.0 < eng.phase_s["dispatch.pair"] < eng.phase_s["dispatch"]
     assert eng.h2d_bytes > 0
 

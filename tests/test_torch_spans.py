@@ -4,8 +4,9 @@ set-up's parts inside the set-up and one prep span a block on the
 prefetch threads; each ``phase_s`` key is its spans' summed time and the
 other spans are on the trace alone; ``counts`` holds the slots of the
 blocks as shipped, the tiled pair kernel's tile items and the bytes of
-the g gathers, on a 3-, a 14- and a 64-donor pool; with no profiler
-running no range is entered."""
+the g gathers, on a 3-, a 14- and a 64-donor pool, and in fast mode the
+entries of the front's count tables; each mode's block step is its front
+and then the rest; with no profiler running no range is entered."""
 
 import io
 import json
@@ -29,7 +30,8 @@ GRID = [0.0, 0.5]
 # the spans of a run_compact job, cell_stats and the native render
 JOB_SPANS = ("engine_init", "setup", "setup.nsnp", "setup.wire_cfg",
              "setup.tables", "setup.blocks", "prep", "prep_wait",
-             "dispatch", "dispatch.h2d", "dispatch.pair", "fetch",
+             "dispatch", "dispatch.h2d", "dispatch.front", "dispatch.pair",
+             "fetch",
              "fetch.readback",
              "fetch.unpack", "finish", "cell_stats", "render.single",
              "render.pass2", "render.order", "render.pack", "render.native",
@@ -101,7 +103,8 @@ def test_every_span_of_a_job_is_traced(traced_job):
     _, by, caller = traced_job
     assert set(by) == set(JOB_SPANS)
     blocks = 5  # 40 cells in blocks of 8
-    for name in ("prep_wait", "dispatch", "dispatch.h2d", "dispatch.pair"):
+    for name in ("prep_wait", "dispatch", "dispatch.h2d", "dispatch.front",
+                 "dispatch.pair"):
         assert len(by[name]) == blocks, name
         assert {e["tid"] for e in by[name]} == {caller}, name
     assert len(by["prep"]) == blocks
@@ -123,7 +126,7 @@ def test_spans_nest_as_the_job_does(traced_job):
                  "setup.blocks"):
         (part,) = by[name]
         assert _inside(part, setup), name
-    for name in ("dispatch.h2d", "dispatch.pair"):
+    for name in ("dispatch.h2d", "dispatch.front", "dispatch.pair"):
         for part in by[name]:
             assert any(_inside(part, d) for d in by["dispatch"]), name
     (fetch,) = by["fetch"]
@@ -174,7 +177,8 @@ def test_counts_are_the_runs_slots(monkeypatch, skewed):
     nsnp = csr.n_snps_all()
     slots = sum(b * s for b, s in shipped)
     assert eng.counts == {"slots_kernel": slots, "pair_tile_items": 0,
-                          "g_bytes": (3 * 3 + 3) * slots * 8}
+                          "g_bytes": (3 * 3 + 3) * slots * 8,
+                          "front_entries": 0}
     assert len(shipped) == len(blocks)
     for (b, s), cells, pad in zip(shipped, blocks,
                                   pads or [None] * len(blocks)):
@@ -215,12 +219,69 @@ def test_pair_route_counts_and_span(monkeypatch, V):
     slots = sum(b * s for b, s in shipped)
     assert eng.counts == {"slots_kernel": slots,
                           "pair_tile_items": n_items * 3,
-                          "g_bytes": (3 * V + 3) * slots * 8}
+                          "g_bytes": (3 * V + 3) * slots * 8,
+                          "front_entries": 0}
     assert 0.0 < eng.phase_s["dispatch.pair"] < eng.phase_s["dispatch"]
     first = dict(eng.counts)
     eng.run(csr)
     assert eng.counts == first and items == [n_items] * 6
     assert 0.0 < eng.phase_s["dispatch.pair"] < eng.phase_s["dispatch"]
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_front_and_pair_spans_of_each_mode(mode):
+    """Each mode's block step is the span dispatch.front and then the span
+    dispatch.pair, both inside dispatch, in run_compact and in run():
+    fast mode's front the count scatters, the LUT contraction and the GL
+    table, exact mode's K2'."""
+    csr, gps = _pileup(19, skewed=True)
+    eng = TE.DemuxEngine(gps, GRID, cell_block=8, mode=mode, device=CPU)
+    for run in (lambda: eng.run_compact(csr, 0.5), lambda: eng.run(csr)):
+        run()
+        front, pair = eng.phase_s["dispatch.front"], eng.phase_s[
+            "dispatch.pair"]
+        assert front > 0.0 and pair > 0.0
+        assert front + pair < eng.phase_s["dispatch"]
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_front_entries_are_the_count_tables(monkeypatch, mode):
+    """counts["front_entries"] is the number of entries the fast front
+    scatters into its count tables, each adding 1.0 (the dense lanes and
+    the deep-lane tail, pads included, so the tables' sums), and the
+    entries the decoded blocks carry, in run_compact and in run(); 0 in
+    exact mode, whose front scatters nothing."""
+    from demuxlet_tpu_torch.ops import front as TF
+
+    csr, gps = _pileup(23, skewed=True)
+    eng = TE.DemuxEngine(gps, GRID, cell_block=8, mode=mode, device=CPU)
+    tables, carried = [], []
+    counts, decode = TF._counts, TE.decode
+
+    def spy_counts(c, R):
+        tables.append(counts(c, R))
+        return tables[-1]
+
+    def spy_decode(bufs, meta):
+        parts = decode(bufs, meta)
+        tails = 0 if parts.tail is None else parts.tail[0].numel()
+        carried.append((parts.dense.numel(), tails))
+        return parts
+
+    monkeypatch.setattr(TF, "_counts", spy_counts)
+    monkeypatch.setattr(TE, "decode", spy_decode)
+    for run in (lambda: eng.run_compact(csr, 0.5), lambda: eng.run(csr)):
+        tables.clear()
+        carried.clear()
+        run()
+        got = eng.counts["front_entries"]
+        if mode == "exact":
+            assert got == 0 and not tables
+            continue
+        assert len(tables) == len(carried) == 5
+        assert any(t for _, t in carried)  # deep lanes reach the tail
+        assert got == sum(int(t.sum()) for t in tables)
+        assert got == sum(d + t for d, t in carried)
 
 
 def test_a_second_run_resets_the_accounting():
