@@ -17,6 +17,12 @@
 // most kRowsPerStripe rows is one stripe and starts no thread. Build:
 // python demuxlet_tpu_torch/native/build.py (produces _render.so; the
 // package falls back to the Python renderer when absent).
+//
+// dmx_bc_order gives both renders their row order (native/order.py): the
+// cell ids sorted as Python's sorted((barcode, id) ...) sorts them. Each
+// barcode's first 16 UTF-8 bytes are two big-endian words of a (key, id)
+// record, so most comparisons touch no string; the records are sorted in
+// the same stripes, then merged.
 
 #include <algorithm>
 #include <atomic>
@@ -25,6 +31,7 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <new>
 #include <system_error>
 #include <thread>
 #include <vector>
@@ -43,6 +50,7 @@ constexpr size_t kGen = 32;     // %.3g: "-1.23e-308", inf, nan
 constexpr size_t kCounts = 4 * (kInt + 1) + 1;  // "\t<t>\t<p>\t<u>\t<ns>\t"
 
 std::atomic<int64_t> g_calls{0}, g_stripes{0};
+std::atomic<int64_t> g_order_calls{0}, g_order_barcodes{0};
 
 // A growable malloc'd byte buffer.
 struct Buf {
@@ -139,27 +147,73 @@ bool put_sample_lines(Buf &b, const char *bc, size_t bcn, const Names &sm,
     return true;
 }
 
-// Runs render(s, r0, r1) on each stripe s of rows [r0, r1) of n rows:
+// Runs work(s, r0, r1) on each stripe s of rows [r0, r1) of n rows:
 // stripes 1.. on threads, stripe 0 here. Returns the stripe count.
-template <class Render>
-int64_t striped(int64_t n, Render render) {
+template <class Work>
+int64_t on_stripes(int64_t n, Work work) {
     int64_t k = std::clamp<int64_t>((n + kRowsPerStripe - 1) / kRowsPerStripe,
                                     1, kMaxStripes);
     std::thread ts[kMaxStripes];
     for (int64_t s = 1; s < k; ++s) {
         try {
-            ts[s] = std::thread(render, s, n * s / k, n * (s + 1) / k);
+            ts[s] = std::thread(work, s, n * s / k, n * (s + 1) / k);
         } catch (const std::system_error &) {  // no thread to be had
-            render(s, n * s / k, n * (s + 1) / k);
+            work(s, n * s / k, n * (s + 1) / k);
         }
     }
-    render(0, 0, n / k);
+    work(0, 0, n / k);
     for (std::thread &t : ts)
         if (t.joinable()) t.join();
+    return k;
+}
+
+// on_stripes for a render call, counted by dmx_render_counts.
+template <class Render>
+int64_t striped(int64_t n, Render render) {
+    int64_t k = on_stripes(n, render);
     g_calls.fetch_add(1);
     g_stripes.fetch_add(k);
     return k;
 }
+
+// A barcode's sort record: its first 16 bytes, zero-padded, as two
+// big-endian words (unsigned byte order is code-point order in UTF-8),
+// and its cell id.
+struct BcKey {
+    uint64_t hi, lo;
+    int64_t id;
+};
+
+uint64_t be_word(const unsigned char *b) {
+    uint64_t w;
+    memcpy(&w, b, 8);
+    return __builtin_bswap64(w);  // from a little-endian load (x86-64)
+}
+
+BcKey bc_key(const char *concat, const int64_t *off, int64_t i) {
+    unsigned char b[16] = {};
+    memcpy(b, concat + off[i],
+           (size_t)std::min<int64_t>(off[i + 1] - off[i] - 1, 16));
+    return {be_word(b), be_word(b + 8), i};
+}
+
+// Python's order of (barcode, id) tuples: bytes, then the shorter of a
+// prefix pair, then the id. The full strings are read on equal keys only.
+struct BcLess {
+    const char *concat;
+    const int64_t *off;
+    bool operator()(const BcKey &a, const BcKey &b) const {
+        if (a.hi != b.hi) return a.hi < b.hi;
+        if (a.lo != b.lo) return a.lo < b.lo;
+        int64_t na = off[a.id + 1] - off[a.id] - 1;
+        int64_t nb = off[b.id + 1] - off[b.id] - 1;
+        int c = memcmp(concat + off[a.id], concat + off[b.id],
+                       (size_t)std::min(na, nb));
+        if (c != 0) return c < 0;
+        if (na != nb) return na < nb;
+        return a.id < b.id;
+    }
+};
 
 // Joins the stripes' buffers, in order, into one malloc'd NUL-terminated
 // output. Returns 0, or -1 when a stripe or the output could not allocate.
@@ -369,6 +423,43 @@ int dmx_render_single(
 void dmx_render_counts(int64_t *calls, int64_t *stripes) {
     *calls = g_calls.load();
     *stripes = g_stripes.load();
+}
+
+// Fills order[0..n) with the cell ids sorted as Python's
+// sorted((b, i) for i, b in enumerate(barcodes)): barcode i is the
+// NUL-terminated UTF-8 at bc_concat + bc_off[i], bc_off[i + 1] - bc_off[i]
+// - 1 bytes long. Each stripe sorts its records on its own thread, then the
+// sorted stripes are merged pairwise. Returns 0, or -1 when the records
+// cannot be allocated.
+int dmx_bc_order(int64_t n, const char *bc_concat, const int64_t *bc_off,
+                 int64_t *order) {
+    std::vector<BcKey> keys;
+    try {
+        keys.resize((size_t)n);
+    } catch (const std::bad_alloc &) {
+        return -1;
+    }
+    const BcLess less{bc_concat, bc_off};
+    int64_t k = on_stripes(n, [&](int64_t, int64_t r0, int64_t r1) {
+        for (int64_t i = r0; i < r1; ++i)
+            keys[i] = bc_key(bc_concat, bc_off, i);
+        std::sort(keys.begin() + r0, keys.begin() + r1, less);
+    });
+    auto at = [&](int64_t s) { return keys.begin() + n * std::min(s, k) / k; };
+    for (int64_t w = 1; w < k; w *= 2)
+        for (int64_t s = 0; s + w < k; s += 2 * w)
+            std::inplace_merge(at(s), at(s + w), at(s + 2 * w), less);
+    for (int64_t r = 0; r < n; ++r) order[r] = keys[r].id;
+    g_order_calls.fetch_add(1);
+    g_order_barcodes.fetch_add(n);
+    return 0;
+}
+
+// Barcode orders built and the barcodes they sorted, since the library was
+// loaded.
+void dmx_order_counts(int64_t *calls, int64_t *barcodes) {
+    *calls = g_order_calls.load();
+    *barcodes = g_order_barcodes.load();
 }
 
 }  // extern "C"

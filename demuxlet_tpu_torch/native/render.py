@@ -15,6 +15,7 @@ import subprocess
 import numpy as np
 
 from demuxlet_tpu_torch.native.emit import emit
+from demuxlet_tpu_torch.native.order import barcodes
 from demuxlet_tpu_torch.utils.spans import span
 
 _LIB = None
@@ -117,9 +118,8 @@ def write_pass2_compact(
         return False
     Cc = compact
     with span("render.order"):
-        order = np.asarray([i for _, i in stats.bc_order()], np.int64)
+        order, bc_concat, bc_off = barcodes(stats, lib)
     with span("render.pack"):
-        bc_concat, bc_off = _concat(stats.barcodes)
         sm_concat, sm_off = _concat(list(sample_ids))
         f64 = lambda a: np.ascontiguousarray(a, np.float64)
         i64 = lambda a: np.ascontiguousarray(a, np.int64)
@@ -161,9 +161,8 @@ def write_single(
     if lib is None:
         return False
     with span("render.order"):
-        order = np.asarray([i for _, i in stats.bc_order()], np.int64)
+        order, bc_concat, bc_off = barcodes(stats, lib)
     with span("render.pack"):
-        bc_concat, bc_off = _concat(stats.barcodes)
         sm_concat, sm_off = _concat(list(sample_ids))
         f64 = lambda a: np.ascontiguousarray(a, np.float64)
         i64 = lambda a: np.ascontiguousarray(a, np.int64)

@@ -58,17 +58,28 @@ def _mapped_back(text):
 # out, and the native renderer gathers its C arguments into ``args`` (its
 # span render.pack) before the call (render.native), and writes the C
 # output with ``native/emit.emit`` (decoded straight from the C buffer,
-# with no bytes copy of the whole output first): the lines that differ
-# once the spans are out, (the port's, the original's).
+# with no bytes copy of the whole output first). Both renders take the
+# barcode order and packed barcodes from ``native/order.barcodes``, which
+# builds them once for a CellStats (a native sort keyed by the barcode
+# bytes, one join), where the original sorts and encodes them in Python
+# at each render: the lines that differ once the spans are out, (the
+# port's, the original's).
+BARCODES = (["    order, bc_concat, bc_off = barcodes(stats, lib)"],
+            ["    order = np.asarray([i for _, i in stats.bc_order()], "
+             "np.int64)",
+             "    bc_concat, bc_off = _concat(stats.barcodes)"])
 SPAN_DIFFS = {
     f"{PORT}/native/render.py": [
-        (["from demuxlet_tpu.native.emit import emit"], []),
+        (["from demuxlet_tpu.native.emit import emit",
+          "from demuxlet_tpu.native.order import barcodes"], []),
+        BARCODES,
         (["    args = ("], ["    rc = lib.dmx_render_pass2_compact("]),
         (["    rc = lib.dmx_render_pass2_compact(*args)"], []),
         (["        emit(wsing2, out2, len2.value)",
           "        emit(wbest, outb, lenb.value)"],
          ["        wsing2.write(C.string_at(out2, len2.value).decode())",
           "        wbest.write(C.string_at(outb, lenb.value).decode())"]),
+        BARCODES,
         (["    args = ("], ["    rc = lib.dmx_render_single("]),
         (["    rc = lib.dmx_render_single(*args)"], []),
         (["        emit(fh, out, ln.value)"],

@@ -186,3 +186,95 @@ def test_emit_writes_the_c_bytes(lines):
     fh.write("HEADER\n")
     emit(fh, out, len(raw))
     assert fh.getvalue() == "HEADER\n" + text
+
+
+# ---------------------------------------------------- the barcode order
+
+def _barcodes(kind, n):
+    """``n`` barcodes of one kind: the generator's (16 ACGT letters and
+    "-1"); duplicates and prefixes, up to keys of 16 equal bytes that only
+    the full strings order; 2-, 3- and 4-byte UTF-8 beside ASCII; NULs."""
+    rng = np.random.default_rng(n + len(kind))
+    if kind == "acgt":
+        return ["".join(rng.choice(list("ACGT"), 16)) + "-1"
+                for _ in range(n)]
+    pool = {
+        "ties": ["A", "AA", "AB", "", "B", "AAB", "A" * 16, "A" * 17,
+                 "A" * 16 + "B", "A" * 16 + "AB", "A" * 20, "C" * 15],
+        "utf8": ["A", "\x7f", "\xe9", "\u07ff", "\u0800", "\u20ac",
+                 "\ud7ff", "\ue000", "\uffff", "\U00010000",
+                 "\U0001f600", "\U0010ffff", "A\u20acB", "A\xe9",
+                 "\xe9" * 9, "\xe9" * 8 + "\U0001f600"],
+        "nul": ["A", "A\0", "A\0B", "\0", "", "B\0" * 9, "\xe9\0"],
+    }[kind]
+    return [pool[j] for j in rng.integers(0, len(pool), n)]
+
+
+ORDER_CASES = ([("acgt", n) for n in ROWS[:5] + [100_000]]
+               + [(k, n) for k in ("ties", "utf8", "nul")
+                  for n in (50, 2049, 9000)])
+
+
+@pytest.mark.parametrize("kind,n", ORDER_CASES,
+                         ids=[f"{k}-{n}" for k, n in ORDER_CASES])
+def test_native_order_and_pack(native, kind, n):
+    """``native/order.barcodes``: the order of ``CellStats.bc_order()``
+    (UTF-8 bytes as unsigned, the shorter of a prefix pair first, equal
+    barcodes by cell id) and ``native/render._concat``'s bytes and
+    offsets, with no Python fallback taken."""
+    from demuxlet_tpu_torch.native import order as border
+
+    strs = _barcodes(kind, n)
+    stats = tout.CellStats(barcodes=strs, totl=np.zeros(n, np.int64),
+                           pass_=np.zeros(n, np.int64),
+                           uniq=np.zeros(n, np.int64),
+                           nsnp=np.zeros(n, np.int64))
+    lib = tren._load()
+    before = border.counts(lib)
+    order, bc_concat, bc_off = border.barcodes(stats, lib)
+    assert border.counts(lib) == (before[0] + 1, before[1] + n)
+    assert order.dtype == np.int64
+    assert order.tolist() == [i for _, i in stats.bc_order()]
+    want_concat, want_off = tren._concat(strs)
+    assert bc_concat == want_concat
+    assert bc_off.dtype == np.int64
+    assert bc_off.tolist() == want_off.tolist()
+    if kind == "utf8":
+        assert not bc_concat.isascii()  # 2-, 3- and 4-byte characters
+
+
+@pytest.mark.parametrize("n_stats", [1, 2])
+def test_one_order_a_job(native, n_stats):
+    """Both native renders of one CellStats share one order and one pack
+    (``dmx_order_counts``): a second CellStats, even of the same
+    barcodes, builds its own."""
+    from demuxlet_tpu_torch.native import order as border
+
+    stats, sample_ids, llks, llk0s, comp, grid, filters = _inputs(
+        2049, "degenerate")
+    lib = tren._load()
+    calls, n = border.counts(lib)
+    renders = _counts()[0]
+    got = []
+    for _ in range(n_stats):
+        s = dataclasses.replace(stats)
+        got.append(_render(tout, s, sample_ids, llks, llk0s, comp, grid,
+                           filters))
+        assert border.barcodes(s, lib)[0] is border.barcodes(s, lib)[0]
+    assert border.counts(lib) == (calls + n_stats, n + 2049 * n_stats)
+    assert _counts()[0] == renders + 2 * n_stats
+    assert all(g == got[0] for g in got)
+
+
+@pytest.mark.parametrize("kind", ["ties", "utf8"])
+def test_native_render_bytes_odd_barcodes(native, monkeypatch, kind):
+    """Duplicate, prefix and multi-byte barcodes: the native renders, in
+    the native order, against the Python renderer's bytes."""
+    stats, sample_ids, llks, llk0s, comp, grid, filters = _inputs(
+        1500, "degenerate")
+    stats = dataclasses.replace(stats, barcodes=_barcodes(kind, 1500))
+    got = _render(tout, stats, sample_ids, llks, llk0s, comp, grid, filters)
+    monkeypatch.setattr(tren, "available", lambda: False)
+    want = _render(tout, stats, sample_ids, llks, llk0s, comp, grid,
+                   filters)
+    assert got == want
