@@ -55,8 +55,8 @@ each against its plain PyTorch version on the card. Phases, one line each:
      canonicalize_best, K2' and K3' launched; the parity runs are
      processes of their own, started together);
   9. K7' (pair_tiled_exact) and K6' (extras_exact) against their plain
-     versions at B=2048, S=1024 for (V, A) = (32, 5), (32, 2), (20, 2),
-     (17, 3), a ragged B=40/S=384 case (V=7, A=8: one 8-tile) and the
+     versions at B=2048, S=1024 for (V, A) = (32, 5), (32, 2), (64, 2),
+     (20, 2), (17, 3), a ragged B=40/S=384 case (V=7, A=8: one 8-tile) and the
      deepest pad (V=32, A=2, S=4096): within 1e-9 absolute, K7' and K6'
      bit-equal over two launches, the plane exactly symmetric; kernel ms
      (median of CUDA-event timed launches), plain ms and K7''s and K6''s
@@ -190,6 +190,9 @@ V, NSNPS, S_PER_CELL, N_CELLS, CELL_BLOCK = 8, 50_000, 1000, 20_480, 2048
 GRID = [float(a) for a in np.linspace(0.0, 0.5, 5)]
 # the large pool: the tiled K7' + K6' (exact) and K5' + K4' (fast)
 V_LARGE, GRID_LARGE = 32, [0.0, 0.5]
+# the benchmark's widest pool (kang64_a2, kang64_a2_fast): 10 tile items a
+# cell; its kernel times go into the kernels line beside the main shape's
+V_WIDEST = 64
 # the tiled kernels' cases: (name, B, S, V, grid); "main" is the large pool
 # the dense route's cut: 1,024 cells of the same profile on blocks of 256
 # (its host count slots, (B, S, 2 * (cap_bq + 1)) int32, stay under 2.2 GB
@@ -198,6 +201,7 @@ DENSE_CELLS, DENSE_BLOCK = 1024, 256
 TILED_CASES = (
     ("v32_a5", 2048, 1024, 32, GRID),
     ("main", 2048, 1024, V_LARGE, GRID_LARGE),
+    ("v64", 2048, 1024, V_WIDEST, GRID_LARGE),
     ("v20_a2", 2048, 1024, 20, [0.0, 0.5]),
     ("v17_a3", 2048, 1024, 17, [0.0, 0.25, 0.5]),
     # V*V*A = 392 on one ragged 8-tile
@@ -1786,12 +1790,15 @@ def main() -> int:
     kstat = {k: {"max_abs": 0.0, "max_rel": 0.0}
              for k in ("k1", "k2", "k3", "k4", "k5", "k6", "k7")}
 
-    def record(key, case_is_main, aerr, rerr=None, **at_main):
+    def record(key, case_is_main, aerr, rerr=None, widest=False,
+               **at_main):
         s = kstat[key]
         s["max_abs"] = max(s["max_abs"], aerr)
         s["max_rel"] = None if rerr is None else max(s["max_rel"], rerr)
         if case_is_main:
             s.update(at_main)
+        if widest:  # the V_WIDEST case's times, beside the main shape's
+            s["v64"] = at_main
 
     # ---- 3. K1 against its plain version at the main path's shapes
     rng = np.random.default_rng(0)
@@ -2053,10 +2060,10 @@ def main() -> int:
               k7_plain_ms=plain7, k7_bound_ms=b7[0], k7_bound_by=b7[1],
               k6_ms=ms6, k6_plain_ms=plain6, k6_bound_ms=b6[0],
               k6_bound_by=b6[1])
-        record("k7", name == "main", e7, ms=ms7, plain_ms=plain7,
-               bound_ms=b7[0], bound_by=b7[1])
-        record("k6", name == "main", e6, ms=ms6, plain_ms=plain6,
-               bound_ms=b6[0], bound_by=b6[1])
+        record("k7", name == "main", e7, widest=name == "v64", ms=ms7,
+               plain_ms=plain7, bound_ms=b7[0], bound_by=b7[1])
+        record("k6", name == "main", e6, widest=name == "v64", ms=ms6,
+               plain_ms=plain6, bound_ms=b6[0], bound_by=b6[1])
         del tab, g, t, gl, got7, got6, plane, a7, a6
     torch.cuda.empty_cache()
 
@@ -2140,10 +2147,10 @@ def main() -> int:
               k5_ms=ms5, k5_plain_ms=plain5, k5_bound_ms=b5[0],
               k5_bound_by=b5[1], k4_ms=ms4, k4_plain_ms=plain4,
               k4_bound_ms=b4[0], k4_bound_by=b4[1])
-        record("k5", name == "main", a5err, e5, ms=ms5, plain_ms=plain5,
-               bound_ms=b5[0], bound_by=b5[1])
-        record("k4", name == "main", a4err, e4, ms=ms4, plain_ms=plain4,
-               bound_ms=b4[0], bound_by=b4[1])
+        record("k5", name == "main", a5err, e5, widest=name == "v64",
+               ms=ms5, plain_ms=plain5, bound_ms=b5[0], bound_by=b5[1])
+        record("k4", name == "main", a4err, e4, widest=name == "v64",
+               ms=ms4, plain_ms=plain4, bound_ms=b4[0], bound_by=b4[1])
         del t, gps_t, gp0_t, got5, got4, plane, a5, a4
     torch.cuda.empty_cache()
 
@@ -2235,6 +2242,8 @@ def main() -> int:
                 "max_abs_err": s["max_abs"], "max_rel_err": s["max_rel"],
                 "ms": s["ms"], "plain_ms": s["plain_ms"],
                 "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+                # the tiled kernels at V_WIDEST (B=2048, S=1024, A=2)
+                "v64": s.get("v64"),
                 # no single PyTorch call computes any of these functions
                 "library_ms": None}
 

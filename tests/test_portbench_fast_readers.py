@@ -1,9 +1,10 @@
 """The benchmark's readers of the fast route, on the CPU: the fast pair
 search's roofline share (``portbench/roofline_fast.py``), the fast front's
-device time per 1,000 barcodes and the front's share of dispatch, each
-None without what it reads and a known value on a synthetic window, and
-the fast pair search's work counted over the covered slots the engine's
-blocks hold, whatever the blocking."""
+and the fast pair route's device time per 1,000 barcodes and the front's
+share of dispatch, each None without what it reads and a known value on a
+synthetic window; the fast pair search's work counted over the covered
+slots the engine's blocks hold, whatever the blocking, on the unrolled and
+the tiled route; and the fast cells' entries in the benchmark."""
 
 import json
 import os
@@ -20,6 +21,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 READERS = ("fast_pair_roofline", "fast_front.device_ms_per_kbarcode",
            "dispatch.front.fraction")
+# the fast pair route's kernels and g gather, the fast counterpart of
+# pair_route.device_ms_per_kbarcode (after READERS in the benchmark)
+ROUTE = "fast_pair_route.device_ms_per_kbarcode"
+FAST_CELLS = ["kang8_a2_fast.cells", "kang64_a2_fast.cells"]
+# the cells that came after the fast cell: the 64-donor pool in fast mode
+# and the 14-donor pool's raw lane
+NEW_CELLS = ["kang64_a2_fast.cells", "onek1k14_a2.unfiltered"]
 # the accepted metrics of the layers the fast cell shares with
 # kang8_a2.cells (set-up, prep, wire, dispatch, readback, render, the
 # device's idle share), which the fast cell reports too
@@ -113,6 +121,49 @@ def test_fast_pair_roofline_reads_the_tiled_kernels():
         100.0 * least / 2.0, rel=1e-12)
 
 
+# the tiled fast route's kernels as the card's trace names them, beside
+# the exact route's K7' (the exact 64-donor cell's) that the fast pair
+# route does not read
+TILED_FAST_KERNELS = {
+    "void pair_tiled_fast_kernel<16>(dmx::TiledParams<float>)": 1.5,
+    "void extras_fast_kernel<128>(dmx::ExtrasParams<float>)": 0.5,
+    "void pair_tiled_exact_kernel<16>(dmx::TiledParams<double>)": 4.0,
+}
+
+
+@pytest.mark.parametrize("kernels,dev_s", [
+    # K1 and the g gather (0.5 + 0.03125 s); neither the front's f32
+    # count scatter nor the wire decode's int64 scatter of the same
+    # template, nor the singlet term's log or the decision's GEMV
+    (FAST_KERNELS, 0.53125),
+    # K5' and K4' with the gather, not K7'
+    (dict(TILED_FAST_KERNELS, **{k: v for k, v in FAST_KERNELS.items()
+                                 if "<false" in k}), 2.03125),
+], ids=["k1", "k5_k4"])
+def test_fast_pair_route_reads_its_kernels_and_the_gather(kernels, dev_s):
+    """Three jobs of 1,000, 2,000 and 1,000 barcodes: the fast pair
+    route's device ms per 1,000 barcodes counts the pair search's kernels
+    and the g gather's kernel, and no other kernel."""
+    trace = dict(busy_s=6.0, window_s=7.0, kernel_s=kernels)
+    assert _read(ROUTE, _ctx(trace)) == pytest.approx(1e3 * dev_s / 4.0,
+                                                      rel=1e-12)
+
+
+def test_fast_pair_route_reads_none_without_its_input():
+    """No trace, a trace of none of its kernels (the CPU, or an exact-mode
+    window, whose K7' and f64 pair kernels it does not read), no jobs:
+    None, never 0 and never an error."""
+    bare = dict(busy_s=0.0, window_s=1.0, kernel_s={})
+    exact = dict(busy_s=1.0, window_s=2.0, kernel_s={
+        "void pair_exact_kernel<8, 2>(double*)": 0.5,
+        "void pair_tiled_exact_kernel<16>(dmx::TiledParams<double>)": 1.0,
+        "void extras_exact_kernel<128>(dmx::ExtrasParams<double>)": 0.5,
+        "void front_exact_kernel<true>(double const*, int)": 0.25})
+    for ctx in (_ctx(None), _ctx(bare), _ctx(exact),
+                _ctx(dict(bare, kernel_s=FAST_KERNELS), jobs=0)):
+        assert _read(ROUTE, ctx) is None
+
+
 def test_readers_read_none_without_their_input():
     """No trace (an untraced run), a trace with none of the fast route's
     kernels (the CPU, or an exact-mode window), no jobs, and job records
@@ -131,16 +182,21 @@ def test_readers_read_none_without_their_input():
         assert _read("dispatch.front.fraction", ctx) is None
 
 
-def test_fast_pair_work_counts_the_engines_real_slots(monkeypatch):
+@pytest.mark.parametrize("name,route", [
+    ("kang8_a2_fast", "kernels K1 ("),
+    ("kang64_a2_fast", "kernels K5' + K4' (")])
+def test_fast_pair_work_counts_the_engines_real_slots(monkeypatch, name,
+                                                      route):
     """The fast pair search's work is counted over the covered (cell,
     SNP) slots the engine's blocks hold (their unmasked slots as the fast
     block step decodes them), whatever the blocking, and not over the
-    padded slot axis the blocks give the kernels."""
+    padded slot axis the blocks give the kernels: on the 8-donor pool
+    (K1) and the 64-donor pool (the tiled K5' + K4')."""
     from demuxlet_tpu_torch.host.csr import CsrPileup
     from demuxlet_tpu_torch.models import engine as TE
 
     with open(os.path.join(REPO, "portbench", "configs",
-                           "kang8_a2_fast.json")) as fh:
+                           name + ".json")) as fh:
         cfg = dict(json.load(fh), snps=2000)
     with open(os.path.join(REPO, "portbench", "traffic",
                            "unfiltered.json")) as fh:
@@ -165,7 +221,7 @@ def test_fast_pair_work_counts_the_engines_real_slots(monkeypatch):
                              mode="fast", device=CPU)
         real.clear()
         eng.run_compact(scl, cfg["doublet_prior"])
-        assert eng.route.startswith("kernels K1 (")
+        assert eng.route.startswith(route)
         assert sum(r for r, _ in real) == lib.n_slots
         padded.append(sum(p for _, p in real))
         sizes = dict(cells=lib.n_barcodes, slots=sum(r for r, _ in real),
@@ -180,18 +236,21 @@ def test_fast_pair_work_counts_the_engines_real_slots(monkeypatch):
 
 def test_fast_metrics_in_the_benchmark():
     """The fast route's metrics: per-layer entries after the accepted
-    ones, with their units, sources and layers (names the accepted
-    entries use), each with a reader; the two device metrics in the fast
-    cell alone, the front's share of dispatch in every cell. The fast
-    cell reports them and the accepted metrics of the host layers it
-    shares with kang8_a2.cells, and no metric of the exact route."""
+    ones (and before the fast pair route's device time), with their
+    units, sources and layers (names the accepted entries use), each with
+    a reader; the two device metrics in the two fast cells alone, the
+    front's share of dispatch in every cell. The 8-donor fast cell
+    reports them, the fast pair route's device time and the accepted
+    metrics of the host layers it shares with kang8_a2.cells, and no
+    metric of the exact route."""
     with open(os.path.join(REPO, "BENCHMARK.json")) as fh:
         bench = json.load(fh)
     cells = [w["name"] for w in bench["workloads"]]
-    assert cells[-1] == "kang8_a2_fast.cells"
+    assert cells[-len(NEW_CELLS) - 1:] == ["kang8_a2_fast.cells"] + NEW_CELLS
     entries = {m["name"]: m for m in bench["per_layer"]}
-    assert [m["name"] for m in bench["per_layer"]][-3:] == list(READERS)
-    old_layers = {m["layer"] for m in bench["per_layer"][:-3]}
+    assert [m["name"] for m in bench["per_layer"]][-4:] == list(READERS) + [
+        ROUTE]
+    old_layers = {m["layer"] for m in bench["per_layer"][:-4]}
     want = {"fast_pair_roofline": ("%", "higher", "device_trace"),
             "fast_front.device_ms_per_kbarcode": (
                 "ms/kbarcode", "lower", "device_trace"),
@@ -202,7 +261,7 @@ def test_fast_metrics_in_the_benchmark():
         assert (m["unit"], m["better"], m["source"]) == want[name], name
         assert m["layer"] in old_layers and m["moves"] == "barcodes_per_s"
         assert m["workloads"] == (cells if name == "dispatch.front.fraction"
-                                  else ["kang8_a2_fast.cells"]), name
+                                  else FAST_CELLS), name
         assert os.path.exists(os.path.join(REPO, "portbench", "metrics",
                                            name + ".py"))
     cell, cfg, traffic, e2e, per_layer = harness.load_cell(
@@ -210,7 +269,8 @@ def test_fast_metrics_in_the_benchmark():
     assert cell["chips"] == 1 and cell["traffic"] == "cells"
     assert {m["name"] for m in e2e} == {"barcodes_per_s", "peak_device_gib",
                                         "setup_s"}
-    assert {m["name"] for m in per_layer} == set(READERS + HOST_METRICS)
+    assert {m["name"] for m in per_layer} == set(READERS + HOST_METRICS
+                                                 + (ROUTE,))
     exact_names = {m["name"] for m in harness.load_cell(
         REPO, "kang8_a2.cells")[4]}
     assert set(HOST_METRICS) <= exact_names
@@ -261,3 +321,55 @@ def test_traced_fast_run_reads_the_host_metrics(tmp_path):
     assert all(v > 0 for v in got.values()), got
     assert (got["dispatch.front.fraction"] + got["dispatch.pair.fraction"]
             <= got["dispatch.fraction"])
+
+
+def test_new_cells_in_the_benchmark():
+    """The 64-donor fast cell and the 14-donor raw lane: one chip each,
+    on their configurations and the accepted traffic, after the accepted
+    cells; the fast configuration is kang64_a2 with mode fast and its own
+    limits, nothing cut. The fast cell reports the fast route's device
+    metrics, the fast pair route's device time and the pool metrics the
+    exact 64-donor cell reports but the exact route's, and the idle share;
+    the raw lane every metric whose list holds both kang8_a2.unfiltered
+    and onek1k14_a2.cells, and the tiled roofline. Each list takes the
+    new cells at its end."""
+    with open(os.path.join(REPO, "BENCHMARK.json")) as fh:
+        bench = json.load(fh)
+    cells = {w["name"]: w for w in bench["workloads"]}
+    for name, config, traffic in (
+            ("kang64_a2_fast.cells", "kang64_a2_fast", "cells"),
+            ("onek1k14_a2.unfiltered", "onek1k14_a2", "unfiltered")):
+        w = cells[name]
+        assert (w["config"], w["traffic"], w["chips"]) == (config, traffic,
+                                                           1)
+    entry = next(c for c in bench["configs"]
+                 if c["name"] == "kang64_a2_fast")
+    assert entry["file"] == "portbench/configs/kang64_a2_fast.json"
+    assert entry["reduced"] == []
+    _, cfg, _, e2e, per_layer = harness.load_cell(REPO,
+                                                  "kang64_a2_fast.cells")
+    _, exact_cfg, _, _, exact_layer = harness.load_cell(REPO,
+                                                        "kang64_a2.cells")
+    differ = {k for k in set(cfg) | set(exact_cfg)
+              if cfg.get(k) != exact_cfg.get(k)}
+    assert differ == {"name", "source", "mode", "assumed", "limits"}
+    assert (cfg["mode"], exact_cfg["mode"]) == ("fast", "exact")
+    assert set(cfg["limits"]) == {"rows_gap", "render_lines_off"}
+    assert {m["name"] for m in e2e} == {"barcodes_per_s", "peak_device_gib",
+                                        "setup_s"}
+    exact_only = {"pair_route.device_ms_per_kbarcode", "tiled_pair_roofline"}
+    assert {m["name"] for m in per_layer} == (
+        {m["name"] for m in exact_layer} - exact_only) | {
+            "fast_pair_roofline", "fast_front.device_ms_per_kbarcode",
+            ROUTE, "device.idle_share"}
+    for m in bench["per_layer"]:
+        wl = m["workloads"]
+        raw = ("kang8_a2.unfiltered" in wl and "onek1k14_a2.cells" in wl
+               or m["name"] == "tiled_pair_roofline")
+        assert ("onek1k14_a2.unfiltered" in wl) == raw, m["name"]
+        new = [c for c in wl if c in NEW_CELLS]
+        assert wl[len(wl) - len(new):] == new, m["name"]
+    for name in ("onek1k14_a2.unfiltered", "kang64_a2_fast.cells"):
+        for m in harness.load_cell(REPO, name)[4]:
+            assert os.path.exists(os.path.join(
+                REPO, "portbench", "metrics", m["name"] + ".py"))

@@ -32,8 +32,12 @@ SPAN_CELLS = ["kang8_a2.cells", "onek1k14_a2.cells", "kang8_a2.unfiltered"]
 # the fast-mode cell: the libraries and every host layer of kang8_a2.cells,
 # so it joined the lists of the host layers' metrics when it came
 FAST_CELL = "kang8_a2_fast.cells"
+# the 14-donor pool's raw lane: the cells traffic's host layers and the
+# tiled exact route, so it joined every list that held both the 8-donor raw
+# lane and the 14-donor cells when it came
+RAW_TILED = "onek1k14_a2.unfiltered"
 # the cells that run the exact route
-EXACT_CELLS = SPAN_CELLS + ["kang64_a2.cells"]
+EXACT_CELLS = SPAN_CELLS + ["kang64_a2.cells", RAW_TILED]
 # the metrics of the pair route and the per-line render, for pools of any
 # size: (unit, better, source, layer, the cells they list; None: every
 # cell of the benchmark)
@@ -44,9 +48,11 @@ POOL_METRICS = {
     "dispatch.pair.fraction": (
         "fraction", "lower", "program_counter", "dispatch", None),
     "render.ns_per_line": ("ns/line", "lower", "host_clock", "render", None),
-    # K7' + K6' at their widest: the 64-donor pool alone
+    # K7' + K6': the 64-donor pool at their widest, and the 14-donor raw
+    # lane
     "tiled_pair_roofline": (
-        "%", "higher", "device_trace", "kernels", ["kang64_a2.cells"]),
+        "%", "higher", "device_trace", "kernels",
+        ["kang64_a2.cells", RAW_TILED]),
 }
 
 
@@ -304,8 +310,8 @@ def test_new_readers_read_their_input():
 
 def test_new_metrics_in_the_benchmark():
     """The new metrics are per-layer entries of every cell the benchmark
-    had when they came and of the fast-mode cell, with their units, each
-    with a reader."""
+    had when they came, of the fast-mode cell and of the 14-donor raw
+    lane, with their units, each with a reader."""
     with open(os.path.join(REPO, "BENCHMARK.json")) as fh:
         bench = json.load(fh)
     cells = [w["name"] for w in bench["workloads"]]
@@ -315,10 +321,10 @@ def test_new_metrics_in_the_benchmark():
         m = entries[name]
         assert m["unit"] == unit and m["better"] == "lower"
         assert m["source"] == "program_counter"
-        assert m["workloads"] == SPAN_CELLS + [FAST_CELL]
+        assert m["workloads"] == SPAN_CELLS + [FAST_CELL, RAW_TILED]
         assert os.path.exists(os.path.join(REPO, "portbench", "metrics",
                                            name + ".py"))
-    for cell in SPAN_CELLS + [FAST_CELL]:
+    for cell in SPAN_CELLS + [FAST_CELL, RAW_TILED]:
         per_layer = harness.load_cell(REPO, cell)[4]
         assert set(NEW_METRICS) <= {m["name"] for m in per_layer}
 
@@ -364,9 +370,10 @@ def test_pool_metrics_in_the_benchmark():
     """The pair route's and the per-line render's metrics: per-layer
     entries after the ones accepted before them, in one run, with their
     units, sources and layers (each layer a name those entries use), each
-    with a reader; the tiled roofline in the 64-donor cell alone, the
-    exact pair route's device time in the exact cells, the others in
-    every cell, each cell's line asking its reader."""
+    with a reader; the tiled roofline in the 64-donor cell and the
+    14-donor raw lane, the exact pair route's device time in the exact
+    cells, the others in every cell, each cell's line asking its
+    reader."""
     with open(os.path.join(REPO, "BENCHMARK.json")) as fh:
         bench = json.load(fh)
     cells = [w["name"] for w in bench["workloads"]]

@@ -1,12 +1,13 @@
-"""Fast mode on the 8-donor pool (the benchmark's ``kang8_a2_fast``
-configuration) at a small size on the CPU, through the benchmark's job
-(``portbench.harness.run_job``: ``DemuxEngine(mode="fast")``,
-``run_compact``, the render): the rows within the configuration's
-``rows_gap`` limit of the plain reference in every field and the text the
-reference's rendering of them; the reference in bfloat16 and the faults
-the exact cells' tests plant each read above the limit; the fast .best
-calls equal exact mode's but where exact mode's own LLKs of the two
-choices lie within the limit (the CLI's "calls identical")."""
+"""Fast mode on the 8- and 64-donor pools (the benchmark's
+``kang8_a2_fast`` and ``kang64_a2_fast`` configurations) at a small size
+on the CPU, through the benchmark's job (``portbench.harness.run_job``:
+``DemuxEngine(mode="fast")``, ``run_compact``, the render; the unrolled
+K1 on 8 donors, the tiled K5' + K4' on 64): the rows within the
+configuration's ``rows_gap`` limit of the plain reference in every field
+and the text the reference's rendering of them; the reference in bfloat16
+and the faults the exact cells' tests plant each read above the limit;
+the fast .best calls equal exact mode's but where exact mode's own LLKs of
+the two choices lie within the limit (the CLI's "calls identical")."""
 
 import json
 import os
@@ -21,25 +22,34 @@ from portbench import compare, generator, harness, reference
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 23
+# per configuration: its cell block and the library's cells and median
+# coverage at this size (the 64-donor pool's smaller, so that the plain
+# K5' and K4' stay fast on the CPU), and the route its engine takes
+POOLS = {
+    "kang8_a2_fast": (64, 256, 250, "kernels K1 ("),
+    "kang64_a2_fast": (32, 64, 100, "kernels K5' + K4' ("),
+}
 
 
-@pytest.fixture(scope="module")
-def pool():
-    """(cfg, lib, gps, ref): the fast configuration as the benchmark has
-    it but in blocks of 64 cells, one seeded library of its cells traffic
-    cut to 256 cells of median coverage 250 (four blocks), and the float64
-    reference's decided rows."""
+@pytest.fixture(scope="module", params=list(POOLS))
+def pool(request):
+    """(cfg, lib, gps, ref): a fast configuration as the benchmark has it
+    but in smaller blocks (``POOLS``), one seeded library of its cells
+    traffic cut to a few blocks of cells at a lower median coverage, and
+    the float64 reference's decided rows."""
     torch.set_num_threads(2)
+    block, cells, median, _ = POOLS[request.param]
     with open(os.path.join(REPO, "portbench", "configs",
-                           "kang8_a2_fast.json")) as fh:
-        cfg = dict(json.load(fh), cell_block=64)
+                           request.param + ".json")) as fh:
+        cfg = dict(json.load(fh), cell_block=block)
     with open(os.path.join(REPO, "portbench", "traffic",
                            "cells.json")) as fh:
-        traffic = dict(json.load(fh), cells=256)
-    traffic["cell_coverage"] = dict(traffic["cell_coverage"], median=250)
+        traffic = dict(json.load(fh), cells=cells)
+    traffic["cell_coverage"] = dict(traffic["cell_coverage"], median=median)
     gt, gps = generator.pool_gps(cfg, SEED, CPU)
     lib = generator.make_library(cfg, traffic, gt, SEED, 0, CPU)
-    ref = reference.decide(reference.llks(lib, gps, cfg, CPU), cfg)
+    ref = reference.decide(reference.llks(lib, gps, cfg, CPU, chunk=1 << 12),
+                           cfg)
     return cfg, lib, gps, ref
 
 
@@ -67,7 +77,7 @@ def test_fast_rows_within_the_limit(pool, fast_job):
     reference renders them."""
     cfg, lib, _, ref = pool
     rec, rows, texts = fast_job
-    assert rec["route"].startswith("kernels K1 (")
+    assert rec["route"].startswith(POOLS[cfg["name"]][3])
     gap, field = _gap(rows, ref, cfg)
     assert 0.0 < gap <= cfg["limits"]["rows_gap"], field
     stats = dict(barcodes=lib.barcodes, totl=lib.totl, pass_=lib.pass_,
@@ -111,8 +121,8 @@ def test_control_and_faults_read_above_the_limit(pool, fast_job,
     limit = cfg["limits"]["rows_gap"]
     if fault == "bfloat16":
         rows = reference.decide(
-            reference.llks(lib, gps, cfg, CPU, dtype=torch.bfloat16), cfg,
-            dtype=np.float32)
+            reference.llks(lib, gps, cfg, CPU, dtype=torch.bfloat16,
+                           chunk=1 << 12), cfg, dtype=np.float32)
     elif fault == "call":
         rows = {k: np.array(v, copy=True) for k, v in fast_job[1].items()}
         c = int(np.argmax(ref["sing_col"].max(1) - ref["max_sing2"]))
@@ -186,3 +196,36 @@ def test_fast_calls_equal_exact_calls(pool, fast_job):
     for c in np.flatnonzero([g != w for g, w in zip(got, want)]):
         assert _choice_gap(exact, fast, ab, c, V, A) < limit, (
             c, got[c], want[c])
+
+
+def test_engine_route_and_tile_items(pool):
+    """The engine's route and its tiled pair kernel's work at the
+    configuration's pool: on 64 donors K5' + K4' (never K1) over the
+    symmetric plane's 10 upper-triangle 16-tiles, ``pair_tile_items``
+    counting the plan's items for every block shipped; on 8 donors K1 and
+    no tile item."""
+    from demuxlet_tpu_torch.host.csr import CsrPileup
+    from demuxlet_tpu_torch.models.engine import DemuxEngine
+    from demuxlet_tpu_torch.ops.pair_tiled import plan_tiles
+
+    cfg, lib, gps, _ = pool
+    V, grid = cfg["donors"], cfg["grid_alpha"]
+    scl = CsrPileup(lib.sample_ids, lib.nsnps, lib.barcodes, lib.totl,
+                    lib.pass_, lib.uniq, lib.cell_ptr, lib.obs_snp,
+                    lib.obs_allele, lib.obs_bq)
+    eng = DemuxEngine(gps, grid, cap_bq=cfg["cap_bq"],
+                      cell_block=cfg["cell_block"],
+                      slot_chunk=cfg["slot_chunk"], mode=cfg["mode"],
+                      device=CPU)
+    eng.run_compact(scl, cfg["doublet_prior"])
+    assert eng.route.startswith(POOLS[cfg["name"]][3])
+    plan = plan_tiles(V, len(grid), grid[0] == 0.0, grid.index(0.5))
+    blocks = -(-lib.n_barcodes // cfg["cell_block"])
+    if V == 64:
+        assert (plan.tile, len(plan.items), plan.alist) == (16, 10, (1,))
+        assert eng.counts["pair_tile_items"] == blocks * len(plan.items)
+        # the (3V+3, B, S) f32 g rows of every block's shipped slots
+        assert eng.counts["g_bytes"] == (3 * V + 3) * 4 * eng.counts[
+            "slots_kernel"]
+    else:
+        assert plan is None and eng.counts["pair_tile_items"] == 0

@@ -256,6 +256,8 @@ def cuda_device():
 @pytest.mark.parametrize("B,S,V,grid", [
     (16, 256, 32, _grid(5)),
     (16, 256, 32, [0.0, 0.5]),
+    # the benchmark's widest pool (kang64_a2_fast): 10 tile items a cell
+    (16, 256, 64, [0.0, 0.5]),
     (40, 384, 7, _grid(8)),  # ragged edge, 8-tiles
     (40, 384, 17, _grid(3)),  # ragged edge, 16-tiles
     (33, 200, 20, [0.0, 0.5]),
